@@ -20,9 +20,9 @@ costs int64.
 Float islands: the lambda adaptation uses C doubles (pobFetchPredictors
 PlaneOfBlocks.cpp:461-462), reproduced here in float64 on the device.
 
-Ported: luma only, no overlap, dct 0, pel 1/2, 8-bit, searches HEX2 and
-EXHAUSTIVE, no trymany/divide/field_shift, every level on the dense SAD
-map.  Anything else raises NotImplementedError.
+Ported: luma and chroma, overlapped block grids, dct 0, pel 1/2, 8-bit,
+searches HEX2 and EXHAUSTIVE, no trymany/divide/field_shift, every level on
+the dense SAD map.  Anything else raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ from . import field_engine as fe
 from .core import geometry
 from .core.config import AnalyseSpec
 from .core.types import MVField, MVPlaneField, SearchType
-from .ops import probe as probe_ops
 from .ops import sad as sad_ops
 from .ops.pad import edge_pad
 from .super import Super
@@ -55,8 +54,10 @@ class LevelCtx(NamedTuple):
     pel: int            # this level's pel (1 except finest)
     log_pel: int
     blk_size: Tuple[int, int]       # (bsx, bsy) luma
+    blk_size_c: Tuple[int, int]     # chroma
     nblk: Tuple[int, int]           # (nblkx, nblky)
     overlap: Tuple[int, int]
+    log_ratio_uv: Tuple[int, int]   # (log2 xRatioUV, log2 yRatioUV)
     hpad: Tuple[int, int]           # (luma, chroma)
     vpad: Tuple[int, int]
     padded: Tuple[int, int]         # luma (pw, ph)
@@ -92,18 +93,79 @@ class DenseEvaluator:
         self.ctx = ctx
         self.pad = pad
         bsx, bsy = ctx.blk_size
+        bcx, bcy = ctx.blk_size_c
+        ovx, ovy = ctx.overlap
         nbx, nby = ctx.nblk
-        if ctx.overlap != (0, 0):
-            raise NotImplementedError("overlap > 0 is not ported")
-        hpad, vpad = ctx.hpad[0], ctx.vpad[0]
+        logx, logy = ctx.log_ratio_uv
+        hpad, hpad_c = ctx.hpad
+        vpad, vpad_c = ctx.vpad
         # luma block-grid region and padded ref stack
-        self.hr = nby * bsy
-        self.wr = nbx * bsx
+        self.hr = (nby - 1) * (bsy - ovy) + bsy
+        self.wr = (nbx - 1) * (bsx - ovx) + bsx
         self.src_region = ctx.src_planes[0][
             :, vpad:vpad + self.hr, hpad:hpad + self.wr].to(torch.int16)
         self.ref_pad = edge_pad(ctx.ref_stacks[0], pad, pad, pad, pad)
         self.base_y = vpad + pad
         self.base_x = hpad + pad
+        if ctx.chroma:
+            pc = max(pad >> logx, pad >> logy, 2)
+            self.hr_c = (nby - 1) * ((bsy - ovy) >> logy) + bcy
+            self.wr_c = (nbx - 1) * ((bsx - ovx) >> logx) + bcx
+            self.src_regions_c = tuple(
+                ctx.src_planes[p][:, vpad_c:vpad_c + self.hr_c,
+                                  hpad_c:hpad_c + self.wr_c].to(torch.int16)
+                for p in (1, 2))
+            self.ref_pads_c = tuple(edge_pad(ctx.ref_stacks[p], pc, pc, pc, pc)
+                                    for p in (1, 2))
+            self.base_y_c = vpad_c + pc
+            self.base_x_c = hpad_c + pc
+
+    @staticmethod
+    def _block_sums(diff, bs, ov, nb):
+        """Per-block sums of `diff` [J, hr, wr] over a (possibly
+        overlapped) regular block grid -> [J, nblk] int64.
+
+        Where the block pitch divides the block size (no overlap, overlap
+        of half a block) the region is cut into pitch-sized cells, the
+        cells are summed, and a block is the sum of its cells.  Any other
+        overlap goes through an int64 integral image; the corner reads are
+        strided slices because the block origins form a regular grid."""
+        bsx, bsy = bs
+        ovx, ovy = ov
+        nbx, nby = nb
+        sy, sx = bsy - ovy, bsx - ovx
+        if bsy % sy == 0 and bsx % sx == 0:
+            ky, kx = bsy // sy, bsx // sx
+            cells = diff.reshape(-1, nby - 1 + ky, sy, nbx - 1 + kx,
+                                 sx).sum(dim=(2, 4), dtype=I64)
+            s = cells[:, :nby, :nbx].clone()
+            for j in range(ky):
+                for i in range(kx):
+                    if j or i:
+                        s += cells[:, j:j + nby, i:i + nbx]
+            return s.reshape(-1, nby * nbx)
+        integ = torch.nn.functional.pad(
+            diff.to(I64).cumsum(dim=1).cumsum(dim=2), (1, 0, 1, 0))
+
+        def corners(oy, ox):
+            return integ[:, oy:oy + (nby - 1) * sy + 1:sy,
+                         ox:ox + (nbx - 1) * sx + 1:sx]
+
+        return (corners(bsy, bsx) - corners(bsy, 0) - corners(0, bsx)
+                + corners(0, 0)).reshape(-1, nby * nbx)
+
+    @staticmethod
+    def _shifted_sads(src_region, ref_pad, idx, sy, sx, bs, ov, nb):
+        """[J, nblk] int64 SADs of the block grid of src_region [J, hr, wr]
+        against subplane idx of ref_pad at region origin (sy, sx); an
+        origin outside the padded plane clamps, as a window slice would."""
+        hr, wr = src_region.shape[-2:]
+        hp, wp = ref_pad.shape[-2:]
+        sy = min(max(sy, 0), hp - hr)
+        sx = min(max(sx, 0), wp - wr)
+        region = ref_pad[:, idx, sy:sy + hr, sx:sx + wr]
+        diff = (src_region - region.to(torch.int16)).abs_()
+        return DenseEvaluator._block_sums(diff, bs, ov, nb)
 
     def luma_sads(self, vx: int, vy: int) -> torch.Tensor:
         """[J, nblk] int64 luma SAD at the uniform pel-units displacement
@@ -113,17 +175,32 @@ class DenseEvaluator:
         ctx = self.ctx
         pelm = ctx.pel - 1
         logp = ctx.log_pel
-        bsx, bsy = ctx.blk_size
-        nbx, nby = ctx.nblk
         idx = (vx & pelm) | ((vy & pelm) << logp)
-        hp, wp = self.ref_pad.shape[-2:]
-        # a start outside the padded plane clamps, as a window slice would
-        sy = min(max(self.base_y + (vy >> logp), 0), hp - self.hr)
-        sx = min(max(self.base_x + (vx >> logp), 0), wp - self.wr)
-        region = self.ref_pad[:, idx, sy:sy + self.hr, sx:sx + self.wr]
-        diff = (self.src_region - region.to(torch.int16)).abs_()
-        s = diff.reshape(-1, nby, bsy, nbx, bsx).sum(dim=(2, 4))
-        return s.reshape(-1, nby * nbx)
+        return self._shifted_sads(
+            self.src_region, self.ref_pad, idx, self.base_y + (vy >> logp),
+            self.base_x + (vx >> logp), ctx.blk_size, ctx.overlap, ctx.nblk)
+
+    def chroma_sads(self, vx: int, vy: int):
+        """[J, nblk] int64 U + V SAD at the chroma position of the uniform
+        luma displacement (vx, vy); the division by the subsampling ratio
+        truncates toward zero (pobGetRefBlockU/V PlaneOfBlocks.cpp:57-77).
+        The int 0 without chroma."""
+        ctx = self.ctx
+        if not ctx.chroma:
+            return 0
+        pelm = ctx.pel - 1
+        logp = ctx.log_pel
+        logx, logy = ctx.log_ratio_uv
+        tx = (vx + ((1 << logx) - 1 if vx < 0 else 0)) >> logx
+        ty = (vy + ((1 << logy) - 1 if vy < 0 else 0)) >> logy
+        idx = (tx & pelm) | ((ty & pelm) << logp)
+        ov = (ctx.overlap[0] >> logx, ctx.overlap[1] >> logy)
+        total = 0
+        for src_region, ref_pad in zip(self.src_regions_c, self.ref_pads_c):
+            total = total + self._shifted_sads(
+                src_region, ref_pad, idx, self.base_y_c + (ty >> logp),
+                self.base_x_c + (tx >> logp), ctx.blk_size_c, ov, ctx.nblk)
+        return total
 
     def check_uniform(self, field, offsets, bounds, pred, lam, pnew,
                       active):
@@ -141,25 +218,32 @@ class DenseEvaluator:
         bsad, mincost = field["bsad"], field["mincost"]
         for vx, vy in offsets:
             ls = self.luma_sads(vx, vy)
+            cs = self.chroma_sads(vx, vy)
             ok = (active & (vx >= dxmin) & (vy >= dymin)
                   & (vx < dxmax) & (vy < dymax))
             dx = px - vx
             dy = py - vy
             dist = (dx * dx + dy * dy).to(I32)
             md = ((lam * dist.to(I64)) >> 8).to(I32).to(I64)
-            cost = md + ls + ((pnew * ls) >> 8)
+            cost = md + ls + cs + ((pnew * ls) >> 8) + ((pnew * cs) >> 8)
             improve = ok & (cost < mincost)
             bx = torch.where(improve, vx, bx)
             by = torch.where(improve, vy, by)
-            bsad = torch.where(improve, ls, bsad)
+            bsad = torch.where(improve, ls + cs, bsad)
             mincost = torch.where(improve, cost, mincost)
         return dict(bx=bx, by=by, bsad=bsad, mincost=mincost)
 
 
-def _blocks_of(plane, base_y, base_x, nb_y, nb_x, bh, bw):
-    """[J, nblk, bh, bw] blocks of a regular non-overlapping grid."""
-    region = plane[:, base_y:base_y + nb_y * bh, base_x:base_x + nb_x * bw]
-    return (region.reshape(-1, nb_y, bh, nb_x, bw).permute(0, 1, 3, 2, 4)
+def _blocks_of(plane, base_y, base_x, nb_y, nb_x, bh, bw, step_y=None,
+               step_x=None):
+    """[J, nblk, bh, bw] blocks of a regular grid with pitch (step_y,
+    step_x), default the block size; overlapped grids are strided views
+    copied once."""
+    step_y = bh if step_y is None else step_y
+    step_x = bw if step_x is None else step_x
+    region = plane[:, base_y:base_y + (nb_y - 1) * step_y + bh,
+                   base_x:base_x + (nb_x - 1) * step_x + bw]
+    return (region.unfold(1, bh, step_y).unfold(2, bw, step_x)
             .reshape(-1, nb_y * nb_x, bh, bw))
 
 
@@ -179,13 +263,15 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
     nbx, nby = ctx.nblk
     nblk = nbx * nby
     bsx, bsy = ctx.blk_size
-    hpad, vpad = ctx.hpad[0], ctx.vpad[0]
+    bcx, bcy = ctx.blk_size_c
+    ovx, ovy = ctx.overlap
+    logx, logy = ctx.log_ratio_uv
+    hpad, hpad_c = ctx.hpad
+    vpad, vpad_c = ctx.vpad
     pw, ph = ctx.padded
     logp = ctx.log_pel
     level = ctx.level
     dev = ctx.src_planes[0].device
-    if ctx.overlap != (0, 0):
-        raise NotImplementedError("overlap > 0 is not ported")
     if level_params["dctmode"]:
         raise NotImplementedError("dct != 0 is not ported")
     if rescue_mode not in ("inline", "defer", "apply"):
@@ -209,16 +295,23 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
     else:
         scan_dir_a = torch.ones_like(idx)
 
-    x0_a = hpad + bsx * blkx_a
-    y0_a = vpad + bsy * blky_a
+    x0_a = hpad + (bsx - ovx) * blkx_a
+    y0_a = vpad + (bsy - ovy) * blky_a
+    xc_a = hpad_c + ((bsx - ovx) >> logx) * blkx_a
+    yc_a = vpad_c + ((bsy - ovy) >> logy) * blky_a
     dxmax_a = ((pw - bsx - hpad + hps) - x0_a) << logp
     dymax_a = ((ph - bsy - vpad + vps) - y0_a) << logp
     dxmin_a = -((x0_a - (hpad - hps)) << logp)
     dymin_a = -((y0_a - (vpad - vps)) << logp)
     lam0_a = torch.where(blky_a == 0, 0, lambda_level).to(torch.float64)
 
-    src_blocks = _blocks_of(ctx.src_planes[0], vpad, hpad, nby, nbx, bsy,
-                            bsx)
+    src_blocks = [_blocks_of(ctx.src_planes[0], vpad, hpad, nby, nbx, bsy,
+                             bsx, bsy - ovy, bsx - ovx)]
+    if ctx.chroma:
+        src_blocks += [
+            _blocks_of(ctx.src_planes[p], vpad_c, hpad_c, nby, nbx, bcy, bcx,
+                       (bsy - ovy) >> logy, (bsx - ovx) >> logx)
+            for p in (1, 2)]
 
     # static per-row scan direction for the grid-shift predictor fetch
     # ([nby, 1] bool: True = raster order, i.e. predecessor left)
@@ -287,9 +380,9 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
         raise NotImplementedError(
             f"level {level}: the plane cannot ride the dense SAD map; the "
             "probe-only search that serves such levels is not ported")
-    stack = probe_ops.pad_stack(ctx.ref_stacks[0], fe.FieldProber.PAD)
-    prober = fe.FieldProber(ctx, src_blocks, x0_a, y0_a, bounds, pnew,
-                            stack=stack)
+    stacks = fe.pad_stacks(ctx)
+    prober = fe.FieldProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
+                            pnew, stacks=stacks)
     if level_params["badrange"] > 0:
         max_off = level_params["badrange"] * ctx.pel + 4
     elif level_params["badrange"] < 0:
@@ -316,8 +409,8 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
         lsad_f = float(lsad_const)
         scale = lsad_f / (lsad_f + (prs >> 1).to(torch.float64))
         lam_a = ((lam0_a * scale) * scale).to(I64)
-        p_it = fe.MapProber(ctx, src_blocks, x0_a, y0_a, bounds, pnew,
-                            pred_vx=prx, pred_vy=pry, stack=stack)
+        p_it = fe.MapProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
+                            pnew, pred_vx=prx, pred_vy=pry, stacks=stacks)
         # the bad-SAD rescue runs once per reference block pass;
         # intermediate Jacobi sweeps skip it
         st = fe.field_epz(p_it, dense, level_params, gx_scaled, gy_scaled,
@@ -328,9 +421,9 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
         vx_a, vy_a, vs_a = st["bx"], st["by"], st["bsad"]
     if smallest:
         ref0_blocks = _blocks_of(ctx.ref_stacks[0][:, 0], vpad, hpad, nby,
-                                 nbx, bsy, bsx)
+                                 nbx, bsy, bsx, bsy - ovy, bsx - ovx)
         sumluma = (sad_ops.luma(ref0_blocks)
-                   - sad_ops.luma(src_blocks)).sum(dim=-1)
+                   - sad_ops.luma(src_blocks[0])).sum(dim=-1)
         mean_luma_change = _trunc_div(sumluma, nblk).to(I32)
     if rescue_mode == "defer":
         resc = dict(bx=vx_a, by=vy_a, bsad=vs_a, mincost=st["mincost"],
@@ -386,8 +479,8 @@ def interpolate_prediction(coarse, nbx2: int, nby2: int, nbx: int, nby: int,
     """Interpolate level lv+1 vectors [J, nby2*nbx2] to the level lv grid
     [J, nby*nbx].  Returns (x, y, sad) flat tensors."""
     cvx, cvy, cvs = coarse
-    if tuple(overlap) != (0, 0):
-        raise NotImplementedError("overlap > 0 is not ported")
+    bsx, bsy = blk_size
+    ovx, ovy = overlap
     dev = cvx.device
     norm_factor = 3 - log_pel_fine  # coarse level pel is always 1
     mul_factor = -norm_factor if norm_factor < 0 else 0
@@ -415,8 +508,25 @@ def interpolate_prediction(coarse, nbx2: int, nby2: int, nbx: int, nby: int,
         xy = a2[:, j2y[:, None], i2x[None, :]]
         return cc, cx, cy, xy
 
+    if ovx or ovy:
+        if ovx > bsx // 2 or ovy > bsy // 2:
+            raise ValueError("interpolate_prediction: overlap larger than "
+                             "half a block")
+        # area weights of the four coarse vectors under an overlapped grid
+        ax1 = torch.where(offx > 0, bsx * 3 - ovx * 2,
+                          bsx * 3 - ovx * 4)[None, :]
+        ax2 = (bsx - ovx) * 4 - ax1
+        ay1 = torch.where(offy > 0, bsy * 3 - ovy * 2,
+                          bsy * 3 - ovy * 4)[:, None]
+        ay2 = (bsy - ovy) * 4 - ay1
+        weights = (ax1 * ay1, ax2 * ay1, ax1 * ay2, ax2 * ay2)
+        # two operations in C doubles: multiply by the reciprocal, truncate
+        scaleov = 1.0 / ((bsx - ovx) * (bsy - ovy))
+    else:
+        weights = (9, 3, 3, 1)
+
     out = []
-    for cv in (cvx, cvy, cvs.to(I64)):
+    for cv in (cvx.to(I64), cvy.to(I64), cvs.to(I64)):
         cc, cx, cy, xy = corners(cv)
         # v1..v4 per the three cases (PlaneOfBlocks.cpp:1470-1485)
         v2 = torch.where(edge_x | edge_y, cc, cx)
@@ -424,11 +534,18 @@ def interpolate_prediction(coarse, nbx2: int, nby2: int, nbx: int, nby: int,
                          torch.where(edge_x, cy, torch.where(edge_y, cx, cy)))
         v4 = torch.where(edge_x & edge_y, cc,
                          torch.where(edge_x, cy, torch.where(edge_y, cx, xy)))
-        out.append(9 * cc + 3 * v2 + 3 * v3 + v4)
+        out.append(weights[0] * cc + weights[1] * v2 + weights[2] * v3
+                   + weights[3] * v4)
     x, y, sad = out
+    if ovx or ovy:
+        x = (x.to(torch.float64) * scaleov).to(I32)
+        y = (y.to(torch.float64) * scaleov).to(I32)
+        sad = (sad.to(torch.float64) * scaleov).to(I64)
+    else:
+        sad = sad + 8
     x = (x >> norm_factor) * (1 << mul_factor)
     y = (y >> norm_factor) * (1 << mul_factor)
-    sad = (sad + 8) >> 4
+    sad = sad >> 4
     return (x.to(I32).reshape(-1, nby * nbx), y.to(I32).reshape(-1, nby * nbx),
             sad.reshape(-1, nby * nbx))
 
@@ -455,15 +572,22 @@ def _level_ctx(sspec, spec: AnalyseSpec, level: int, src_supers=None,
         m.overlap_y, level)
     src_planes = ref_stacks = ()
     if src_supers is not None:
-        src = src_supers.planes[0][level]
-        ref = ref_supers.planes[0][level]
-        src_planes = (src[:, 0].contiguous() if src.ndim == 4 else src,)
-        ref_stacks = (ref if ref.ndim == 4 else ref[:, None],)
+        srcs = [src_supers.planes[p][level]
+                for p in range(3 if spec.chroma else 1)]
+        refs = [ref_supers.planes[p][level]
+                for p in range(3 if spec.chroma else 1)]
+        src_planes = tuple(a[:, 0].contiguous() if a.ndim == 4 else a
+                           for a in srcs)
+        ref_stacks = tuple(a if a.ndim == 4 else a[:, None] for a in refs)
+    logx = geometry.ilog2(sspec.x_ratio_uv)
+    logy = geometry.ilog2(sspec.y_ratio_uv)
     return LevelCtx(
         src_planes=src_planes, ref_stacks=ref_stacks, level=level, pel=pel,
         log_pel=geometry.ilog2(pel),
-        blk_size=(m.blk_size_x, m.blk_size_y), nblk=(nbx, nby),
-        overlap=(m.overlap_x, m.overlap_y),
+        blk_size=(m.blk_size_x, m.blk_size_y),
+        blk_size_c=(m.blk_size_x >> logx, m.blk_size_y >> logy),
+        nblk=(nbx, nby), overlap=(m.overlap_x, m.overlap_y),
+        log_ratio_uv=(logx, logy),
         hpad=(g.hpad, gc.hpad), vpad=(g.vpad, gc.vpad),
         padded=(g.padded_width, g.padded_height),
         bits=sspec.bits, chroma=spec.chroma)
@@ -525,8 +649,6 @@ def batch_supported(spec: AnalyseSpec, sspec) -> bool:
 def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
     m = spec.meta
     unported = [
-        (spec.chroma, "chroma=True"),
-        (m.overlap_x or m.overlap_y, "overlap > 0"),
         (spec.dct != 0, "dct != 0"),
         (sspec.pel == 4, "pel=4"),
         (sspec.bits != 8, "16-bit clips"),
@@ -537,6 +659,9 @@ def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"Analyse: {what} is not ported")
+    if spec.chroma and not sspec.chroma:
+        raise ValueError("Analyse: chroma=True needs a super clip with "
+                         "chroma planes")
     for lv in range(m.lv_count):
         search = _level_plan(spec, lv)["search"]
         if search not in (SearchType.HEX2, SearchType.EXHAUSTIVE):
@@ -545,8 +670,8 @@ def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
                 "(HEX2 and EXHAUSTIVE are)")
     if not batch_supported(spec, sspec):
         raise NotImplementedError(
-            "Analyse: some pyramid level is too small for the dense SAD "
-            "map; the per-block probe search for such levels is not ported")
+            "Analyse: some pyramid level cannot ride the dense SAD map; the "
+            "probe-only search for such levels is not ported")
 
 
 def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,

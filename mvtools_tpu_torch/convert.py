@@ -32,6 +32,17 @@ def require_device(device) -> torch.device:
     return dev
 
 
+def clip_from_numpy(planes: Sequence[np.ndarray], device="cuda"):
+    """[Y] or [Y, U, V] numpy planes ([T, H, W] uint8 each) -> the list of
+    tensors on `device` that build_super and degrain_clip take."""
+    dev = require_device(device)
+    return [torch.from_numpy(np.ascontiguousarray(p)).to(dev) for p in planes]
+
+
+def clip_to_numpy(planes: Sequence[torch.Tensor]):
+    return [p.cpu().numpy() for p in planes]
+
+
 def super_spec_from_dict(d: dict) -> SuperSpec:
     return SuperSpec(**dict(d, family=ColorFamily(int(d["family"]))))
 
@@ -56,8 +67,9 @@ def spec_to_dict(spec) -> dict:
 
 def super_from_numpy(planes: Sequence[Sequence[np.ndarray]], spec: SuperSpec,
                      device="cuda") -> Super:
-    """planes[p][level] numpy arrays (level 0 [(F,) pel^2, PH, PW], deeper
-    levels [(F,) PH, PW]) -> Super on `device`."""
+    """planes[p][level] numpy arrays, one entry per color plane (level 0
+    [(F,) pel^2, PH, PW], deeper levels [(F,) PH, PW]) -> Super on
+    `device`."""
     dev = require_device(device)
     return Super(tuple(tuple(torch.from_numpy(np.ascontiguousarray(lv)).to(dev)
                              for lv in p) for p in planes), spec)

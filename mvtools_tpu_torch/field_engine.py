@@ -10,9 +10,9 @@ an explicit leading job axis: [J, nblk].  Every stage is one of:
   whole-plane shift + box sums.
 * `MapProber.check`: per-block candidates looked up in the dense SAD map
   (ops/sadmap.py, one kernel pass per level).
-* `FieldProber.check`: per-block candidates probed with the tiled probe
-  kernel (ops/probe.py) — the bad-SAD rescue, which walks far from the map
-  anchor.
+* `FieldProber.check`: per-block candidates probed with the probe kernels
+  (ops/probe.py: tiled, or per block on planes too small for a tile
+  window) — the bad-SAD rescue, which walks far from the map anchor.
 
 Data-dependent search trajectories (hex2's direction walk) become
 field-level loops whose candidate sets are static supersets gated by
@@ -23,7 +23,8 @@ batch minimum wins, as the reference's strict `cost < mincost` update does.
 
 Not bit-exact vs the reference's sequential engine by design: neighbour
 predictors lag one Jacobi iteration and badcount feedback is per-block.
-Only the luma, no-overlap, plain-SAD (dct 0) path is ported.
+Only the plain-SAD (dct 0) path is ported; chroma and overlapped block
+grids are.
 """
 
 from __future__ import annotations
@@ -73,47 +74,131 @@ def _pick(t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return t.gather(-1, k[..., None])[..., 0]
 
 
-class FieldProber:
-    """Per-block probe evaluation through the tiled probe kernel.
+def _sat_add(a, b):
+    """int64 sum of two int32 SAD tensors — int32 addition would wrap when
+    both carry the tiled probe's INVALID_SAD sentinel."""
+    return a.to(I64) + b.to(I64)
 
-    Holds the padded subplane stack and per-block static context of one
+
+def _offset_tensors(offsets, device):
+    return (_const(tuple(int(o[0]) for o in offsets), I32, device),
+            _const(tuple(int(o[1]) for o in offsets), I32, device))
+
+
+class FieldProber:
+    """Per-block probe evaluation through the probe kernels.
+
+    Holds the padded subplane stacks and per-block static context of one
     pyramid level.  All check* methods take and return a field state dict
     of [J, nblk] tensors (bx, by, bsad, mincost, dir).
     """
 
     PAD = 16  # full-pel window padding beyond the frame's own padding
 
-    def __init__(self, ctx, src_blocks, x0_a, y0_a, bounds, pnew,
-                 stack=None):
-        if ctx.chroma:
-            raise NotImplementedError("chroma=True: only luma search is ported")
+    def __init__(self, ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds, pnew,
+                 stacks=None):
+        """src_blocks: per color plane [J, nblk, bs_y, bs_x] uint8 (luma, or
+        luma, U, V with ctx.chroma); stacks: the padded stacks of
+        pad_stacks(ctx), made here when not given."""
         self.ctx = ctx
         self.pel = ctx.pel
         self.logp = ctx.log_pel
         self.bs = ctx.blk_size
+        self.bsc = ctx.blk_size_c
+        self.chroma = ctx.chroma
         self.bounds = bounds
         self.pnew = pnew
-        self.src_blocks = src_blocks                  # [J, nblk, bsy, bsx] u8
-        self.stack = (probe_ops.pad_stack(ctx.ref_stacks[0], self.PAD)
-                      if stack is None else stack)
+        self.src_blocks = src_blocks[0]
+        if stacks is None:
+            stacks = pad_stacks(ctx)
+        self.stack = stacks[0]
         # block origin in padded pel coordinates, [nblk]
         self.base_y = (y0_a + self.PAD) << self.logp
         self.base_x = (x0_a + self.PAD) << self.logp
         self.nbx = ctx.nblk[0]
         self.pitch_x = ctx.blk_size[0] - ctx.overlap[0]
+        logx, logy = ctx.log_ratio_uv
+        self.pitch_xc = max(1, self.pitch_x >> logx)
+        if ctx.chroma:
+            self.padc = chroma_pad(ctx)
+            self.stack_u, self.stack_v = stacks[1], stacks[2]
+            self.src_u_blocks, self.src_v_blocks = src_blocks[1:3]
+            self.cbase_y = (yc_a + self.padc) << self.logp
+            self.cbase_x = (xc_a + self.padc) << self.logp
 
     # -- raw SAD evaluation -------------------------------------------------
 
+    def _probe(self, stack, cy, cx, src, offsets, bs_y, bs_x, pitch):
+        """[J, nblk, K, D] int32 through the tiled probe; a candidate
+        outside its tile's window reports INVALID_SAD and loses every cost
+        comparison (the dense zero trial guarantees a real bound).  A plane
+        too small for the tile window takes the per-block probe instead."""
+        return probe_ops.probe_sads_tiled(
+            stack, cy.contiguous(), cx.contiguous(), src, offsets, bs_y,
+            bs_x, self.pel, row_len=self.nbx, pitch_x=pitch)
+
+    def _cpos(self, v, log_ratio: int):
+        """Chroma coordinate of a luma pel vector: division by the
+        subsampling ratio that truncates toward zero (the negative-bias
+        rounding of pobGetRefBlockU/V, PlaneOfBlocks.cpp:57-77)."""
+        return (v + (v < 0).to(I32) * ((1 << log_ratio) - 1)) >> log_ratio
+
     def luma_sads(self, vx, vy, offsets=((0, 0),)):
         """[J, nblk, D] int64 luma SADs at per-block candidates (vx, vy) +
-        static pel offsets; candidates outside their tile's window report
-        INVALID_SAD."""
-        cy = (self.base_y + vy)[..., None].contiguous()
-        cx = (self.base_x + vx)[..., None].contiguous()
-        out = probe_ops.probe_sads_tiled(
-            self.stack, cy, cx, self.src_blocks, offsets, self.bs[1],
-            self.bs[0], self.pel, row_len=self.nbx, pitch_x=self.pitch_x)
+        static pel offsets."""
+        cy = (self.base_y + vy)[..., None]
+        cx = (self.base_x + vx)[..., None]
+        out = self._probe(self.stack, cy, cx, self.src_blocks, offsets,
+                          self.bs[1], self.bs[0], self.pitch_x)
         return out[:, :, 0, :].to(I64)
+
+    def _chroma_probe(self, cy, cx, offsets):
+        """U + V SADs [J, nblk, K, D] int64 at chroma pel positions."""
+        su = self._probe(self.stack_u, cy, cx, self.src_u_blocks, offsets,
+                         self.bsc[1], self.bsc[0], self.pitch_xc)
+        sv = self._probe(self.stack_v, cy, cx, self.src_v_blocks, offsets,
+                         self.bsc[1], self.bsc[0], self.pitch_xc)
+        return _sat_add(su, sv)
+
+    def chroma_sads(self, vx, vy, offsets=((0, 0),)):
+        """[J, nblk, D] int64 chroma SADs (U + V) at the chroma positions
+        of the luma candidates.
+
+        Multi-offset sets share ONE probe per plane: the chroma displacement
+        of a luma offset is one of a small static delta grid (the truncating
+        division can land on either of two chroma-pel cells depending on the
+        candidate's parity and sign), so the whole grid is probed around the
+        candidate's own chroma position and the exact column is selected per
+        (block, offset) afterwards."""
+        if not self.chroma:
+            return torch.zeros(vx.shape + (len(offsets),), dtype=I64,
+                               device=vx.device)
+        logx, logy = self.ctx.log_ratio_uv
+        rx, ry = (1 << logx) - 1, (1 << logy) - 1
+        if len(offsets) == 1:
+            dx, dy = offsets[0]
+            cx = self.cbase_x + self._cpos(vx + dx, logx)
+            cy = self.cbase_y + self._cpos(vy + dy, logy)
+            return self._chroma_probe(cy[..., None], cx[..., None],
+                                      ((0, 0),))[:, :, :, 0]
+        xs = [o[0] for o in offsets]
+        ys = [o[1] for o in offsets]
+        gx0, gx1 = (min(xs) - rx) >> logx, ((max(xs) + rx) >> logx) + 1
+        gy0, gy1 = (min(ys) - ry) >> logy, ((max(ys) + ry) >> logy) + 1
+        grid = tuple((ddx, ddy) for ddy in range(gy0, gy1)
+                     for ddx in range(gx0, gx1))
+        base_dx = self._cpos(vx, logx)
+        base_dy = self._cpos(vy, logy)
+        tot = self._chroma_probe((self.cbase_y + base_dy)[..., None],
+                                 (self.cbase_x + base_dx)[..., None],
+                                 grid)[:, :, 0, :]          # [J, nblk, |grid|]
+        ox, oy = _offset_tensors(offsets, vx.device)
+        ddx = self._cpos(vx[..., None] + ox, logx) - base_dx[..., None] - gx0
+        ddy = self._cpos(vy[..., None] + oy, logy) - base_dy[..., None] - gy0
+        ngx, ngy = gx1 - gx0, gy1 - gy0
+        ok = (ddx >= 0) & (ddx < ngx) & (ddy >= 0) & (ddy < ngy)
+        gi = (ddy.clamp(0, ngy - 1) * ngx + ddx.clamp(0, ngx - 1)).to(I64)
+        return torch.where(ok, tot.gather(-1, gi), 0)
 
     # -- check primitives ---------------------------------------------------
 
@@ -125,24 +210,59 @@ class FieldProber:
         wins if it improves on st["mincost"] (pobCheckMV
         PlaneOfBlocks.cpp:219-261)."""
         dxmin, dxmax, dymin, dymax = self.bounds
-        dev = cand_x.device
         offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
         cvx = torch.minimum(torch.maximum(cand_x, dxmin), dxmax - 1)
         cvy = torch.minimum(torch.maximum(cand_y, dymin), dymax - 1)
         ls = self.luma_sads(cvx, cvy, offsets)          # [J, nblk, D]
-        ox = _const(tuple(o[0] for o in offsets), I32, dev)
-        oy = _const(tuple(o[1] for o in offsets), I32, dev)
+        cs = self.chroma_sads(cvx, cvy, offsets) if self.chroma else None
+        ox, oy = _offset_tensors(offsets, cand_x.device)
         vx = cand_x[..., None] + ox
         vy = cand_y[..., None] + oy
-        return _update(self, st, ls, vx, vy, lam, pred, dir_vals=dir_vals,
-                       mask=extra_mask, update_xy=update_xy,
-                       penalty_new=penalty_new)
+        return _update(self, st, ls, cs, vx, vy, lam, pred,
+                       dir_vals=dir_vals, mask=extra_mask,
+                       update_xy=update_xy, penalty_new=penalty_new)
+
+    def plain_sads_multi(self, vxs, vys):
+        """[J, nblk, K] unmasked luma + chroma SADs at K clamped candidates
+        per block — one probe per plane for all K (the predictor trials
+        batched)."""
+        vx = torch.stack(vxs, dim=-1)
+        vy = torch.stack(vys, dim=-1)
+        ls = self._probe(
+            self.stack, self.base_y[:, None] + vy, self.base_x[:, None] + vx,
+            self.src_blocks, ((0, 0),), self.bs[1], self.bs[0],
+            self.pitch_x)[..., 0].to(I64)
+        if not self.chroma:
+            return ls
+        logx, logy = self.ctx.log_ratio_uv
+        cs = self._chroma_probe(
+            self.cbase_y[:, None] + self._cpos(vy, logy),
+            self.cbase_x[:, None] + self._cpos(vx, logx), ((0, 0),))[..., 0]
+        return ls + cs
 
 
-def _update(p, st, ls, vx, vy, lam, pred, dir_vals=None, mask=None,
+def chroma_pad(ctx) -> int:
+    """Probe padding of the chroma stacks."""
+    logx, logy = ctx.log_ratio_uv
+    return max(FieldProber.PAD >> logx, FieldProber.PAD >> logy, 4)
+
+
+def pad_stacks(ctx):
+    """The probe-padded reference stacks of a level: (luma,) or
+    (luma, U, V)."""
+    out = [probe_ops.pad_stack(ctx.ref_stacks[0], FieldProber.PAD)]
+    if ctx.chroma:
+        padc = chroma_pad(ctx)
+        out += [probe_ops.pad_stack(ctx.ref_stacks[1], padc),
+                probe_ops.pad_stack(ctx.ref_stacks[2], padc)]
+    return tuple(out)
+
+
+def _update(p, st, ls, cs, vx, vy, lam, pred, dir_vals=None, mask=None,
             update_xy=True, penalty_new=True):
-    """Running-minimum update from SAD columns ls [J, nblk, D] at vectors
-    vx/vy [J, nblk, D] already in evaluation order."""
+    """Running-minimum update from luma / chroma SAD columns ls, cs
+    [J, nblk, D] (cs None: no chroma term) at vectors vx/vy [J, nblk, D]
+    already in evaluation order."""
     dxmin, dxmax, dymin, dymax = (b[:, None] for b in p.bounds)
     ok = (vx >= dxmin) & (vy >= dymin) & (vx < dxmax) & (vy < dymax)
     if mask is not None:
@@ -153,10 +273,13 @@ def _update(p, st, ls, vx, vy, lam, pred, dir_vals=None, mask=None,
     pdy = pred[1][..., None] - torch.minimum(torch.maximum(vy, dymin),
                                              dymax - 1)
     dist = (pdx * pdx + pdy * pdy).to(I32)
+    sad_tot = ls if cs is None else ls + cs
     # lambda * dist >> 8 truncated through C int on purpose
-    cost = ((lam[..., None] * dist.to(I64)) >> 8).to(I32).to(I64) + ls
+    cost = ((lam[..., None] * dist.to(I64)) >> 8).to(I32).to(I64) + sad_tot
     if penalty_new:
         cost = cost + ((p.pnew * ls) >> 8)
+        if cs is not None:
+            cost = cost + ((p.pnew * cs) >> 8)
     cost = torch.where(ok, cost, _INF)
     best, k = _first_min(cost)
     improve = best < st["mincost"]
@@ -164,7 +287,7 @@ def _update(p, st, ls, vx, vy, lam, pred, dir_vals=None, mask=None,
     if update_xy:
         st["bx"] = torch.where(improve, _pick(vx, k), st["bx"])
         st["by"] = torch.where(improve, _pick(vy, k), st["by"])
-    st["bsad"] = torch.where(improve, _pick(ls, k), st["bsad"])
+    st["bsad"] = torch.where(improve, _pick(sad_tot, k), st["bsad"])
     st["mincost"] = torch.where(improve, best, st["mincost"])
     if dir_vals is not None:
         dv = _const(tuple(int(v) for v in dir_vals), I32, k.device)
@@ -183,16 +306,27 @@ def _map_tile(ctx) -> int:
 
 def map_radius(ctx) -> int:
     """Pel-grid radius of the map: walk drift (hex2 range + ring) plus
-    the anchor's alignment rounding loss."""
-    align = 1 << ctx.log_pel
+    the anchor's alignment rounding loss (with chroma the anchor is aligned
+    to a full chroma pel)."""
+    logx, logy = ctx.log_ratio_uv
+    align = 1 << (ctx.log_pel + (max(logx, logy) if ctx.chroma else 0))
     return 6 + align // 2
+
+
+def _chroma_map_geom(ctx, r: int):
+    """(rc_y, rc_x, pitch_xc, pitch_yc) of the chroma maps that go with a
+    luma map of radius r."""
+    logx, logy = ctx.log_ratio_uv
+    return ((r >> logy) + 1, (r >> logx) + 1,
+            (ctx.blk_size[0] - ctx.overlap[0]) >> logx,
+            (ctx.blk_size[1] - ctx.overlap[1]) >> logy)
 
 
 def map_supported(ctx, r: int) -> bool:
     """Static predicate: MapProber usable on this level's geometry (8-bit,
-    pel <= 2, windows fit the padded stacks)."""
+    pel <= 2, windows fit the padded stacks, chroma pitch integral)."""
     bsx, bsy = ctx.blk_size
-    if ctx.bits != 8 or ctx.pel > 2 or ctx.chroma:
+    if ctx.bits != 8 or ctx.pel > 2:
         return False
     pitch = bsx - ctx.overlap[0]
     tile = _map_tile(ctx)
@@ -200,7 +334,22 @@ def map_supported(ctx, r: int) -> bool:
     wp = ctx.padded[0] + 2 * FieldProber.PAD + probe_ops.ALIGN_SLACK_X
     (lo_y, hi_y), (lo_x, hi_x) = sadmap.anchor_bounds(
         r, r, bsy, bsx, ctx.pel, tile, pitch, hp, wp)
-    return hi_y >= lo_y and hi_x >= lo_x
+    if hi_y < lo_y or hi_x < lo_x:
+        return False
+    if ctx.chroma:
+        logx, logy = ctx.log_ratio_uv
+        if pitch % (1 << logx) != 0:
+            return False
+        bcx, bcy = ctx.blk_size_c
+        rc_y, rc_x, pit_c, _ = _chroma_map_geom(ctx, r)
+        padc = chroma_pad(ctx)
+        hp_c = (ctx.padded[1] >> logy) + 2 * padc + probe_ops.ALIGN_SLACK_Y
+        wp_c = (ctx.padded[0] >> logx) + 2 * padc + probe_ops.ALIGN_SLACK_X
+        (lo, hi), (lo2, hi2) = sadmap.anchor_bounds(
+            rc_y, rc_x, bcy, bcx, ctx.pel, tile, pit_c, hp_c, wp_c)
+        if hi < lo or hi2 < lo2:
+            return False
+    return True
 
 
 def _med3_tiles(a, nby, ntx, tile):
@@ -222,22 +371,23 @@ class MapProber(FieldProber):
     """FieldProber whose SAD source is a dense per-block offset map
     (ops/sadmap.py) instead of per-candidate window probes.
 
-    One SAD-map kernel pass per level evaluates the whole +-R pel grid
-    around a per-tile predictor anchor; every check() thereafter —
+    One SAD-map kernel pass per plane per level evaluates the whole +-R pel
+    grid around a per-tile predictor anchor; every check() thereafter —
     predictor trials, the hex2 walk, expanding rings — is a gather from
-    the map.  Candidates outside the grid report INVALID_SAD and lose (the
+    the maps.  Candidates outside the grid report INVALID_SAD and lose (the
     dense zero trial bounds every block); the bad-SAD rescue keeps using a
     probe-based prober via field_epz's probe_p argument."""
 
-    def __init__(self, ctx, src_blocks, x0_a, y0_a, bounds, pnew, pred_vx,
-                 pred_vy, r: int = 0, stack=None):
-        super().__init__(ctx, src_blocks, x0_a, y0_a, bounds, pnew,
-                         stack=stack)
+    def __init__(self, ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds, pnew,
+                 pred_vx, pred_vy, r: int = 0, stacks=None):
+        super().__init__(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
+                         pnew, stacks=stacks)
         if not r:
             r = map_radius(ctx)
         self.r = r
         logp = self.logp
         pel = self.pel
+        logx, logy = ctx.log_ratio_uv
         bsx, bsy = ctx.blk_size
         nbx, nby = ctx.nblk
         pitch = self.pitch_x
@@ -245,27 +395,31 @@ class MapProber(FieldProber):
         tile = _map_tile(ctx)
         rlp = -(-nbx // tile) * tile
         ntx = rlp // tile
-        hpad = ctx.hpad[0]
-        vpad = ctx.vpad[0]
+        hpad, hpad_c = ctx.hpad
+        vpad, vpad_c = ctx.vpad
         PAD = self.PAD
         dev = pred_vx.device
 
-        # ---- anchors: per-tile med3 of the predictor field, aligned to
-        # full pel, clamped so the nominal window fits the padded stack
+        # ---- anchors: per-tile med3 of the predictor field, aligned so
+        # that every derived plane anchor is full-pel, clamped so the
+        # nominal window fits the padded stack
         pvx = _row_pad(pred_vx.to(I32), nby, nbx, rlp)
         pvy = _row_pad(pred_vy.to(I32), nby, nbx, rlp)
         med_x = _med3_tiles(pvx, nby, ntx, tile)       # [J, nby, ntx]
         med_y = _med3_tiles(pvy, nby, ntx, tile)
-        sh = logp
+        sh_x = logp + (logx if ctx.chroma else 0)
+        sh_y = logp + (logy if ctx.chroma else 0)
         # static block-0 source origins per tile column / block row and
         # their probe-padded stack-coordinate counterparts
-        c_x = hpad + pitch * tile * np.arange(ntx, dtype=np.int64) + PAD
-        c_y = vpad + pitch_y * np.arange(nby, dtype=np.int64) + PAD
+        tcol = np.arange(ntx, dtype=np.int64)
+        brow = np.arange(nby, dtype=np.int64)
+        c_x = hpad + pitch * tile * tcol + PAD
+        c_y = vpad + pitch_y * brow + PAD
         hp, wp = self.stack.shape[-2], self.stack.shape[-1]
         (lo_y, hi_y), (lo_x, hi_x) = sadmap.anchor_bounds(
             r, r, bsy, bsx, pel, tile, pitch, hp, wp)
 
-        def clamp_align(av, c, lo, hi):
+        def clamp_align(av, c, lo, hi, sh):
             """Clamp the pel-units anchor so fp = c + (av >> logp) lands
             in [lo, hi], stepping only in 2^sh units."""
             s = 1 << sh
@@ -275,50 +429,100 @@ class MapProber(FieldProber):
             hi_t = torch.as_tensor(hi_v, dtype=I32, device=dev)
             return torch.minimum(torch.maximum(av, lo_t), hi_t)
 
-        av_x = clamp_align((med_x >> sh) << sh, c_x[None, :], lo_x, hi_x)
-        av_y = clamp_align((med_y >> sh) << sh, c_y[:, None], lo_y, hi_y)
-        cx_t = torch.as_tensor(c_x, dtype=I32, device=dev)
-        cy_t = torch.as_tensor(c_y, dtype=I32, device=dev)
-        af_x = (cx_t[None, None, :] + (av_x >> logp)).reshape(-1, nby * ntx)
-        af_y = (cy_t[None, :, None] + (av_y >> logp)).reshape(-1, nby * ntx)
+        def full_pel(av, c, axis):
+            """[J, nby*ntx] full-pel stack positions c + (av >> logp)."""
+            c_t = torch.as_tensor(c, dtype=I32, device=dev)
+            c_t = c_t[None, None, :] if axis == "x" else c_t[None, :, None]
+            return (c_t + (av >> logp)).reshape(-1, nby * ntx).contiguous()
 
         def per_block(a_tile):
             t = a_tile.repeat_interleave(tile, dim=2)
             return t[:, :, :nbx].reshape(-1, nby * nbx)
 
+        av_x = clamp_align((med_x >> sh_x) << sh_x, c_x[None, :], lo_x, hi_x,
+                           sh_x)
+        av_y = clamp_align((med_y >> sh_y) << sh_y, c_y[:, None], lo_y, hi_y,
+                           sh_y)
         self._av_x = per_block(av_x)                       # [J, nblk] pel
         self._av_y = per_block(av_y)
         self._m_l = sadmap.sad_map(
-            self.stack, ctx.src_planes[0], af_y.contiguous(),
-            af_x.contiguous(), r, r, bsy, bsx, pel, tile, pitch, pitch_y,
-            nbx, nby, vpad, hpad)
+            self.stack, ctx.src_planes[0], full_pel(av_y, c_y, "y"),
+            full_pel(av_x, c_x, "x"), r, r, bsy, bsx, pel, tile, pitch,
+            pitch_y, nbx, nby, vpad, hpad)
+        if ctx.chroma:
+            bcx, bcy = ctx.blk_size_c
+            self._rc_y, self._rc_x, pit_c, pit_cy = _chroma_map_geom(ctx, r)
+            padc = self.padc
+            cc_x = hpad_c + pit_c * tile * tcol + padc
+            cc_y = vpad_c + pit_cy * brow + padc
+            hp_c, wp_c = self.stack_u.shape[-2:]
+            (lo_cy, hi_cy), (lo_cx, hi_cx) = sadmap.anchor_bounds(
+                self._rc_y, self._rc_x, bcy, bcx, pel, tile, pit_c, hp_c,
+                wp_c)
+            # derived chroma anchors stay full-pel (av is a multiple of
+            # 2^sh); the chroma clamp steps in pel units only
+            avc_x = clamp_align(av_x >> logx, cc_x[None, :], lo_cx, hi_cx,
+                                logp)
+            avc_y = clamp_align(av_y >> logy, cc_y[:, None], lo_cy, hi_cy,
+                                logp)
+            self._avc_x = per_block(avc_x)
+            self._avc_y = per_block(avc_y)
+            afc_y = full_pel(avc_y, cc_y, "y")
+            afc_x = full_pel(avc_x, cc_x, "x")
+            maps = [sadmap.sad_map(
+                stack, plane, afc_y, afc_x, self._rc_y, self._rc_x, bcy, bcx,
+                pel, tile, pit_c, pit_cy, nbx, nby, vpad_c, hpad_c)
+                for stack, plane in ((self.stack_u, ctx.src_planes[1]),
+                                     (self.stack_v, ctx.src_planes[2]))]
+            self._m_c = maps[0].add_(maps[1])
 
-    def luma_sads(self, vx, vy, offsets=((0, 0),)):
-        """[J, nblk, D] int64 map values at (vx + dx, vy + dy);
-        INVALID_SAD outside the grid."""
-        dev = vx.device
-        ox = _const(tuple(int(o[0]) for o in offsets), I32, dev)
-        oy = _const(tuple(int(o[1]) for o in offsets), I32, dev)
-        return self._lookup((vx - self._av_x)[..., None] + ox,
-                            (vy - self._av_y)[..., None] + oy)
-
-    def _lookup(self, rx, ry):
-        """Map values at grid-relative pel vectors rx/ry [J, nblk, D]."""
-        m = self._m_l
+    @staticmethod
+    def _lookup(m, iy, ix):
+        """int64 values of map m [J, nblk, Dy, Dx] at per-block grid
+        indices iy/ix [J, nblk, D]; INVALID_SAD outside the grid."""
         dy_n, dx_n = m.shape[-2:]
-        iy = ry + self.r
-        ix = rx + self.r
         ok = (iy >= 0) & (iy < dy_n) & (ix >= 0) & (ix < dx_n)
         flat = (iy.clamp(0, dy_n - 1) * dx_n
                 + ix.clamp(0, dx_n - 1)).to(I64)
         v = m.reshape(m.shape[0], m.shape[1], -1).gather(-1, flat)
         return torch.where(ok, v, probe_ops.INVALID_SAD).to(I64)
 
+    def _luma_at(self, vx, vy):
+        """Luma map values at pel vectors vx/vy [J, nblk, D]."""
+        return self._lookup(self._m_l, vy - self._av_y[..., None] + self.r,
+                            vx - self._av_x[..., None] + self.r)
+
+    def _chroma_at(self, vx, vy):
+        """U + V map values at the chroma positions of luma pel vectors
+        vx/vy [J, nblk, D]."""
+        logx, logy = self.ctx.log_ratio_uv
+        return self._lookup(
+            self._m_c,
+            self._cpos(vy, logy) - self._avc_y[..., None] + self._rc_y,
+            self._cpos(vx, logx) - self._avc_x[..., None] + self._rc_x)
+
+    def luma_sads(self, vx, vy, offsets=((0, 0),)):
+        """[J, nblk, D] int64 map values at (vx + dx, vy + dy);
+        INVALID_SAD outside the grid."""
+        ox, oy = _offset_tensors(offsets, vx.device)
+        return self._luma_at(vx[..., None] + ox, vy[..., None] + oy)
+
+    def chroma_sads(self, vx, vy, offsets=((0, 0),)):
+        if not self.chroma:
+            return torch.zeros(vx.shape + (len(offsets),), dtype=I64,
+                               device=vx.device)
+        ox, oy = _offset_tensors(offsets, vx.device)
+        return self._chroma_at(vx[..., None] + ox, vy[..., None] + oy)
+
     def plain_sads_multi(self, vxs, vys):
-        """[J, nblk, K] unmasked luma SADs at K clamped candidates per
-        block (the predictor trials batched)."""
-        return self._lookup(torch.stack(vxs, dim=-1) - self._av_x[..., None],
-                            torch.stack(vys, dim=-1) - self._av_y[..., None])
+        """[J, nblk, K] unmasked luma + chroma SADs at K clamped candidates
+        per block (the predictor trials batched)."""
+        vx = torch.stack(vxs, dim=-1)
+        vy = torch.stack(vys, dim=-1)
+        out = self._luma_at(vx, vy)
+        if self.chroma:
+            out = out + self._chroma_at(vx, vy)
+        return out
 
 
 def _ring_offsets(r, s):
@@ -458,7 +662,7 @@ def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
     pred = (prx, pry)
 
     # ---- zero trial (dense; no bounds check) ------------------------------
-    sad0 = dense.luma_sads(0, 0)
+    sad0 = dense.luma_sads(0, 0) + dense.chroma_sads(0, 0)
     st = dict(bx=torch.zeros_like(prx), by=torch.zeros_like(pry),
               bsad=sad0, mincost=sad0 + ((pzero * sad0) >> 8),
               dir=torch.zeros_like(prx))
@@ -492,7 +696,7 @@ def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
               mincost=torch.where(take, sad_p, st["mincost"]))
     # neighbours: bounds mask + MD cost, no penaltyNew (the SAD was looked
     # up at the clamped position, exact whenever valid)
-    st = _update(p, st, sads[..., 2:],
+    st = _update(p, st, sads[..., 2:], None,
                  torch.stack([q[0] for q in preds], dim=-1),
                  torch.stack([q[1] for q in preds], dim=-1),
                  lam, pred, penalty_new=False)

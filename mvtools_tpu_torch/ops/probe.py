@@ -2,14 +2,19 @@
 
 The reference's innermost loop is one SAD per candidate vector per block
 (pobCheckMV_Template PlaneOfBlocks.cpp:219-261 over pobGetRefBlock's
-pel-plane pointer math :34-54).  Two operations live here, each as a CUDA
-kernel (csrc/probe.cu, csrc/fetch.cu) with a plain PyTorch version beside
-it:
+pel-plane pointer math :34-54).  Three operations live here, each as a CUDA
+kernel (csrc/probe.cu, csrc/probe_block.cu, csrc/fetch.cu) with a plain
+PyTorch version beside it:
 
+* probe_sads — [J, nblk, K, D] int32 SADs for K candidate centres per block
+  times D static pel offsets, one window per (block, candidate); every entry
+  is a real SAD.  It serves the planes that are too small for the tiled
+  probe's shared window (the coarse pyramid levels, small chroma planes).
 * probe_sads_tiled — [J, nblk, K, D] int32 SADs for K candidate centres per
   block times D static pel offsets, with the tile-extent validity rule:
   candidates whose window leaves their tile's shared window report
-  INVALID_SAD and lose every cost comparison.
+  INVALID_SAD and lose every cost comparison.  A plane smaller than the tile
+  window goes to probe_sads instead.
 * fetch_blocks_tiled — [J, nblk, K, bs_y, bs_x] int32 reference blocks at pel
   positions, exact for every block.
 
@@ -44,7 +49,7 @@ ALIGN_SLACK_X = 384
 
 INVALID_SAD = 2147483647   # int32 max
 
-launches = {"probe_sads_tiled": 0, "fetch_blocks_tiled": 0}
+launches = {"probe_sads": 0, "probe_sads_tiled": 0, "fetch_blocks_tiled": 0}
 plain_calls_on_cuda = 0    # plain versions run on CUDA tensors (comparisons)
 
 
@@ -121,20 +126,124 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device=None):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
-def _gather_blocks_plain(stack, pos_y, pos_x, bs_y: int, bs_x: int, logp: int):
-    """int32 [..., bs_y, bs_x] patches of stack [J, n_sub, H, W] at pel
-    positions pos_y/pos_x [J, ...]; rows/columns clamped into the plane."""
+def _gather_at(stack, sub, fy, fx, bs_y: int, bs_x: int):
+    """int32 [..., bs_y, bs_x] patches of stack [J, n_sub, H, W] from
+    subplane `sub` at full-pel origin (fy, fx), all [J, ...]; rows/columns
+    clamped into the plane."""
     nj, n_sub, hp, wp = stack.shape
-    pelm = (1 << logp) - 1
-    sub = (pos_x & pelm) | ((pos_y & pelm) << logp)
     dev = stack.device
-    gy = ((pos_y >> logp)[..., None, None]
+    gy = (fy[..., None, None]
           + torch.arange(bs_y, device=dev)[:, None]).clamp(0, hp - 1)
-    gx = ((pos_x >> logp)[..., None, None]
+    gx = (fx[..., None, None]
           + torch.arange(bs_x, device=dev)[None, :]).clamp(0, wp - 1)
     job = torch.arange(nj, device=dev).reshape((nj,) + (1,) * (gy.ndim - 1))
     flat = ((job * n_sub + sub[..., None, None]) * hp + gy) * wp + gx
     return stack.reshape(-1)[flat].to(I32)
+
+
+def _gather_blocks_plain(stack, pos_y, pos_x, bs_y: int, bs_x: int, logp: int):
+    """int32 [..., bs_y, bs_x] patches of stack [J, n_sub, H, W] at pel
+    positions pos_y/pos_x [J, ...]; rows/columns clamped into the plane."""
+    pelm = (1 << logp) - 1
+    sub = (pos_x & pelm) | ((pos_y & pelm) << logp)
+    return _gather_at(stack, sub, pos_y >> logp, pos_x >> logp, bs_y, bs_x)
+
+
+# ---------------------------------------------------------------------------
+# K4: per-block probe
+
+
+def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
+                     bs_x: int, pel: int) -> torch.Tensor:
+    """Plain PyTorch version of the per-block probe (same contract as the
+    kernel).  Out-of-range rule: the window of the whole offset set is
+    shifted as a whole into the plane and each offset's block keeps its
+    place inside it — what a clamped window slice followed by an in-window
+    slice does."""
+    global plain_calls_on_cuda
+    if stack.is_cuda:
+        plain_calls_on_cuda += 1
+    logp = pel.bit_length() - 1
+    pelm = pel - 1
+    min_dx, min_dy, wy, wx = _window_geom(offsets, bs_y, bs_x, pel)
+    hp, wp = stack.shape[-2:]
+    wb_y = (cand_y + min_dy) >> logp
+    wb_x = (cand_x + min_dx) >> logp
+    shift_y = wb_y.clamp(0, hp - wy) - wb_y
+    shift_x = wb_x.clamp(0, wp - wx) - wb_x
+    src = src_blocks.to(I32)[:, :, None]                    # [J, nblk, 1, ..]
+    cols = []
+    for dx, dy in offsets:
+        ay = cand_y + dy
+        ax = cand_x + dx
+        sub = (ax & pelm) | ((ay & pelm) << logp)
+        ref = _gather_at(stack, sub, (ay >> logp) + shift_y,
+                         (ax >> logp) + shift_x, bs_y, bs_x)
+        cols.append((ref - src).abs().sum(dim=(-2, -1)))
+    return torch.stack(cols, dim=-1).to(I32)
+
+
+def _probe_block_lib():
+    lib = cuda_build.load("probe_block")
+    fn = lib.mvt_probe_sads
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_probe_args(what, stack, cand_y, cand_x, src_blocks, bs_y, bs_x,
+                      pel):
+    if stack.dtype != torch.uint8:
+        raise NotImplementedError(f"{what}: only 8-bit stacks are ported")
+    if pel not in (1, 2, 4):
+        raise ValueError(f"{what}: pel must be 1, 2 or 4")
+    dev = stack.device
+    _check(stack, "stack", torch.uint8, 4)
+    _check(cand_y, "cand_y", I32, 3, dev)
+    _check(cand_x, "cand_x", I32, 3, dev)
+    _check(src_blocks, "src_blocks", torch.uint8, 4, dev)
+    nj, nblk, _ = cand_y.shape
+    if (cand_x.shape != cand_y.shape or stack.shape[0] != nj
+            or stack.shape[1] != pel * pel
+            or tuple(src_blocks.shape) != (nj, nblk, bs_y, bs_x)):
+        raise ValueError(f"{what}: inconsistent shapes")
+
+
+def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
+               bs_x: int, pel: int) -> torch.Tensor:
+    """[J, nblk, K, D] int32 SADs, one window per (block, candidate).
+
+    stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
+    [J, nblk, K] int32 candidate pel positions (see module doc);
+    src_blocks: [J, nblk, bs_y, bs_x] uint8; offsets: static [(dx, dy), ...]
+    pel offsets evaluated per candidate.  The kernel serves every call on
+    CUDA tensors, however few the blocks."""
+    offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
+    _check_probe_args("probe_sads", stack, cand_y, cand_x, src_blocks, bs_y,
+                      bs_x, pel)
+    min_dx, min_dy, wy, wx = _window_geom(offsets, bs_y, bs_x, pel)
+    if stack.shape[2] < wy or stack.shape[3] < wx:
+        raise ValueError("probe_sads: the plane is smaller than the window "
+                         "of the offset set")
+    if not stack.is_cuda:
+        return probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets,
+                                bs_y, bs_x, pel)
+    dev = stack.device
+    nj, nblk, kk = cand_y.shape
+    offs = _offsets_tensor(offsets, dev)
+    out = torch.empty((nj, nblk, kk, len(offsets)), dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        err = _probe_block_lib()(
+            stack.data_ptr(), cand_y.data_ptr(), cand_x.data_ptr(),
+            src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
+            nj, pel * pel, stack.shape[2], stack.shape[3], nblk, kk,
+            len(offsets), bs_y, bs_x, pel.bit_length() - 1, min_dy, min_dx,
+            wy, wx, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(err, "probe_sads")
+    launches["probe_sads"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +316,8 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     src_blocks: [J, nblk, bs_y, bs_x] uint8; offsets: static [(dx, dy), ...]
     pel offsets evaluated per candidate.  Block rows are treated as
     edge-padded to a multiple of `tile` (the kernel clamps member indices
-    instead of materialising the padding)."""
+    instead of materialising the padding).  A plane smaller than the tile
+    window is served by probe_sads: every candidate is then valid."""
     offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
     nj, nblk, kk = cand_y.shape
     if tile <= 0:
@@ -217,24 +327,16 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
         margin_y=margin_y, margin_x=margin_x)
     if (stack.shape[-2] < wy_total or stack.shape[-1] < wx_total
             or nblk % row_len != 0):
-        raise NotImplementedError(
-            "probe_sads_tiled: the plane is too small for the tile window "
-            f"({tuple(stack.shape[-2:])} < {(wy_total, wx_total)}); the "
-            "per-block probe that serves such planes is not ported")
+        return probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y,
+                          bs_x, pel)
+    _check_probe_args("probe_sads_tiled", stack, cand_y, cand_x, src_blocks,
+                      bs_y, bs_x, pel)
     if not stack.is_cuda:
         return probe_sads_tiled_plain(
             stack, cand_y, cand_x, src_blocks, offsets, bs_y, bs_x, pel,
             row_len, tile, wy_total, wx_total, center_y, center_x)
 
     dev = stack.device
-    _check(stack, "stack", torch.uint8, 4)
-    _check(cand_y, "cand_y", I32, 3, dev)
-    _check(cand_x, "cand_x", I32, 3, dev)
-    _check(src_blocks, "src_blocks", torch.uint8, 4, dev)
-    if (cand_x.shape != cand_y.shape or stack.shape[0] != nj
-            or stack.shape[1] != pel * pel
-            or tuple(src_blocks.shape) != (nj, nblk, bs_y, bs_x)):
-        raise ValueError("probe_sads_tiled: inconsistent shapes")
     min_dx, min_dy, wy, _, _, cxs = _tile_geom(offsets, bs_y, bs_x, pel)
     offs = _offsets_tensor(offsets, dev)
     out = torch.empty((nj, nblk, kk, len(offsets)), dtype=I32, device=dev)

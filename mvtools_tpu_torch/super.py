@@ -116,8 +116,8 @@ def build_super(frame_planes: Sequence[torch.Tensor], cfg_or_spec,
                 fmt: Optional[VideoFormat] = None) -> Super:
     """Build a Super pyramid from a frame's planes.
 
-    frame_planes: [Y] tensors, [H, W] or frame-batched [F, H, W], uint8; the
-    pyramid is built on the device the planes live on.
+    frame_planes: [Y] or [Y, U, V] tensors, [H, W] or frame-batched
+    [F, H, W], uint8; the pyramid is built on the device the planes live on.
     cfg_or_spec: a SuperConfig (resolved against `fmt`) or a SuperSpec.
     """
     if isinstance(cfg_or_spec, SuperConfig):
@@ -138,8 +138,10 @@ def build_super(frame_planes: Sequence[torch.Tensor], cfg_or_spec,
         spec = cfg_or_spec
     if spec.bits != 8 or frame_planes[0].dtype != torch.uint8:
         raise NotImplementedError("16-bit clips: only 8-bit is ported")
-    if spec.chroma:
-        raise NotImplementedError("chroma=True: only luma supers are ported")
     if tuple(frame_planes[0].shape[-2:]) != (spec.height, spec.width):
         raise ValueError("Super: frame size does not match the spec.")
-    return Super((build_super_plane(frame_planes[0], spec, 0),), spec)
+    if len(frame_planes) < spec.num_planes:
+        raise ValueError(f"Super: the spec asks for {spec.num_planes} planes, "
+                         f"got {len(frame_planes)}.")
+    return Super(tuple(build_super_plane(frame_planes[p], spec, p)
+                       for p in range(spec.num_planes)), spec)

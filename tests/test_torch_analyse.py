@@ -162,7 +162,7 @@ def test_specs_match_jax_through_convert(ref):
 
 
 def _spec(**kw):
-    fmt = VideoFormat(kw.pop("w", 256), kw.pop("h", 192), 8,
+    fmt = VideoFormat(kw.pop("w", 256), kw.pop("h", 192), kw.pop("bits", 8),
                       kw.pop("family", ColorFamily.GRAY))
     sspec = SuperConfig(pel=kw.pop("pel", 2), levels=3,
                         chroma=kw.pop("schroma", False)).validate(fmt)
@@ -172,14 +172,14 @@ def _spec(**kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(overlap=8), "overlap"),
+    (dict(bits=16), "16-bit"),
     (dict(dct=5), "dct"),
     (dict(pel=4), "pel=4"),
     (dict(trymany=True), "trymany"),
     (dict(divide=1), "divide"),
     (dict(search=SearchType.UMH), "search=UMH"),
     (dict(search_coarse=SearchType.NSTEP), "search=NSTEP"),
-    (dict(family=ColorFamily.YUV420, schroma=True, chroma=True), "chroma"),
+    (dict(search=SearchType.ONETIME), "search=ONETIME"),
 ])
 def test_unported_options_raise(kw, what):
     """Nothing falls back silently: every option outside the slice names
@@ -198,3 +198,7 @@ def test_field_shift_and_exact_engine_raise():
     one = Super(((torch.zeros((4, 8, 8), dtype=torch.uint8),),), sspec)
     with pytest.raises(NotImplementedError, match="exact"):
         analyse(one, one, aspec, engine="exact")
+    # chroma in the search needs a super clip that carries chroma planes
+    _, aspec_c = _spec(family=ColorFamily.YUV420, schroma=True, chroma=True)
+    with pytest.raises(ValueError, match="chroma"):
+        analyse_batch(dummy, dummy, aspec_c)

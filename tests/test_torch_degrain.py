@@ -132,12 +132,13 @@ def test_degrain_unported_options_raise(ref):
     sspec, aspec, sups, mvb = _jax_state(ref)
     src = torch.from_numpy(ref["frames"][1])
     refs = [sups.map(lambda a: a[2]), sups.map(lambda a: a[0])]
-    ov = dataclasses.replace(aspec.meta, overlap_x=8, overlap_y=8)
+    deep = dataclasses.replace(aspec.meta, bits_per_sample=16)
     mvs = [_job(mvb, 0), _job(mvb, 1)]
     for m in mvs:
-        m.meta = ov
-    with pytest.raises(NotImplementedError, match="overlap"):
-        degrain([src], refs, mvs, ov, DegrainConfig())
-    with pytest.raises(NotImplementedError, match="chroma"):
+        m.meta = deep
+    with pytest.raises(NotImplementedError, match="16-bit"):
+        degrain([src], refs, mvs, deep, DegrainConfig())
+    # chroma planes need super clips that carry them
+    with pytest.raises(ValueError, match="chroma"):
         degrain([src, src, src], refs, [_job(mvb, 0), _job(mvb, 1)],
                 aspec.meta, DegrainConfig())

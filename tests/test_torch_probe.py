@@ -84,13 +84,18 @@ def test_probe_sads_tiled_plain_matches_jax(pel, kk, offsets):
 
 
 def test_probe_too_small_plane_raises():
-    """The per-block probe that serves planes smaller than the tile
-    window is not ported: the wrapper must say so, not fall back."""
-    stack = torch.zeros((1, 1, 40, 40), dtype=torch.uint8)
+    """A plane smaller than the tile window goes to the per-block probe
+    (every candidate valid); one smaller than the offset set's own window
+    cannot be probed at all and raises."""
     z = torch.zeros((1, 4, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="too small"):
+    src = torch.zeros((1, 4, 16, 16), dtype=torch.uint8)
+    out = probe_ops.probe_sads_tiled(
+        torch.full((1, 1, 40, 40), 3, dtype=torch.uint8), z, z, src, HEXAGON,
+        16, 16, 1, row_len=4, pitch_x=16)
+    assert out.shape == (1, 4, 1, 6) and bool((out == 3 * 256).all())
+    with pytest.raises(ValueError, match="smaller than the window"):
         probe_ops.probe_sads_tiled(
-            stack, z, z, torch.zeros((1, 4, 16, 16), dtype=torch.uint8),
+            torch.zeros((1, 1, 18, 18), dtype=torch.uint8), z, z, src,
             HEXAGON, 16, 16, 1, row_len=4, pitch_x=16)
 
 

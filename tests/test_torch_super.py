@@ -80,7 +80,7 @@ def test_super_roundtrips_through_convert(ref):
     (dict(pel=4), (64, 48, 8, ColorFamily.GRAY), "pel"),
     (dict(sharp=1), (64, 48, 8, ColorFamily.GRAY), "sharp"),
     (dict(rfilter=0, levels=2), (64, 48, 8, ColorFamily.GRAY), "rfilter"),
-    (dict(chroma=True), (64, 48, 8, ColorFamily.YUV420), "chroma"),
+    (dict(), (64, 48, 16, ColorFamily.GRAY), "16-bit"),
 ])
 def test_super_unported_options_raise(cfg, fmt, what):
     spec = SuperConfig(**cfg).validate(VideoFormat(*fmt))
