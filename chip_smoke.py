@@ -9,7 +9,7 @@ PyTorch built for CUDA:
 It builds the CUDA kernels from mvtools_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card at the shapes the main paths
 give it (integers: tolerance 0), checks small end-to-end runs on the card
-against the same code on CPU tensors, and drives two main paths at full
+against the same code on CPU tensors, and drives four main paths at full
 width:
 
 * the gray headline path (1920x1080 gray, blk 16, pel 2, 3 levels, Degrain1,
@@ -20,7 +20,18 @@ width:
   the full 7-level pyramid, MDegrain3) through degrain_clip on a 14-frame
   clip: first with a flash over most of the frame, which makes blocks bad
   down to the coarse levels whose planes only the per-block probe kernel can
-  serve, then without it (neither probe kernel may launch).
+  serve, then without it (neither probe kernel may launch);
+* the Recalculate path (1920x1080 gray, pel 2, the full 7-level pyramid:
+  Analyse blk 16 with the plain-SAD cost -> Recalculate blk 16 overlap 8 with
+  the SATD cost dct 5 -> Degrain1 on the refined field), 8 frame pairs of a
+  9-frame clip as one batch, through build_super, analyse_batch, recalculate
+  and degrain: the three-stat forms of the SAD map and the tiled probe must
+  launch;
+* the SATD Analyse path (the same with dct 5 in Analyse as well, 4 frame
+  pairs): first on a clip with a flash over most of the frame, whose bad
+  blocks send the rescue through the three-stat forms of the tiled probe and,
+  at level 5, of the per-block probe, then without it (the Analyse stage may
+  launch neither probe kernel).
 
 Every phase prints one JSON line; any failure raises and the exit code is
 non-zero.  Without a CUDA device it exits non-zero before printing any
@@ -28,7 +39,7 @@ result.  The last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-additionally traces one more full-width run of each clip with
+additionally traces one more full-width run of each of the seven clips with
 torch.profiler and prints where the device time went (busy share, kernels by
 time).
 """
@@ -41,10 +52,13 @@ import time
 
 import torch
 
+from mvtools_tpu_torch import (AnalyseConfig, RecalculateConfig, SuperConfig,
+                               analyse_batch, recalculate)
 from mvtools_tpu_torch import field_engine as fe
 from mvtools_tpu_torch.analyse import _blocks_of, _level_ctx
-from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
-from mvtools_tpu_torch.degrain import gather_blocks
+from mvtools_tpu_torch.core.types import (ColorFamily, MVField, MVPlaneField,
+                                          VideoFormat)
+from mvtools_tpu_torch.degrain import DegrainConfig, degrain, gather_blocks
 from mvtools_tpu_torch.models.denoise import (degrain_clip, degrain_window,
                                               flagship_configs,
                                               headline_specs, make_test_clip,
@@ -58,6 +72,12 @@ from mvtools_tpu_torch.super import build_super
 # one abs-diff and one add per pixel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# Integer operations per pixel of a block: the SAD takes an abs-diff and an
+# add (2); the three stats add the reference sum (1), the two butterfly
+# passes of the 4x4 Hadamard (64 adds/subtracts per 16 pixels: 4) and an abs
+# and an add per coefficient (2).
+OPS_PER_PIXEL = {"sad": 2, "sad_satd_luma": 9}
+STATS3 = "sad_satd_luma"
 
 W, H, BATCH, RADIUS = 1920, 1080, 8, 1
 FLASH = (416, 832, 256, 256)
@@ -69,6 +89,14 @@ YUV_T, YUV_NOISE, YUV_PAN = 14, 4, (1, 1)
 YUV_FLASH = (64, 128, 952, 1664)
 SMALL_YUV_T, SMALL_YUV_FLASH = 6, (16, 16, 160, 224)
 KERNEL_JOBS = 12      # jobs in the YUV kernel comparisons
+# the SATD paths: gray, 9 frames -> 8 pairs (Recalculate path), 5 frames -> 4
+# pairs (SATD Analyse path).  With dct 5 the cost is the SATD alone, and the
+# SATD of a pure brightness step is at most 8 * 255 per 4x4 tile (32 640 for
+# a 16x16 block), under the default badsad's 40 000: no flash is "bad" at the
+# default, so the paths that must reach the rescue set badsad to 5000.
+RECALC_PAIRS, SATD_PAIRS, SATD_BADSAD = 8, 4, 5000
+SATD_CLEAN = (256, 256, 512, 1024)       # no fresh noise: exact matches
+SMALL_SATD_CLEAN = (64, 96, 96, 128)
 HEXAGON = ((-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2))
 
 
@@ -143,7 +171,11 @@ def case_label(ctx, plane, extra=""):
     return f"level {ctx.level} {kind}{ov}{extra}"
 
 
-def k1_case(ctx, stacks, gen, plane=0):
+def stats_tag(stats):
+    return "" if stats == "sad" else " three stats"
+
+
+def k1_case(ctx, stacks, gen, plane=0, stats="sad"):
     """sad_map at one level's main-path shape; anchors spread over the
     whole legal range, both clamp ends included."""
     bsy, bsx, pit_y, pit_x, oy, ox, _ = plane_geom(ctx, plane)
@@ -164,14 +196,15 @@ def k1_case(ctx, stacks, gen, plane=0):
     afy[:, 0], afx[:, 0], afy[:, -1], afx[:, -1] = lo_y, lo_x, hi_y, hi_x
     src_plane = ctx.src_planes[plane]
     args = (stack, src_plane, afy, afx, r_y, r_x, bsy, bsx, ctx.pel, tile,
-            pit_x, pit_y, nbx, nby, oy, ox)
+            pit_x, pit_y, nbx, nby, oy, ox, stats)
     out = sadmap.sad_map(*args)
     want, plain_ms = time_plain(lambda: sadmap.sad_map_plain(*args))
-    label = case_label(ctx, plane)
+    label = case_label(ctx, plane, stats_tag(stats))
     err = compare(f"sad_map {label}", out, want)
     del want
     ms = time_cuda(lambda: sadmap.sad_map(*args), 5)
-    n_ops = out.numel() * bsy * bsx * 2
+    n_entries = out.numel() // (1 if stats == "sad" else 3)
+    n_ops = n_entries * bsy * bsx * OPS_PER_PIXEL[stats]
     n_bytes = (stack.numel() + src_plane.numel()
                + 4 * (afy.numel() + afx.numel()) + 4 * out.numel())
     b_ms, b_by = bound(n_bytes, n_ops)
@@ -206,14 +239,15 @@ def probe_inputs(ctx, stacks, gen, plane, kk, spread=6, far_share=0.05):
     return stack, cy, cx, src_blocks, bsy, bsx, pit_x
 
 
-def probe_bound(stack, cy, src_blocks, out, n_valid, d, bsy, bsx):
-    n_ops = n_valid * d * bsy * bsx * 2
+def probe_bound(stack, cy, src_blocks, out, n_valid, d, bsy, bsx,
+                stats="sad"):
+    n_ops = n_valid * d * bsy * bsx * OPS_PER_PIXEL[stats]
     n_bytes = (8 * cy.numel() + src_blocks.numel() + 4 * out.numel()
                + min(stack.numel(), n_valid * d * bsy * bsx))
     return bound(n_bytes, n_ops)
 
 
-def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0):
+def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad"):
     """probe_sads_tiled around a smooth vector field; a twentieth of the
     candidates is thrown far off its tile so INVALID_SAD is exercised."""
     stack, cy, cx, src_blocks, bsy, bsx, pit_x = probe_inputs(
@@ -229,28 +263,39 @@ def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0):
     def run():
         return probe.probe_sads_tiled(stack, cy, cx, src_blocks, offsets,
                                       bsy, bsx, ctx.pel, row_len=nbx,
-                                      pitch_x=pit_x)
+                                      pitch_x=pit_x, stats=stats)
 
+    label += stats_tag(stats)
+    before = read_counts()
     out = run()
+    name = "probe_sads_tiled" + ("" if stats == "sad" else "[stats3]")
+    if read_counts()[name] != before[name] + 1:
+        raise AssertionError(f"{name} {label}: the kernel did not launch")
     want, plain_ms = time_plain(lambda: probe.probe_sads_tiled_plain(
         stack, cy, cx, src_blocks, offsets, bsy, bsx, ctx.pel, nbx, tile,
-        *geom))
+        *geom, stats))
     err = compare(f"probe_sads_tiled {label}", out, want)
-    n_invalid = int((out[..., 0] == probe.INVALID_SAD).sum())
-    n_valid = out[..., 0].numel() - n_invalid
+    sads = out if stats == "sad" else out[..., 0]
+    if stats != "sad" and not torch.equal(
+            (out == probe.INVALID_SAD).all(dim=-1),
+            (out == probe.INVALID_SAD).any(dim=-1)):
+        raise AssertionError(f"probe_sads_tiled {label}: a triple is only "
+                             "partly INVALID_SAD")
+    n_invalid = int((sads[..., 0] == probe.INVALID_SAD).sum())
+    n_valid = sads[..., 0].numel() - n_invalid
     if n_invalid == 0 or n_valid == 0:
         raise AssertionError(f"probe_sads_tiled {label}: the case must hold "
                              f"valid and invalid candidates ({n_valid}, "
                              f"{n_invalid})")
     ms = time_cuda(run, 10)
     b_ms, b_by = probe_bound(stack, cy, src_blocks, out, n_valid,
-                             len(offsets), bsy, bsx)
+                             len(offsets), bsy, bsx, stats)
     return dict(case=label, shape=list(out.shape), invalid=n_invalid,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
 
-def k4_case(ctx, stacks, gen, offsets, kk, plane=0):
+def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad"):
     """probe_sads (the per-block probe) on a plane under the tile window;
     candidates reach a few pixels past the stack's bottom/right edges, where
     the window is shifted in."""
@@ -262,17 +307,19 @@ def k4_case(ctx, stacks, gen, offsets, kk, plane=0):
     cx.clamp_(min=-min_dx)
     cy[:, -1, 0] = (stack.shape[2] - bsy + 3) << logp
     cx[:, -1, 0] = (stack.shape[3] - bsx + 2) << logp
-    args = (stack, cy, cx, src_blocks, offsets, bsy, bsx, ctx.pel)
-    label = case_label(ctx, plane, f" pel {ctx.pel} K={kk} D={len(offsets)}")
-    before = probe.launches["probe_sads"]
+    args = (stack, cy, cx, src_blocks, offsets, bsy, bsx, ctx.pel, stats)
+    label = case_label(ctx, plane, f" pel {ctx.pel} K={kk} D={len(offsets)}"
+                       + stats_tag(stats))
+    name = "probe_sads" + ("" if stats == "sad" else "[stats3]")
+    before = probe.launches[name]
     out = probe.probe_sads(*args)
-    if probe.launches["probe_sads"] != before + 1:
-        raise AssertionError(f"probe_sads {label}: the kernel did not launch")
+    if probe.launches[name] != before + 1:
+        raise AssertionError(f"{name} {label}: the kernel did not launch")
     want, plain_ms = time_plain(lambda: probe.probe_sads_plain(*args))
     err = compare(f"probe_sads {label}", out, want)
     ms = time_cuda(lambda: probe.probe_sads(*args), 20)
-    b_ms, b_by = probe_bound(stack, cy, src_blocks, out, out[..., 0].numel(),
-                             len(offsets), bsy, bsx)
+    b_ms, b_by = probe_bound(stack, cy, src_blocks, out, cy.numel(),
+                             len(offsets), bsy, bsx, stats)
     return dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -346,17 +393,21 @@ def profile_run(label, fn):
                           for k, c, ms in rows[:12]]})
 
 
+PLAIN_KERNELS = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled",
+                 "probe_sads")
+
+
 def reset_counts():
-    sadmap.launches["sad_map"] = 0
-    for key in probe.launches:
-        probe.launches[key] = 0
+    for counts in (sadmap.launches, probe.launches):
+        for key in counts:
+            counts[key] = 0
     sadmap.plain_calls_on_cuda = 0
     probe.plain_calls_on_cuda = 0
     fe.host_syncs = 0
 
 
 def read_counts():
-    return dict(sad_map=sadmap.launches["sad_map"], **probe.launches)
+    return dict(**sadmap.launches, **probe.launches)
 
 
 def plain_calls_on_cuda():
@@ -540,12 +591,212 @@ def small_end_to_end_yuv(cfgs, dev):
         if torch.equal(b, small[p]):
             raise AssertionError(f"small end-to-end yuv: plane {p} came out "
                                  "as it went in")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in PLAIN_KERNELS) < 1:
         raise AssertionError(f"small end-to-end yuv: a kernel never "
                              f"launched {counts}")
     emit({"phase": "small_end_to_end_yuv", "size": [SMALL_W, SMALL_H],
           "frames": SMALL_YUV_T, "radius": radius,
           "levels": len(info_gpu["fields_b"].levels),
+          "bit_equal_to_cpu": True, "launches": counts})
+
+
+def satd_specs(width, height, dct_analyse, overlap_analyse=0):
+    """(SuperSpec, AnalyseSpec, RecalculateConfig, its AnalyseSpec) of the
+    SATD paths: gray 8-bit, pel 2, the full pyramid; Analyse blk 16 with the
+    plain-SAD cost (dct_analyse 0) or the SATD cost; Recalculate blk 16
+    overlap 8, thsad 200, dct 5."""
+    fmt = VideoFormat(width, height, 8, ColorFamily.GRAY)
+    sspec = SuperConfig(pel=2, levels=0, chroma=False).validate(fmt)
+    akw = dict(blksize=16, levels=0, overlap=overlap_analyse,
+               truemotion=True, chroma=False, isb=True)
+    if dct_analyse:
+        akw.update(dct=dct_analyse, badsad=SATD_BADSAD)
+    aspec = AnalyseConfig(**akw).validate(sspec)
+    rcfg = RecalculateConfig(blksize=16, overlap=8, thsad=200, chroma=False,
+                             truemotion=True, dct=5)
+    return sspec, aspec, rcfg, rcfg.to_analyse_config().validate(sspec)
+
+
+def satd_chain(clip, specs, info):
+    """build_super -> analyse_batch -> recalculate -> degrain (Degrain1 on
+    the refined field) over a gray clip [2n + 1, H, W]: the frames 1, 3, ...
+    are denoised, each from its two neighbours, so the 2n frame pairs
+    (c, c + 1), (c, c - 1) are one batch of jobs.  Returns the n denoised
+    frames; `info` receives the analysed and the refined field, the launch
+    counts read after each stage and, on the card, CUDA events around the
+    stages."""
+    sspec, aspec, rcfg, rspec = specs
+    dev = clip.device
+    n_out = (clip.shape[0] - 1) // 2
+    centres = [2 * i + 1 for i in range(n_out)]
+    src_t = torch.tensor([c for c in centres for _ in (0, 1)], device=dev)
+    ref_t = torch.tensor([c + d for c in centres for d in (1, -1)],
+                         device=dev)
+
+    def mark():
+        if dev.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    t0 = mark()
+    sups = build_super([clip], sspec)
+    sup_s, sup_r = sups.map(lambda a: a[src_t]), sups.map(lambda a: a[ref_t])
+    t1 = mark()
+    mvb = analyse_batch(sup_s, sup_r, aspec)
+    t2 = mark()
+    info["launches_after_analyse"] = read_counts()
+    refined = recalculate(sup_s, sup_r, mvb, rspec, rcfg)
+    t3 = mark()
+    info["launches_after_recalculate"] = read_counts()
+
+    def job(t, j):
+        return t.reshape((n_out, 2) + t.shape[1:])[:, j]
+
+    lv = refined.levels[0]
+    mvs = [MVField((MVPlaneField(job(lv.x, j), job(lv.y, j), job(lv.sad, j)),),
+                   job(refined.validity, j), refined.meta) for j in (0, 1)]
+    sups_r = [sup_r.map(lambda a, j=j: job(a, j).contiguous())
+              for j in (0, 1)]
+    out = degrain([clip[1::2][:n_out]], sups_r, mvs, rspec.meta,
+                  DegrainConfig(thsad=400))[0]
+    t4 = mark()
+    info["analysed"], info["refined"] = mvb, refined
+    if t0 is not None:
+        info["events"] = dict(super=(t0, t1), analyse=(t1, t2),
+                              recalculate=(t2, t3), degrain=(t3, t4))
+    return out
+
+
+def run_satd_path(phase, clip, specs, calm):
+    """Drive satd_chain over a full-width clip once, with every count set to
+    0 just before and read just after; check the outputs; print and return
+    the phase's numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    info = {}
+    t0 = time.perf_counter()
+    out = satd_chain(clip, specs, info)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    syncs = fe.host_syncs
+    plain_on_cuda = plain_calls_on_cuda()
+    peak = torch.cuda.max_memory_allocated()
+    n_out = (clip.shape[0] - 1) // 2
+    if tuple(out.shape) != (n_out, H, W) or out.dtype != torch.uint8:
+        raise AssertionError(f"{phase}: output {tuple(out.shape)} {out.dtype}")
+    if out.device.type != "cuda":
+        raise AssertionError(f"{phase}: output not on the card")
+    if torch.equal(out, clip[1::2][:n_out]):
+        raise AssertionError(f"{phase}: output equals the input")
+    if plain_on_cuda:
+        raise AssertionError(f"{phase}: {plain_on_cuda} plain-version calls "
+                             "on CUDA tensors")
+    # A predictor that lies off its tile's probe window costs INVALID_SAD
+    # and, being off the map as well, keeps it (the JAX package does the
+    # same): only a field as torn as the flash pairs' has such blocks.
+    refined = info["refined"].levels[0]
+    n_sentinel = int((refined.sad >= probe.INVALID_SAD).sum())
+    if n_sentinel and calm:
+        raise AssertionError(f"{phase}: {n_sentinel} refined blocks kept "
+                             "the sentinel on a calm clip")
+    thsad = specs[2].thsad * 16 * 16 // 64
+    ev = info["events"]
+    res = {"phase": phase, "size": [W, H], "pairs": 2 * n_out,
+           "frames_out": n_out, "levels": len(info["analysed"].levels),
+           "dct_analyse": specs[1].dct, "dct_recalculate": specs[3].dct,
+           "blocks_per_job_recalculate": refined.x[0].numel(),
+           "blocks_over_thsad": int((refined.sad > thsad).sum()),
+           "blocks_under_thsad": int((refined.sad <= thsad).sum()),
+           "blocks_with_sentinel_sad": n_sentinel,
+           "pairs_per_s": 2 * n_out / seconds, "seconds": seconds,
+           "stage_ms": {k: ev[k][0].elapsed_time(ev[k][1]) for k in ev},
+           "host_syncs": syncs, "launches": counts,
+           "launches_after_analyse": info["launches_after_analyse"],
+           "peak_memory_bytes": peak, "plain_calls_on_cuda": plain_on_cuda}
+    emit(res)
+    return res
+
+
+def satd_clip(frames, width, height, seed, flash, clean, device):
+    """The luma plane of the YUV test clip: noise panned one pixel per frame
+    with +-4 fresh noise per frame outside `clean`, and the flash."""
+    return make_test_clip_yuv(frames, width, height, seed=seed, flash=flash,
+                              noise=YUV_NOISE, pan=YUV_PAN, clean=clean,
+                              device=device)[0]
+
+
+def satd_kernel_cases(gen, dev):
+    """K1', K2' and K4' at the shapes the two SATD paths give them: K1' at
+    Recalculate's level 0 (16x16, pitch 8, 32 026 blocks) and at Analyse's
+    level 0; K2' at Recalculate's level 0 (the predictor's cost: K = 1,
+    D = 1) and at Analyse's level 0 (the rescue's hexagon and ring); K4' on
+    Analyse's level-5 plane, which is under the tile window."""
+    sspec, aspec, _, rspec = satd_specs(W, H, 5)
+    clip = satd_clip(RECALC_PAIRS + 1, W, H, 1, YUV_FLASH, SATD_CLEAN, dev)
+    sups = build_super([clip], sspec)
+    centres = torch.arange(1, RECALC_PAIRS, 2, device=dev)
+    src_idx = centres.repeat_interleave(2)
+    ref_idx = src_idx + 1 - 2 * (torch.arange(RECALC_PAIRS, device=dev) % 2)
+    ring = tuple(fe._ring_offsets(1, 1))
+    k1, k2, k4 = [], [], []
+    ctx, stacks = level_inputs(sspec, rspec, sups, src_idx, ref_idx, 0)
+    k1.append(k1_case(ctx, stacks, gen, stats=STATS3))
+    k2.append(k2_case(ctx, stacks, gen, ((0, 0),), 1,
+                      case_label(ctx, 0, " K=1 D=1"), stats=STATS3))
+    del ctx, stacks
+    ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
+    k1.append(k1_case(ctx, stacks, gen, stats=STATS3))
+    for offsets, what in ((HEXAGON, "hexagon D=6"), (ring, "ring D=8")):
+        k2.append(k2_case(ctx, stacks, gen, offsets, 1,
+                          f"level 0 K=1 {what}", stats=STATS3))
+    del ctx, stacks
+    ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 5)
+    for offsets in (HEXAGON, tuple(fe._HEXP), ((0, 0),)):
+        k4.append(k4_case(ctx, stacks, gen, offsets, 1, stats=STATS3))
+    del ctx, stacks, sups, clip
+    torch.cuda.empty_cache()
+    return k1, k2, k4
+
+
+def small_end_to_end_satd(dev):
+    """The SATD chain at 256x192 (Analyse blk 16 overlap 8 with dct 5, four
+    levels, the level-3 stack under the tile window; Recalculate dct 5;
+    Degrain1) on the card against the same code on CPU tensors."""
+    specs = satd_specs(SMALL_W, SMALL_H, 5, overlap_analyse=8)
+    small = satd_clip(SATD_PAIRS + 1, SMALL_W, SMALL_H, 2,
+                      SMALL_YUV_FLASH, SMALL_SATD_CLEAN, "cpu")
+    reset_counts()
+    info_gpu, info_cpu = {}, {}
+    out_gpu = satd_chain(small.to(dev), specs, info_gpu)
+    counts = read_counts()
+    if plain_calls_on_cuda():
+        raise AssertionError("small end-to-end satd: a plain version ran on "
+                             "CUDA tensors")
+    out_cpu = satd_chain(small, specs, info_cpu)
+    for name in ("analysed", "refined"):
+        for lv, (lg, lc) in enumerate(zip(info_gpu[name].levels,
+                                          info_cpu[name].levels)):
+            for key in ("x", "y", "sad"):
+                if not torch.equal(getattr(lg, key).cpu(), getattr(lc, key)):
+                    raise AssertionError(
+                        f"small end-to-end satd: {name} level {lv} {key} "
+                        "differs between the card and the CPU")
+    if not torch.equal(out_gpu.cpu(), out_cpu):
+        raise AssertionError("small end-to-end satd: denoised pixels differ "
+                             "between the card and the CPU")
+    if torch.equal(out_cpu, small[1::2][:out_cpu.shape[0]]):
+        raise AssertionError("small end-to-end satd: output equals the input")
+    needed = ("sad_map[stats3]", "probe_sads_tiled[stats3]",
+              "probe_sads[stats3]", "fetch_blocks_tiled")
+    if min(counts[k] for k in needed) < 1:
+        raise AssertionError(f"small end-to-end satd: a kernel never "
+                             f"launched {counts}")
+    emit({"phase": "small_end_to_end_satd", "size": [SMALL_W, SMALL_H],
+          "pairs": SATD_PAIRS, "levels": len(info_gpu["analysed"].levels),
           "bit_equal_to_cpu": True, "launches": counts})
 
 
@@ -601,9 +852,12 @@ def main():
     del sups, clip
     torch.cuda.empty_cache()
     y1, y2, y3, k4_cases = yuv_kernel_cases(cfgs, gen, dev)
+    s1, s2, s4 = satd_kernel_cases(gen, dev)
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           "sad_map": k1_cases + y1, "probe_sads_tiled": k2_cases + y2,
-          "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_cases})
+          "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_cases,
+          "sad_map[stats3]": s1, "probe_sads_tiled[stats3]": s2,
+          "probe_sads[stats3]": s4})
 
     # ---- small end-to-end: card against the same code on the CPU ----------
     s_sspec, s_aspec, s_dcfg = headline_specs(SMALL_W, SMALL_H)
@@ -633,6 +887,7 @@ def main():
     emit({"phase": "small_end_to_end", "size": [SMALL_W, SMALL_H],
           "frames": 6, "bit_equal_to_cpu": True, "launches": small_counts})
     small_end_to_end_yuv(cfgs, dev)
+    small_end_to_end_satd(dev)
 
     # ---- gray main path at full width ---------------------------------------
     n_windows = 2
@@ -675,7 +930,7 @@ def main():
     degrain_clip(flash_clip, fmt, *cfgs)                      # warm-up
     yuv = run_yuv_clip("yuv_main_path", flash_clip, cfgs)
     counts = yuv["launches"]
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in PLAIN_KERNELS) < 1:
         raise AssertionError(f"yuv main path: a kernel never launched "
                              f"{counts}")
     calm_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, noise=YUV_NOISE,
@@ -691,11 +946,67 @@ def main():
         profile_run("yuv_main_path_calm",
                     lambda: degrain_clip(calm_clip, fmt, *cfgs))
 
+    del flash_clip, calm_clip
+    torch.cuda.empty_cache()
+
+    # ---- Recalculate path at full width -------------------------------------
+    recalc_specs = satd_specs(W, H, 0)
+    recalc_clip = satd_clip(RECALC_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
+    satd_chain(recalc_clip, recalc_specs, {})                 # warm-up
+    recalc = run_satd_path("recalc_main_path", recalc_clip, recalc_specs,
+                           calm=True)
+    rc = recalc["launches"]
+    needed = ("sad_map", "sad_map[stats3]", "probe_sads_tiled[stats3]",
+              "fetch_blocks_tiled")
+    if min(rc[k] for k in needed) < 1:
+        raise AssertionError(f"recalc main path: a kernel never launched {rc}")
+    if min(recalc["blocks_over_thsad"], recalc["blocks_under_thsad"]) < 1:
+        raise AssertionError("recalc main path: the clip must leave blocks "
+                             "on both sides of thsad")
+
+    # ---- SATD Analyse path at full width ------------------------------------
+    sa_specs = satd_specs(W, H, 5)
+    sa_flash = satd_clip(SATD_PAIRS + 1, W, H, 0, YUV_FLASH, SATD_CLEAN, dev)
+    satd_chain(sa_flash, sa_specs, {})                        # warm-up
+    satd = run_satd_path("satd_analyse_path", sa_flash, sa_specs,
+                         calm=False)
+    sc = satd["launches"]
+    needed = ("sad_map[stats3]", "probe_sads_tiled[stats3]",
+              "probe_sads[stats3]", "fetch_blocks_tiled")
+    if min(sc[k] for k in needed) < 1:
+        raise AssertionError(f"satd analyse path: a kernel never launched "
+                             f"{sc}")
+    if sc["sad_map"] or sc["probe_sads_tiled"] or sc["probe_sads"]:
+        raise AssertionError(f"satd analyse path: a plain-SAD luma kernel "
+                             f"ran on a gray dct 5 path {sc}")
+    sa_calm = satd_clip(SATD_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
+    satd_calm = run_satd_path("satd_analyse_path_calm", sa_calm, sa_specs,
+                              calm=True)
+    after = satd_calm["launches_after_analyse"]
+    if any(after[k] for k in after if k.startswith("probe_sads")):
+        raise AssertionError("satd analyse path without the flash: the "
+                             f"rescue ran in Analyse {after}")
+    if satd_calm["launches"]["probe_sads_tiled[stats3]"] != 1:
+        raise AssertionError("satd analyse path without the flash: "
+                             "Recalculate probes the predictor's cost once "
+                             f"{satd_calm['launches']}")
+    if profile:
+        profile_run("recalc_main_path",
+                    lambda: satd_chain(recalc_clip, recalc_specs, {}))
+        profile_run("satd_analyse_path",
+                    lambda: satd_chain(sa_flash, sa_specs, {}))
+        profile_run("satd_analyse_path_calm",
+                    lambda: satd_chain(sa_calm, sa_specs, {}))
+
     # ---- the kernels line --------------------------------------------------
-    def entry(name, source, replaces, case):
+    by_path = {"main_path": gray_counts, "yuv_main_path": counts,
+               "recalc_main_path": rc, "satd_analyse_path": sc}
+
+    def entry(name, source, replaces, case, path="yuv_main_path"):
         return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=counts[name],
-                    launches_gray_main_path=gray_counts[name],
+                    replaces=replaces, launches=by_path[path][name],
+                    launches_on=path,
+                    launches_by_path={k: v[name] for k, v in by_path.items()},
                     max_abs_err=case["max_abs_err"], ms=case["ms"],
                     plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                     bound_by=case["bound_by"], library_ms=None,
@@ -709,7 +1020,13 @@ def main():
         entry("fetch_blocks_tiled", "mvtools_tpu_torch/csrc/fetch.cu",
               "mvtools_tpu/ops/probe.py:970", y3[0]),
         entry("probe_sads", "mvtools_tpu_torch/csrc/probe_block.cu",
-              "mvtools_tpu/ops/probe.py:317", k4_cases[0])]})
+              "mvtools_tpu/ops/probe.py:317", k4_cases[0]),
+        entry("sad_map[stats3]", "mvtools_tpu_torch/csrc/sadmap.cu",
+              "mvtools_tpu/ops/sadmap.py:145", s1[0], "recalc_main_path"),
+        entry("probe_sads_tiled[stats3]", "mvtools_tpu_torch/csrc/probe.cu",
+              "mvtools_tpu/ops/probe.py:632", s2[0], "recalc_main_path"),
+        entry("probe_sads[stats3]", "mvtools_tpu_torch/csrc/probe_block.cu",
+              "mvtools_tpu/ops/probe.py:317", s4[0], "satd_analyse_path")]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi.splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -253,6 +253,7 @@ def make_test_clip_yuv(frames: int, width: int = 1920, height: int = 1080,
                        seed: int = 0,
                        flash: Optional[Tuple[int, int, int, int]] = None,
                        noise: int = 0, pan: Tuple[int, int] = (2, 3),
+                       clean: Optional[Tuple[int, int, int, int]] = None,
                        device="cuda") -> List[torch.Tensor]:
     """[Y, U, V] planes ([frames, H, W], [frames, H/2, W/2] x 2, uint8) of a
     YUV420 test clip: per plane one uniform-noise image panned by `pan` =
@@ -269,7 +270,9 @@ def make_test_clip_yuv(frames: int, width: int = 1920, height: int = 1080,
 
     noise > 0 adds fresh uniform noise in [-noise, noise] to every frame:
     a compensated neighbour is then close to the frame but not equal to it,
-    and degrain has something to average."""
+    and degrain has something to average.  clean = (y, x, h, w) in luma
+    pixels keeps a region free of that noise: there a true vector matches
+    exactly, which leaves Recalculate blocks under its threshold."""
     dev = require_device(device)
     rng = np.random.default_rng(seed)
     planes = []
@@ -286,6 +289,9 @@ def make_test_clip_yuv(frames: int, width: int = 1920, height: int = 1080,
                 out[i, y:y + h, x:x + w] = reg + (192 if i % 3 == 1 else 0)
             if noise:
                 grain = rng.integers(-noise, noise + 1, (ph, pw))
+                if clean is not None:
+                    y, x, h, w = (v >> sub for v in clean)
+                    grain[y:y + h, x:x + w] = 0
                 out[i] = np.clip(out[i].astype(np.int64) + grain, 0, 255)
         planes.append(torch.from_numpy(out).to(dev))
     return planes

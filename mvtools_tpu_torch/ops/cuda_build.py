@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use every source
 is compiled with its own ``nvcc`` process (all started together) into
 ``mvtools_tpu_torch/build/lib<name>-<hash>.so`` and loaded with ``ctypes``;
-the hash covers the source text and the flags, so an edited source is
-rebuilt and a finished build is reused.  Nothing here runs at import time:
+the hash covers the source text, the text of every header the source
+includes from ``csrc/`` (and of the headers those include) and the flags, so
+an edited source or header is rebuilt and a finished build is reused.  Nothing here runs at import time:
 a machine without ``nvcc`` can import every module and use the plain PyTorch
 versions on CPU tensors.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,8 +45,24 @@ def _nvcc() -> str:
         "need the CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(path: Path, seen: set) -> bytes:
+    """The text of a source followed by that of every csrc/ header it
+    includes with quotes, each header once, in order of first mention."""
+    text = path.read_bytes()
+    for inc in _INCLUDE.findall(text):
+        header = CSRC / inc.decode()
+        if header not in seen and header.exists():
+            seen.add(header)
+            text += _with_headers(header, seen)
+    return text
+
+
 def _target(name: str) -> Path:
-    text = (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = (_with_headers(CSRC / f"{name}.cu", set())
+            + " ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{hashlib.sha1(text).hexdigest()[:12]}.so"
 
 

@@ -18,6 +18,12 @@ PyTorch version beside it:
 * fetch_blocks_tiled — [J, nblk, K, bs_y, bs_x] int32 reference blocks at pel
   positions, exact for every block.
 
+Both probes also come in a three-stat form (stats="sad_satd_luma"): every
+entry is the triple (SAD, SATD, sum of the reference block) that the SATD
+cost modes (dct 5-10) mix, output [..., 3].  It is a kernel of its own in
+the same source file, defined for 8-bit stacks and the block sizes the SATD
+exists for.
+
 A wrapper launches its kernel when the tensors are on a CUDA device and
 uses the plain version only for CPU tensors.
 
@@ -35,6 +41,7 @@ import functools
 import torch
 
 from . import cuda_build
+from . import sad as sad_ops
 from .pad import edge_pad
 
 I32 = torch.int32
@@ -49,7 +56,11 @@ ALIGN_SLACK_X = 384
 
 INVALID_SAD = 2147483647   # int32 max
 
-launches = {"probe_sads": 0, "probe_sads_tiled": 0, "fetch_blocks_tiled": 0}
+STATS = ("sad", "sad_satd_luma")
+
+# one count per kernel; the three-stat forms are kernels of their own
+launches = {"probe_sads": 0, "probe_sads_tiled": 0, "fetch_blocks_tiled": 0,
+            "probe_sads[stats3]": 0, "probe_sads_tiled[stats3]": 0}
 plain_calls_on_cuda = 0    # plain versions run on CUDA tensors (comparisons)
 
 
@@ -126,6 +137,29 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device=None):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
+def _check_stats(what: str, stats: str, stack) -> bool:
+    """True for the three-stat form.  It is defined for 8-bit stacks only
+    and needs a block size the SATD exists for."""
+    if stats not in STATS:
+        raise ValueError(f"{what}: stats must be one of {STATS}")
+    if stats == "sad":
+        return False
+    if stack.dtype != torch.uint8:
+        raise ValueError(f"{what}: the stats path supports 8-bit stacks only")
+    return True
+
+
+def _block_costs(ref, src, stats3: bool):
+    """SAD [...] of int32 blocks ref against src over the last two axes, or
+    with stats3 the triple (SAD, SATD, sum of the reference block)
+    [..., 3]."""
+    s = (ref - src).abs().sum(dim=(-2, -1))
+    if not stats3:
+        return s
+    return torch.stack((s, sad_ops.satd(src, ref),
+                        ref.sum(dim=(-2, -1))), dim=-1)
+
+
 def _gather_at(stack, sub, fy, fx, bs_y: int, bs_x: int):
     """int32 [..., bs_y, bs_x] patches of stack [J, n_sub, H, W] from
     subplane `sub` at full-pel origin (fy, fx), all [J, ...]; rows/columns
@@ -154,15 +188,16 @@ def _gather_blocks_plain(stack, pos_y, pos_x, bs_y: int, bs_x: int, logp: int):
 
 
 def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
-                     bs_x: int, pel: int) -> torch.Tensor:
+                     bs_x: int, pel: int, stats: str = "sad") -> torch.Tensor:
     """Plain PyTorch version of the per-block probe (same contract as the
-    kernel).  Out-of-range rule: the window of the whole offset set is
+    kernel, either form).  Out-of-range rule: the window of the whole offset set is
     shifted as a whole into the plane and each offset's block keeps its
     place inside it — what a clamped window slice followed by an in-window
     slice does."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
+    stats3 = _check_stats("probe_sads", stats, stack)
     logp = pel.bit_length() - 1
     pelm = pel - 1
     min_dx, min_dy, wy, wx = _window_geom(offsets, bs_y, bs_x, pel)
@@ -179,13 +214,13 @@ def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
         sub = (ax & pelm) | ((ay & pelm) << logp)
         ref = _gather_at(stack, sub, (ay >> logp) + shift_y,
                          (ax >> logp) + shift_x, bs_y, bs_x)
-        cols.append((ref - src).abs().sum(dim=(-2, -1)))
-    return torch.stack(cols, dim=-1).to(I32)
+        cols.append(_block_costs(ref, src, stats3))
+    return torch.stack(cols, dim=3).to(I32)
 
 
-def _probe_block_lib():
+def _probe_block_lib(stats3: bool):
     lib = cuda_build.load("probe_block")
-    fn = lib.mvt_probe_sads
+    fn = lib.mvt_probe_sads_stats3 if stats3 else lib.mvt_probe_sads
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
             + [ctypes.c_void_p]
@@ -194,9 +229,11 @@ def _probe_block_lib():
 
 
 def _check_probe_args(what, stack, cand_y, cand_x, src_blocks, bs_y, bs_x,
-                      pel):
+                      pel, stats3=False):
     if stack.dtype != torch.uint8:
         raise NotImplementedError(f"{what}: only 8-bit stacks are ported")
+    if stats3 and not sad_ops.satd_supported(bs_x, bs_y):
+        raise ValueError(f"{what}: no SATD for block size {bs_x}x{bs_y}")
     if pel not in (1, 2, 4):
         raise ValueError(f"{what}: pel must be 1, 2 or 4")
     dev = stack.device
@@ -212,8 +249,10 @@ def _check_probe_args(what, stack, cand_y, cand_x, src_blocks, bs_y, bs_x,
 
 
 def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
-               bs_x: int, pel: int) -> torch.Tensor:
-    """[J, nblk, K, D] int32 SADs, one window per (block, candidate).
+               bs_x: int, pel: int, stats: str = "sad") -> torch.Tensor:
+    """[J, nblk, K, D] int32 SADs, one window per (block, candidate); with
+    stats="sad_satd_luma" [J, nblk, K, D, 3] triples (SAD, SATD, sum of the
+    reference block).
 
     stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
     [J, nblk, K] int32 candidate pel positions (see module doc);
@@ -221,28 +260,31 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     pel offsets evaluated per candidate.  The kernel serves every call on
     CUDA tensors, however few the blocks."""
     offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
+    stats3 = _check_stats("probe_sads", stats, stack)
     _check_probe_args("probe_sads", stack, cand_y, cand_x, src_blocks, bs_y,
-                      bs_x, pel)
+                      bs_x, pel, stats3)
     min_dx, min_dy, wy, wx = _window_geom(offsets, bs_y, bs_x, pel)
     if stack.shape[2] < wy or stack.shape[3] < wx:
         raise ValueError("probe_sads: the plane is smaller than the window "
                          "of the offset set")
     if not stack.is_cuda:
         return probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets,
-                                bs_y, bs_x, pel)
+                                bs_y, bs_x, pel, stats)
     dev = stack.device
     nj, nblk, kk = cand_y.shape
     offs = _offsets_tensor(offsets, dev)
-    out = torch.empty((nj, nblk, kk, len(offsets)), dtype=I32, device=dev)
+    name = "probe_sads[stats3]" if stats3 else "probe_sads"
+    out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
+                      dtype=I32, device=dev)
     with torch.cuda.device(dev):
-        err = _probe_block_lib()(
+        err = _probe_block_lib(stats3)(
             stack.data_ptr(), cand_y.data_ptr(), cand_x.data_ptr(),
             src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
             nj, pel * pel, stack.shape[2], stack.shape[3], nblk, kk,
             len(offsets), bs_y, bs_x, pel.bit_length() - 1, min_dy, min_dx,
             wy, wx, torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "probe_sads")
-    launches["probe_sads"] += 1
+    cuda_build.check_launch(err, name)
+    launches[name] += 1
     return out
 
 
@@ -253,13 +295,16 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
 def probe_sads_tiled_plain(stack, cand_y, cand_x, src_blocks, offsets,
                            bs_y: int, bs_x: int, pel: int, row_len: int,
                            tile: int, wy_total: int, wx_total: int,
-                           center_y: int, center_x: int) -> torch.Tensor:
+                           center_y: int, center_x: int,
+                           stats: str = "sad") -> torch.Tensor:
     """Plain PyTorch version of the tiled probe (same contract as the
-    kernel): per-candidate SADs where the candidate window fits its tile's
-    extent, INVALID_SAD elsewhere."""
+    kernel, either form): per-candidate SADs (or stat triples) where the
+    candidate window fits its tile's extent, INVALID_SAD (in all three)
+    elsewhere."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
+    stats3 = _check_stats("probe_sads_tiled", stats, stack)
     logp = pel.bit_length() - 1
     min_dx, min_dy, wy, _, _, cxs = _tile_geom(offsets, bs_y, bs_x, pel)
     nj, _, hp, wp = stack.shape
@@ -290,14 +335,15 @@ def probe_sads_tiled_plain(stack, cand_y, cand_x, src_blocks, offsets,
     for dx, dy in offsets:
         ref = _gather_blocks_plain(stack, cand_y + dy, cand_x + dx, bs_y,
                                    bs_x, logp)
-        cols.append((ref - src).abs().sum(dim=(-2, -1)))
-    out = torch.stack(cols, dim=-1)
-    return torch.where(valid[..., None], out, INVALID_SAD).to(I32)
+        cols.append(_block_costs(ref, src, stats3))
+    out = torch.stack(cols, dim=3)
+    valid = valid.reshape(valid.shape + (1,) * (out.ndim - 3))
+    return torch.where(valid, out, INVALID_SAD).to(I32)
 
 
-def _probe_lib():
+def _probe_lib(stats3: bool):
     lib = cuda_build.load("probe")
-    fn = lib.mvt_probe_sads_tiled
+    fn = lib.mvt_probe_sads_tiled_stats3 if stats3 else lib.mvt_probe_sads_tiled
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 20 \
             + [ctypes.c_void_p]
@@ -308,8 +354,11 @@ def _probe_lib():
 def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
                      bs_y: int, bs_x: int, pel: int, row_len: int,
                      pitch_x: int, tile: int = 0, margin_y: int = 20,
-                     margin_x: int = 64) -> torch.Tensor:
-    """[J, nblk, K, D] int32 SADs over a [nrows, row_len] block grid.
+                     margin_x: int = 64, stats: str = "sad") -> torch.Tensor:
+    """[J, nblk, K, D] int32 SADs over a [nrows, row_len] block grid; with
+    stats="sad_satd_luma" [J, nblk, K, D, 3] triples (SAD, SATD, sum of the
+    reference block), an off-tile candidate reporting INVALID_SAD in all
+    three.
 
     stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
     [J, nblk, K] int32 candidate pel positions (see module doc);
@@ -328,28 +377,31 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     if (stack.shape[-2] < wy_total or stack.shape[-1] < wx_total
             or nblk % row_len != 0):
         return probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y,
-                          bs_x, pel)
+                          bs_x, pel, stats)
+    stats3 = _check_stats("probe_sads_tiled", stats, stack)
     _check_probe_args("probe_sads_tiled", stack, cand_y, cand_x, src_blocks,
-                      bs_y, bs_x, pel)
+                      bs_y, bs_x, pel, stats3)
     if not stack.is_cuda:
         return probe_sads_tiled_plain(
             stack, cand_y, cand_x, src_blocks, offsets, bs_y, bs_x, pel,
-            row_len, tile, wy_total, wx_total, center_y, center_x)
+            row_len, tile, wy_total, wx_total, center_y, center_x, stats)
 
     dev = stack.device
     min_dx, min_dy, wy, _, _, cxs = _tile_geom(offsets, bs_y, bs_x, pel)
     offs = _offsets_tensor(offsets, dev)
-    out = torch.empty((nj, nblk, kk, len(offsets)), dtype=I32, device=dev)
+    name = "probe_sads_tiled[stats3]" if stats3 else "probe_sads_tiled"
+    out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
+                      dtype=I32, device=dev)
     with torch.cuda.device(dev):
-        err = _probe_lib()(
+        err = _probe_lib(stats3)(
             stack.data_ptr(), cand_y.data_ptr(), cand_x.data_ptr(),
             src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
             nj, pel * pel, stack.shape[2], stack.shape[3], nblk, row_len,
             kk, len(offsets), tile, bs_y, bs_x, pel.bit_length() - 1,
             min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "probe_sads_tiled")
-    launches["probe_sads_tiled"] += 1
+    cuda_build.check_launch(err, name)
+    launches[name] += 1
     return out
 
 

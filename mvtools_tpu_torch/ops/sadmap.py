@@ -10,8 +10,12 @@ plain PyTorch version beside it).  The whole hierarchical search (predictor
 trials, hex2 walk, expanding rings) then runs as lookups into the resulting
 [J, nblk, Dy, Dx] map (field_engine.MapProber).
 
-Contract: map entries are bit-identical to probe SADs for the same
-candidate.  Candidates outside the grid are the caller's to reject (they
+With stats="sad_satd_luma" every entry is the triple (SAD, SATD, sum of the
+reference block) that the SATD cost modes (dct 5-10) mix: [J, nblk, Dy, Dx, 3],
+a kernel of its own in the same source file.
+
+Contract: map entries are bit-identical to probe SADs (or stat triples) for
+the same candidate.  Candidates outside the grid are the caller's to reject (they
 report INVALID_SAD and lose every cost comparison; the dense zero trial
 guarantees a real cost bound exists for every block).
 
@@ -33,7 +37,7 @@ from . import probe as probe_ops
 I32 = torch.int32
 INVALID_SAD = probe_ops.INVALID_SAD
 
-launches = {"sad_map": 0}
+launches = {"sad_map": 0, "sad_map[stats3]": 0}
 plain_calls_on_cuda = 0
 
 
@@ -85,12 +89,13 @@ def anchor_bounds(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
 def sad_map_plain(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
                   bs_y: int, bs_x: int, pel: int, tile: int, pitch_x: int,
                   pitch_y: int, nbx: int, nby: int, src_y0: int,
-                  src_x0: int) -> torch.Tensor:
+                  src_x0: int, stats: str = "sad") -> torch.Tensor:
     """Plain PyTorch version of the SAD map (same contract as the
-    kernel)."""
+    kernel, either form)."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
+    stats3 = _check_stats(stats, stack, pitch_x, bs_y, bs_x)
     logp = pel.bit_length() - 1
     pelm = pel - 1
     nj, n_sub, hp, wp = stack.shape
@@ -122,15 +127,31 @@ def sad_map_plain(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
             sub = (dx & pelm) | ((dy & pelm) << logp)
             gx = (afx[..., None, None] + (dx >> logp) + xx).clamp(0, wp - 1)
             ref = flat_stack[((job * n_sub + sub) * hp + gy) * wp + gx]
-            cols.append((ref.to(I32) - src).abs().sum(dim=(-2, -1)))
-        rows.append(torch.stack(cols, dim=-1))
-    out = torch.stack(rows, dim=-2)                     # [J, nby, nbx, Dy, Dx]
-    return out.reshape(nj, nby * nbx, 2 * r_y + 1, 2 * r_x + 1).to(I32)
+            cols.append(probe_ops._block_costs(ref.to(I32), src, stats3))
+        rows.append(torch.stack(cols, dim=3))
+    out = torch.stack(rows, dim=3)                 # [J, nby, nbx, Dy, Dx(, 3)]
+    return out.reshape((nj, nby * nbx) + out.shape[3:]).to(I32)
 
 
-def _lib():
+def _check_stats(stats: str, stack, pitch_x: int, bs_y: int,
+                 bs_x: int) -> bool:
+    """True for the three-stat form, which needs 8-bit data and a block
+    grid whose 8x4 SATD partitions line up: pitch and block width multiples
+    of 8, block height a multiple of 4."""
+    if stats not in probe_ops.STATS:
+        raise ValueError(f"sad_map: stats must be one of {probe_ops.STATS}")
+    if stats == "sad":
+        return False
+    if (pitch_x % 8 or bs_x % 8 or bs_y % 4
+            or stack.dtype != torch.uint8):
+        raise ValueError("sad_map: the satd map needs u8 data, pitch % 8 == "
+                         "0, bs_x % 8 == 0 and bs_y % 4 == 0")
+    return True
+
+
+def _lib(stats3: bool):
     lib = cuda_build.load("sadmap")
-    fn = lib.mvt_sad_map
+    fn = lib.mvt_sad_map_stats3 if stats3 else lib.mvt_sad_map
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 \
             + [ctypes.c_void_p]
@@ -141,18 +162,21 @@ def _lib():
 def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
             bs_y: int, bs_x: int, pel: int, tile: int, pitch_x: int,
             pitch_y: int, nbx: int, nby: int, src_y0: int,
-            src_x0: int) -> torch.Tensor:
-    """[J, nby*nbx, 2*r_y+1, 2*r_x+1] int32 SAD map, dy-major.
+            src_x0: int, stats: str = "sad") -> torch.Tensor:
+    """[J, nby*nbx, 2*r_y+1, 2*r_x+1] int32 SAD map, dy-major; with
+    stats="sad_satd_luma" [J, nby*nbx, 2*r_y+1, 2*r_x+1, 3] triples (SAD,
+    SATD, sum of the reference block).
 
     stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; src_plane:
     [J, Hs, Ws] uint8 source plane, block (row, col) at
     (src_y0 + row*pitch_y, src_x0 + col*pitch_x); anchor_fy/fx:
     [J, nby*ceil(nbx/tile)] int32 full-pel stack positions of each tile's
     first block at offset (0, 0), pre-clamped to anchor_bounds."""
+    stats3 = _check_stats(stats, stack, pitch_x, bs_y, bs_x)
     if not stack.is_cuda:
         return sad_map_plain(stack, src_plane, anchor_fy, anchor_fx, r_y,
                              r_x, bs_y, bs_x, pel, tile, pitch_x, pitch_y,
-                             nbx, nby, src_y0, src_x0)
+                             nbx, nby, src_y0, src_x0, stats)
     dev = stack.device
     probe_ops._check(stack, "stack", torch.uint8, 4)
     probe_ops._check(src_plane, "src_plane", torch.uint8, 3, dev)
@@ -164,16 +188,17 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
             or tuple(anchor_fy.shape) != (nj, ntile)
             or tuple(anchor_fx.shape) != (nj, ntile)):
         raise ValueError("sad_map: inconsistent shapes")
-    out = torch.empty((nj, nby * nbx, 2 * r_y + 1, 2 * r_x + 1), dtype=I32,
-                      device=dev)
+    name = "sad_map[stats3]" if stats3 else "sad_map"
+    out = torch.empty((nj, nby * nbx, 2 * r_y + 1, 2 * r_x + 1)
+                      + ((3,) if stats3 else ()), dtype=I32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib()(
+        err = _lib(stats3)(
             stack.data_ptr(), src_plane.data_ptr(), anchor_fy.data_ptr(),
             anchor_fx.data_ptr(), out.data_ptr(), nj, pel * pel,
             stack.shape[2], stack.shape[3], src_plane.shape[1],
             src_plane.shape[2], nbx, nby, tile, pitch_x, pitch_y, bs_y, bs_x,
             src_y0, src_x0, r_y, r_x, pel.bit_length() - 1,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "sad_map")
-    launches["sad_map"] += 1
+    cuda_build.check_launch(err, name)
+    launches[name] += 1
     return out

@@ -173,7 +173,7 @@ def _spec(**kw):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(bits=16), "16-bit"),
-    (dict(dct=5), "dct"),
+    (dict(dct=1), "dct"),
     (dict(pel=4), "pel=4"),
     (dict(trymany=True), "trymany"),
     (dict(divide=1), "divide"),

@@ -349,7 +349,7 @@ def _tiny_clip(bits=8):
     (dict(acfg=AnalyseConfig(fields=True, tff=True)), "fields"),
     (dict(scfg=SuperConfig(pel=4)), "pel"),
     (dict(bits=16), "16-bit"),
-    (dict(acfg=AnalyseConfig(dct=5)), "dct"),
+    (dict(acfg=AnalyseConfig(dct=1)), "dct"),
     (dict(acfg=AnalyseConfig(trymany=True)), "trymany"),
 ], ids=["exact", "mesh", "spatial", "fields", "pel4", "16bit", "dct",
         "trymany"])
@@ -393,7 +393,9 @@ def test_kernel_wrappers_dispatch_on_the_tensor_device_alone():
     src = inspect.getsource(probe_ops.probe_sads)
     assert "if not stack.is_cuda:" in src
     assert "try:" not in src and "except" not in src
-    assert 'launches["probe_sads"] += 1' in src
+    # one count per kernel: the plain form's or the three-stat form's
+    assert ('name = "probe_sads[stats3]" if stats3 else "probe_sads"' in src
+            and "launches[name] += 1" in src)
     tiled = inspect.getsource(probe_ops.probe_sads_tiled)
     assert "return probe_sads(" in tiled
     assert "probe_sads_plain" not in tiled

@@ -1,7 +1,7 @@
 """Shared JAX-side reference for the tests of the PyTorch port
 (tests/test_torch_*.py).
 
-The JAX lockstep engine is slow to compile on the CPU, so each of TWO
+The JAX lockstep engine is slow to compile on the CPU, so each of THREE
 small geometries is run through the JAX package once per test run — supers,
 one analyse_batch call, degrain per output frame — and cached as an .npz
 that every test file (and every pytest-xdist worker) loads.  The first
@@ -14,6 +14,17 @@ worker to take a run's lock computes it; the others wait for the file.
   the level-2 chroma stacks (448 wide) and all level-3 stacks (480 wide) are
   narrower than the tiled probe's 512-wide window, so the rescue's probes
   there go through the per-block probe.
+* load_satd(): the SATD slice, gray: Analyse with dct 5 (blk 16 overlap 8,
+  levels=0: 4 levels at this size) -> Recalculate with dct 5 (blk 16 overlap
+  8) -> Degrain1, radius 1 over a 4-frame clip.  Frame 1 flashes over most
+  of the frame, so three of the four jobs turn bad at every level and the
+  rescue runs on SATD costs; the level-3 stack (480 wide) is narrower than
+  the tiled probe's window, so its probes go through the per-block probe.
+  badsad is 5000, not the default 10000: the SATD of a pure brightness step
+  is at most 8 * 255 per 4x4 tile, 32 640 for a 16x16 block, under the
+  default's 40 000, so with dct 5 no flash alone is ever "bad" at the
+  default.  A region free of fresh noise leaves Recalculate blocks under
+  thsad in the calm job.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -143,7 +154,8 @@ YUV_PAN = (1, 1)                   # pixels down / right per frame
 
 
 def make_yuv_frames(n=YUV_FRAMES, w=YUV_W, h=YUV_H, seed=YUV_SEED,
-                    flash=YUV_FLASH, noise=YUV_NOISE, pan=YUV_PAN):
+                    flash=YUV_FLASH, noise=YUV_NOISE, pan=YUV_PAN,
+                    clean=None):
     """[Y, U, V] planes [n, h, w] / [n, h/2, w/2] uint8 of a YUV420 clip:
     per plane one uniform-noise image panned by `pan` luma pixels per frame
     (mod 16; chroma moves half as far; a small pan keeps the dark frames
@@ -155,7 +167,8 @@ def make_yuv_frames(n=YUV_FRAMES, w=YUV_W, h=YUV_H, seed=YUV_SEED,
     at every pyramid level, the way a camera flash or a cut does.  `noise`
     adds fresh uniform noise of that amplitude to every frame, so that a
     compensated neighbour is close to the frame but not equal to it and
-    degrain has something to average."""
+    degrain has something to average; `clean` = (y, x, h, w) keeps a region
+    free of that noise, so that a true vector matches exactly there."""
     rng = np.random.default_rng(seed)
     planes = []
     for sub in (0, 1, 1):
@@ -171,6 +184,9 @@ def make_yuv_frames(n=YUV_FRAMES, w=YUV_W, h=YUV_H, seed=YUV_SEED,
                 out[i, y:y + hh, x:x + ww] = reg + (192 if i % 3 == 1 else 0)
             if noise:
                 grain = rng.integers(-noise, noise + 1, (ph, pw))
+                if clean is not None:
+                    y, x, hh, ww = (v >> sub for v in clean)
+                    grain[y:y + hh, x:x + ww] = 0
                 out[i] = np.clip(out[i].astype(np.int64) + grain, 0, 255)
         planes.append(out)
     return planes
@@ -253,6 +269,94 @@ def _compute_yuv() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The SATD slice: gray, Analyse dct 5 -> Recalculate dct 5 -> Degrain1
+
+SATD_W, SATD_H, SATD_BLK, SATD_OVERLAP, SATD_RADIUS = 256, 192, 16, 8, 1
+SATD_FRAMES = 4
+SATD_LEVELS = 4                    # what levels=0 resolves to at this size
+SATD_FLASH = (16, 16, 160, 224)    # y, x, h, w
+SATD_CLEAN = (64, 96, 96, 128)     # no fresh noise here
+SATD_SEED = 13
+SATD_DCT = 5
+SATD_BADSAD = 5000
+SATD_THSAD = 200
+
+
+def make_satd_frames():
+    """[SATD_FRAMES, H, W] uint8: the luma plane of make_yuv_frames with the
+    flash in frame 1, +-4 fresh noise outside SATD_CLEAN, pan (1, 1)."""
+    return make_yuv_frames(SATD_FRAMES, SATD_W, SATD_H, SATD_SEED, SATD_FLASH,
+                           YUV_NOISE, YUV_PAN, clean=SATD_CLEAN)[0]
+
+
+def satd_job_indices():
+    """(src, ref) frame indices, per output frame backward then forward."""
+    src, ref = [], []
+    for c in range(SATD_RADIUS, SATD_FRAMES - SATD_RADIUS):
+        src += [c, c]
+        ref += [c + 1, c - 1]
+    return src, ref
+
+
+def satd_configs(config, types, recalc):
+    """(SuperSpec, AnalyseSpec, RecalculateConfig, its AnalyseSpec) of the
+    SATD slice from either package's config / types / recalculate
+    modules."""
+    fmt = types.VideoFormat(SATD_W, SATD_H, 8, types.ColorFamily.GRAY)
+    sspec = config.SuperConfig(pel=2, levels=0, chroma=False).validate(fmt)
+    aspec = config.AnalyseConfig(
+        blksize=SATD_BLK, levels=0, overlap=SATD_OVERLAP, truemotion=True,
+        chroma=False, dct=SATD_DCT, badsad=SATD_BADSAD,
+        isb=True).validate(sspec)
+    rcfg = recalc.RecalculateConfig(
+        blksize=SATD_BLK, overlap=SATD_OVERLAP, thsad=SATD_THSAD,
+        chroma=False, truemotion=True, dct=SATD_DCT)
+    return sspec, aspec, rcfg, rcfg.to_analyse_config().validate(sspec)
+
+
+def _compute_satd() -> dict:
+    import jax
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    from mvtools_tpu import recalculate as jax_recalc
+    from mvtools_tpu.analyse import batch_supported
+    from mvtools_tpu.core import config, types
+    from mvtools_tpu.degrain import DegrainConfig, degrain
+
+    tm = jax.tree_util.tree_map
+    frames = make_satd_frames()
+    sspec, aspec, rcfg, rspec = satd_configs(config, types, jax_recalc)
+    assert aspec.meta.lv_count == SATD_LEVELS
+    assert batch_supported(aspec, sspec)
+    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    src, ref = satd_job_indices()
+    ss = tm(lambda *a: jnp.stack(a), *[sups[i] for i in src])
+    rs = tm(lambda *a: jnp.stack(a), *[sups[i] for i in ref])
+    mvb = mvt.analyse_batch(ss, rs, aspec)
+    out = {"frames": frames}
+    for lv in range(sspec.levels):
+        out[f"super{lv}"] = np.stack(
+            [np.asarray(s.planes[0][lv]) for s in sups])
+    for lv in range(SATD_LEVELS):
+        for k in ("x", "y", "sad"):
+            out[f"mv_{k}{lv}"] = np.asarray(getattr(mvb.levels[lv], k))
+    refined = [jax_recalc.recalculate(
+        sups[s], sups[r], tm(lambda a, j=j: a[j], mvb), rspec, rcfg,
+        engine="lockstep") for j, (s, r) in enumerate(zip(src, ref))]
+    for k in ("x", "y", "sad"):
+        out[f"rc_{k}"] = np.stack(
+            [np.asarray(getattr(f.levels[0], k)) for f in refined])
+    deg = []
+    for i, c in enumerate(range(SATD_RADIUS, SATD_FRAMES - SATD_RADIUS)):
+        deg.append(np.asarray(degrain(
+            [jnp.asarray(frames[c])], [sups[c + 1], sups[c - 1]],
+            refined[2 * i:2 * i + 2], rspec.meta,
+            DegrainConfig(thsad=400))[0]))
+    out["degrain"] = np.stack(deg)
+    return out
+
+
 def load(tmp_path_factory) -> dict:
     """The gray reference arrays, computed at most once per test run."""
     return _load(tmp_path_factory, "torch_port_reference", _compute)
@@ -261,6 +365,12 @@ def load(tmp_path_factory) -> dict:
 def load_yuv(tmp_path_factory) -> dict:
     """The YUV420 reference arrays, computed at most once per test run."""
     return _load(tmp_path_factory, "torch_port_reference_yuv", _compute_yuv)
+
+
+def load_satd(tmp_path_factory) -> dict:
+    """The SATD slice's reference arrays, computed at most once per test
+    run."""
+    return _load(tmp_path_factory, "torch_port_reference_satd", _compute_satd)
 
 
 def specs(ref: dict):
