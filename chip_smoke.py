@@ -9,7 +9,7 @@ PyTorch built for CUDA:
 It builds the CUDA kernels from mvtools_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card at the shapes the main paths
 give it (integers: tolerance 0), checks small end-to-end runs on the card
-against the same code on CPU tensors, and drives four main paths at full
+against the same code on CPU tensors, and drives five main paths at full
 width:
 
 * the gray headline path (1920x1080 gray, blk 16, pel 2, 3 levels, Degrain1,
@@ -31,7 +31,16 @@ width:
   pairs): first on a clip with a flash over most of the frame, whose bad
   blocks send the rescue through the three-stat forms of the tiled probe and,
   at level 5, of the per-block probe, then without it (the Analyse stage may
-  launch neither probe kernel).
+  launch neither probe kernel);
+* the DCT Analyse path (the same chain with the block-DCT cost dct 1 in
+  Analyse and in Recalculate, 4 frame pairs): the candidates' blocks come
+  from the per-block fetch and, for the dense map of every level whose stack
+  is wide enough, the tiled fetch; no SAD map or probe kernel may launch.
+  First with the flash (the rescue must run), then without it (it must not).
+
+It also holds the block DCT on the card against the CPU on more than a
+million blocks (dct_vs_cpu: not one coefficient may differ) and runs the
+DCT chain at 256x192 on the card against the CPU for each of dct 1-4.
 
 Every phase prints one JSON line; any failure raises and the exit code is
 non-zero.  Without a CUDA device it exits non-zero before printing any
@@ -39,7 +48,7 @@ result.  The last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-additionally traces one more full-width run of each of the seven clips with
+additionally traces one more full-width run of each of the nine clips with
 torch.profiler and prints where the device time went (busy share, kernels by
 time).
 """
@@ -98,6 +107,18 @@ RECALC_PAIRS, SATD_PAIRS, SATD_BADSAD = 8, 4, 5000
 SATD_CLEAN = (256, 256, 512, 1024)       # no fresh noise: exact matches
 SMALL_SATD_CLEAN = (64, 96, 96, 128)
 HEXAGON = ((-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2))
+# the DCT path (dct 1): a brightness step costs about 8 * 4 * 96 (the DC step
+# of the requantised DCT, weighted 1 + 3) plus the noise's AC terms, no more
+# than the fresh noise of a calm pair does at level 0 (up to about 6 000 for
+# a 16x16 block in CPU runs of this clip at 512x288 and 960x544); only the
+# flash's mismatched edge blocks cost more.  2500 per 8x8 (10 000 for a
+# 16x16 block, under the default's 40 000) lies between: the rescue runs at
+# level 0 of the flash clip and nowhere on the calm one
+DCT_BADSAD = 2500
+# the kernels that serve a fetch of reference blocks; a stack under the
+# tiled fetch's window (the small clips' and the coarse levels') goes to the
+# per-block one
+FETCH_KERNELS = ("fetch_blocks_tiled", "fetch_blocks")
 
 
 def emit(obj):
@@ -324,6 +345,40 @@ def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad"):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def gather_index(stack, cy, cx, bsy, bsx, pel):
+    """Broadcast int64 index tensors (job, subplane, row, column) that make
+    one advanced-indexing gather stack[index] compute the blocks of the
+    per-block fetch (the full-pel origin clamped as a whole)."""
+    logp = pel.bit_length() - 1
+    nj, _, hp, wp = stack.shape
+    dev = stack.device
+    sub = ((cx & (pel - 1)) | ((cy & (pel - 1)) << logp)).long()
+    fy = (cy >> logp).clamp(0, hp - bsy).long()
+    fx = (cx >> logp).clamp(0, wp - bsx).long()
+    job = torch.arange(nj, device=dev).reshape(nj, 1, 1, 1, 1)
+    return (job, sub[..., None, None],
+            fy[..., None, None] + torch.arange(bsy, device=dev)[:, None],
+            fx[..., None, None] + torch.arange(bsx, device=dev))
+
+
+def library_gather_ms(stack, cy, cx, bsy, bsx, pel, want):
+    """Milliseconds of one advanced-indexing gather stack[index] on
+    precomputed index tensors (the yardstick PyTorch call: it writes uint8
+    where the kernels write int32); it must give the same blocks."""
+    index = gather_index(stack, cy, cx, bsy, bsx, pel)
+    if not torch.equal(stack[index].to(torch.int32), want):
+        raise AssertionError("the library gather computes other blocks")
+    return time_cuda(lambda: stack[index], 10)
+
+
+def fetch_bound(stack, cy, out):
+    """(ms, by) of a fetch: each candidate's coordinates read, each block
+    written as int32, and the stack bytes the blocks need, at most the whole
+    stack once."""
+    n_pix = out.numel()
+    return bound(4 * n_pix + 8 * cy.numel() + min(stack.numel(), n_pix), 0)
+
+
 def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH):
     """fetch_blocks_tiled as degrain calls it: one block per grid block of
     `frames` frames, vectors running past the clamp on every side."""
@@ -343,8 +398,12 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH):
     mvy = torch.randint(-lim, lim + 1, (nb, meta.blk_y, meta.blk_x),
                         generator=gen, device=dev, dtype=torch.int32)
     pad_x, pad_y = (sspec.hpad >> sub) * sspec.pel, (sspec.vpad >> sub) * sspec.pel
+    pitch_x = (meta.blk_size_x - meta.overlap_x) >> sub
+    before = probe.launches["fetch_blocks_tiled"]
     out = gather_blocks(stack, pos_x, pos_y, mvx, mvy, bsy, bsx, 1, pad_x,
-                        pad_y, sub, sub)
+                        pad_y, sub, sub, pitch_fp=pitch_x)
+    if probe.launches["fetch_blocks_tiled"] != before + 1:
+        raise AssertionError("fetch_blocks_tiled: the kernel did not launch")
     # the same positions through the plain version
     lp = 1
     xa = (((pos_x << 1) + mvx) >> sub) + pad_x
@@ -361,11 +420,34 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH):
     err = compare(f"fetch_blocks_tiled {label}", out.reshape(want.shape),
                   want)
     ms = time_cuda(lambda: probe.fetch_blocks_tiled(
-        stack, cy, cx, bsy, bsx, sspec.pel), 10)
+        stack, cy, cx, bsy, bsx, sspec.pel, row_len=meta.blk_x,
+        pitch_x=pitch_x), 10)
+    lib_ms = library_gather_ms(stack, cy, cx, bsy, bsx, sspec.pel, want)
     n_bytes = want.numel() * (1 + 4) + 8 * cy.numel()
     b_ms, b_by = bound(n_bytes, 0)
     return dict(case=label, shape=list(want.shape), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def k5_case(label, stack, cy, cx, bsy, bsx, pel):
+    """fetch_blocks (the per-block fetch) against its plain version, with
+    the library gather beside it."""
+    before = probe.launches["fetch_blocks"]
+    out = probe.fetch_blocks(stack, cy, cx, bsy, bsx, pel)
+    if probe.launches["fetch_blocks"] != before + 1:
+        raise AssertionError(f"fetch_blocks {label}: the kernel did not "
+                             "launch")
+    want, plain_ms = time_plain(lambda: probe.fetch_blocks_plain(
+        stack, cy, cx, bsy, bsx, pel))
+    err = compare(f"fetch_blocks {label}", out, want)
+    ms = time_cuda(lambda: probe.fetch_blocks(stack, cy, cx, bsy, bsx, pel),
+                   10)
+    lib_ms = library_gather_ms(stack, cy, cx, bsy, bsx, pel, want)
+    b_ms, b_by = fetch_bound(stack, cy, out)
+    return dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def profile_run(label, fn):
@@ -404,10 +486,16 @@ def reset_counts():
     sadmap.plain_calls_on_cuda = 0
     probe.plain_calls_on_cuda = 0
     fe.host_syncs = 0
+    fe.rescued_blocks = 0
 
 
 def read_counts():
     return dict(**sadmap.launches, **probe.launches)
+
+
+def fetches(counts):
+    """Launches of either fetch kernel."""
+    return sum(counts[k] for k in FETCH_KERNELS)
 
 
 def plain_calls_on_cuda():
@@ -591,7 +679,8 @@ def small_end_to_end_yuv(cfgs, dev):
         if torch.equal(b, small[p]):
             raise AssertionError(f"small end-to-end yuv: plane {p} came out "
                                  "as it went in")
-    if min(counts[k] for k in PLAIN_KERNELS) < 1:
+    if (min(counts[k] for k in PLAIN_KERNELS if k not in FETCH_KERNELS) < 1
+            or fetches(counts) < 1):
         raise AssertionError(f"small end-to-end yuv: a kernel never "
                              f"launched {counts}")
     emit({"phase": "small_end_to_end_yuv", "size": [SMALL_W, SMALL_H],
@@ -600,20 +689,22 @@ def small_end_to_end_yuv(cfgs, dev):
           "bit_equal_to_cpu": True, "launches": counts})
 
 
-def satd_specs(width, height, dct_analyse, overlap_analyse=0):
+def chain_specs(width, height, dct_analyse, dct_recalculate=5,
+                overlap_analyse=0):
     """(SuperSpec, AnalyseSpec, RecalculateConfig, its AnalyseSpec) of the
-    SATD paths: gray 8-bit, pel 2, the full pyramid; Analyse blk 16 with the
-    plain-SAD cost (dct_analyse 0) or the SATD cost; Recalculate blk 16
-    overlap 8, thsad 200, dct 5."""
+    Recalculate chains: gray 8-bit, pel 2, the full pyramid; Analyse blk 16
+    with the plain-SAD cost (dct_analyse 0), a DCT cost (1-4) or the SATD
+    cost (5); Recalculate blk 16 overlap 8, thsad 200, dct_recalculate."""
     fmt = VideoFormat(width, height, 8, ColorFamily.GRAY)
     sspec = SuperConfig(pel=2, levels=0, chroma=False).validate(fmt)
     akw = dict(blksize=16, levels=0, overlap=overlap_analyse,
                truemotion=True, chroma=False, isb=True)
     if dct_analyse:
-        akw.update(dct=dct_analyse, badsad=SATD_BADSAD)
+        akw.update(dct=dct_analyse, badsad=(
+            DCT_BADSAD if dct_analyse <= 4 else SATD_BADSAD))
     aspec = AnalyseConfig(**akw).validate(sspec)
     rcfg = RecalculateConfig(blksize=16, overlap=8, thsad=200, chroma=False,
-                             truemotion=True, dct=5)
+                             truemotion=True, dct=dct_recalculate)
     return sspec, aspec, rcfg, rcfg.to_analyse_config().validate(sspec)
 
 
@@ -683,6 +774,7 @@ def run_satd_path(phase, clip, specs, calm):
     seconds = time.perf_counter() - t0
     counts = read_counts()
     syncs = fe.host_syncs
+    rescued = fe.rescued_blocks
     plain_on_cuda = plain_calls_on_cuda()
     peak = torch.cuda.max_memory_allocated()
     n_out = (clip.shape[0] - 1) // 2
@@ -704,6 +796,8 @@ def run_satd_path(phase, clip, specs, calm):
         raise AssertionError(f"{phase}: {n_sentinel} refined blocks kept "
                              "the sentinel on a calm clip")
     thsad = specs[2].thsad * 16 * 16 // 64
+    over_badsad = [int((lv.sad > specs[1].badsad).sum())
+                   for lv in info["analysed"].levels]
     ev = info["events"]
     res = {"phase": phase, "size": [W, H], "pairs": 2 * n_out,
            "frames_out": n_out, "levels": len(info["analysed"].levels),
@@ -712,9 +806,10 @@ def run_satd_path(phase, clip, specs, calm):
            "blocks_over_thsad": int((refined.sad > thsad).sum()),
            "blocks_under_thsad": int((refined.sad <= thsad).sum()),
            "blocks_with_sentinel_sad": n_sentinel,
+           "analysed_blocks_over_badsad_by_level": over_badsad,
            "pairs_per_s": 2 * n_out / seconds, "seconds": seconds,
            "stage_ms": {k: ev[k][0].elapsed_time(ev[k][1]) for k in ev},
-           "host_syncs": syncs, "launches": counts,
+           "host_syncs": syncs, "rescued_blocks": rescued, "launches": counts,
            "launches_after_analyse": info["launches_after_analyse"],
            "peak_memory_bytes": peak, "plain_calls_on_cuda": plain_on_cuda}
     emit(res)
@@ -735,7 +830,7 @@ def satd_kernel_cases(gen, dev):
     level 0; K2' at Recalculate's level 0 (the predictor's cost: K = 1,
     D = 1) and at Analyse's level 0 (the rescue's hexagon and ring); K4' on
     Analyse's level-5 plane, which is under the tile window."""
-    sspec, aspec, _, rspec = satd_specs(W, H, 5)
+    sspec, aspec, _, rspec = chain_specs(W, H, 5)
     clip = satd_clip(RECALC_PAIRS + 1, W, H, 1, YUV_FLASH, SATD_CLEAN, dev)
     sups = build_super([clip], sspec)
     centres = torch.arange(1, RECALC_PAIRS, 2, device=dev)
@@ -766,7 +861,7 @@ def small_end_to_end_satd(dev):
     """The SATD chain at 256x192 (Analyse blk 16 overlap 8 with dct 5, four
     levels, the level-3 stack under the tile window; Recalculate dct 5;
     Degrain1) on the card against the same code on CPU tensors."""
-    specs = satd_specs(SMALL_W, SMALL_H, 5, overlap_analyse=8)
+    specs = chain_specs(SMALL_W, SMALL_H, 5, overlap_analyse=8)
     small = satd_clip(SATD_PAIRS + 1, SMALL_W, SMALL_H, 2,
                       SMALL_YUV_FLASH, SMALL_SATD_CLEAN, "cpu")
     reset_counts()
@@ -791,13 +886,204 @@ def small_end_to_end_satd(dev):
     if torch.equal(out_cpu, small[1::2][:out_cpu.shape[0]]):
         raise AssertionError("small end-to-end satd: output equals the input")
     needed = ("sad_map[stats3]", "probe_sads_tiled[stats3]",
-              "probe_sads[stats3]", "fetch_blocks_tiled")
-    if min(counts[k] for k in needed) < 1:
+              "probe_sads[stats3]")
+    if min(counts[k] for k in needed) < 1 or fetches(counts) < 1:
         raise AssertionError(f"small end-to-end satd: a kernel never "
                              f"launched {counts}")
     emit({"phase": "small_end_to_end_satd", "size": [SMALL_W, SMALL_H],
           "pairs": SATD_PAIRS, "levels": len(info_gpu["analysed"].levels),
           "bit_equal_to_cpu": True, "launches": counts})
+
+
+def dct_kernel_cases(gen, dev):
+    """K5 at the shapes the DCT path gives it, on the 1080p gray super of
+    the DCT path (pel 2, blk 16, 8040 blocks per job at level 0, four jobs):
+    a row of level 0's dense map (15 candidates one pel apart round a
+    per-block anchor), the rescue's hexagon (6 candidates), a row of the
+    map at level 5, whose stack is under the tiled fetch's window (the
+    hand-over), and origins past every edge of the stack (the clamp)."""
+    sspec, aspec, _, _ = chain_specs(W, H, 1, 1)
+    clip = satd_clip(SATD_PAIRS + 1, W, H, 1, YUV_FLASH, SATD_CLEAN, dev)
+    sups = build_super([clip], sspec)
+    src_idx = torch.tensor([1, 1, 3, 3], device=dev)
+    ref_idx = torch.tensor([2, 0, 4, 2], device=dev)
+    bs, pel = aspec.meta.blk_size_x, sspec.pel
+    cases = []
+    narrow_level = 5
+    for lv in (0, narrow_level):
+        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
+        r = fe.map_radius(ctx)
+        stack = stacks[0]
+        nbx = ctx.nblk[0]
+        tile = probe.tile_params(((0, 0),), bs, bs, ctx.pel,
+                                   probe.FETCH_TILE, bs)[:2]
+        narrow = stack.shape[2] < tile[0] or stack.shape[3] < tile[1]
+        if narrow != (lv == narrow_level):
+            raise AssertionError(f"fetch_blocks: level {lv}'s stack "
+                                 f"{tuple(stack.shape)} against the tiled "
+                                 f"window {tile}")
+        # anchors: a smooth field of whole-pel vectors, one per block
+        _, cy, cx, _, _, _, _ = probe_inputs(ctx, stacks, gen, 0, 1,
+                                             spread=4, far_share=0.0)
+        row = torch.arange(-r, r + 1, device=dev, dtype=torch.int32)
+        rcx = (cx + row).contiguous()
+        rcy = (cy + 3).expand_as(rcx).contiguous()
+        label = f"level {lv} map row K={2 * r + 1}"
+        if lv == narrow_level:
+            before = read_counts()
+            probe.fetch_blocks_tiled(stack, rcy, rcx, bs, bs, ctx.pel,
+                                     row_len=nbx, pitch_x=bs)
+            after = read_counts()
+            if (after["fetch_blocks"] != before["fetch_blocks"] + 1
+                    or after["fetch_blocks_tiled"]
+                    != before["fetch_blocks_tiled"]):
+                raise AssertionError(f"fetch_blocks_tiled: the level-{lv} "
+                                     "stack was not handed to fetch_blocks")
+            label += " (the tiled fetch's hand-over)"
+        cases.append(k5_case(label, stack, rcy, rcx, bs, bs, ctx.pel))
+        if lv == 0:
+            hy = torch.tensor([o[1] for o in HEXAGON], device=dev,
+                              dtype=torch.int32)
+            hx = torch.tensor([o[0] for o in HEXAGON], device=dev,
+                              dtype=torch.int32)
+            cases.append(k5_case("level 0 hexagon K=6", stack,
+                                 (cy + hy).contiguous(),
+                                 (cx + hx).contiguous(), bs, bs, ctx.pel))
+            # origins anywhere from 40 pixels before the stack to 40 past
+            # its end, both clamp ends included
+            hp, wp = stack.shape[2:]
+            ey = torch.randint(-40 * pel, (hp + 40) * pel, cy.shape[:2] + (4,),
+                               generator=gen, device=dev, dtype=torch.int32)
+            ex = torch.randint(-40 * pel, (wp + 40) * pel, ey.shape,
+                               generator=gen, device=dev, dtype=torch.int32)
+            ey[:, :, 0], ex[:, :, 1] = (hp - bs + 5) * pel + 1, \
+                (wp - bs + 7) * pel + 1
+            cases.append(k5_case("level 0 origins past every edge K=4",
+                                 stack, ey, ex, bs, bs, ctx.pel))
+        del ctx, stacks, stack
+    del sups, clip
+    torch.cuda.empty_cache()
+    return cases
+
+
+def special_blocks(n, bh, bw, gen):
+    """[n, bh, bw] uint8 blocks on the CPU: half noise, the rest flat 0,
+    flat 255, flat at any level, nearly flat (one level and the next),
+    steps across a random row or column, checkerboards of period 1, 2 and 4,
+    and ramps, whose DCTs hold AC coefficients near or at 0 and DC
+    coefficients at the ends of the range."""
+    kinds = 8
+    k = torch.arange(n) % (2 * kinds)
+    a = torch.randint(0, 256, (n, 1, 1), generator=gen)
+    b = torch.randint(0, 256, (n, 1, 1), generator=gen)
+    yy = torch.arange(bh).reshape(1, bh, 1)
+    xx = torch.arange(bw).reshape(1, 1, bw)
+    t = torch.randint(1, min(bh, bw), (n, 1, 1), generator=gen)
+    per = 1 << torch.randint(0, 3, (n, 1, 1), generator=gen)
+    horiz = torch.rand((n, 1, 1), generator=gen) < 0.5
+    noise = torch.randint(0, 256, (n, bh, bw), generator=gen)
+    special = [
+        torch.zeros_like(noise),
+        torch.full_like(noise, 255),
+        a.expand_as(noise),
+        (a + torch.randint(0, 2, (n, bh, bw), generator=gen)).clamp(0, 255),
+        torch.where(torch.where(horiz, yy < t, xx < t), a, b),
+        torch.where(((yy // per + xx // per) % 2) == 0, a, b),
+        (a + (yy + xx) * (b % 9 - 4)).clamp(0, 255),
+        torch.where(torch.where(horiz, yy < bh // 2, xx < bw // 2), a,
+                    noise),
+    ]
+    out = noise.clone()
+    for i, blk in enumerate(special):
+        sel = k == kinds + i
+        out[sel] = blk[sel]
+    return out.to(torch.uint8)
+
+
+def dct_vs_cpu(dev):
+    """dct_block on the card against the CPU: 2^20 blocks of 16x16 and
+    2^18 each of 8x8 and 16x8 (width x height), half noise, half the
+    special blocks; every requantised coefficient must agree."""
+    from mvtools_tpu_torch.ops import dct as dct_ops
+    gen = torch.Generator().manual_seed(11)
+    chunk = 1 << 16
+    res = {"phase": "dct_vs_cpu", "sizes": {}}
+    t0 = time.perf_counter()
+    total_diff = 0
+    for (bh, bw), n in (((16, 16), 1 << 20), ((8, 8), 1 << 18),
+                        ((8, 16), 1 << 18)):
+        blocks = special_blocks(n, bh, bw, gen)
+        diff = 0
+        for i in range(0, n, chunk):
+            part = blocks[i:i + chunk]
+            want = dct_ops.dct_block(part, 8)
+            got = dct_ops.dct_block(part.to(dev), 8).cpu()
+            diff += int((got != want).sum())
+        res["sizes"][f"{bw}x{bh}"] = {"blocks": n,
+                                      "coefficients": n * bh * bw,
+                                      "differing": diff}
+        total_diff += diff
+    res["differing_coefficients"] = total_diff
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    if total_diff:
+        raise AssertionError(f"dct_vs_cpu: {total_diff} requantised "
+                             "coefficients differ between the card and the "
+                             "CPU")
+
+
+def small_end_to_end_dct(dev):
+    """The DCT chain (Analyse and Recalculate with the same DCT cost, blk 16,
+    then Degrain1) at 256x192 with a flash, on the card against the same
+    code on CPU tensors, for each of dct 1-4."""
+    small = satd_clip(SATD_PAIRS + 1, SMALL_W, SMALL_H, 2, SMALL_YUV_FLASH,
+                      SMALL_SATD_CLEAN, "cpu")
+    rescued, counts_by_mode = {}, {}
+    for dct in (1, 2, 3, 4):
+        specs = chain_specs(SMALL_W, SMALL_H, dct, dct)
+        reset_counts()
+        info_gpu, info_cpu = {}, {}
+        out_gpu = satd_chain(small.to(dev), specs, info_gpu)
+        counts = read_counts()
+        rescued[dct] = fe.rescued_blocks
+        if plain_calls_on_cuda():
+            raise AssertionError(f"small end-to-end dct {dct}: a plain "
+                                 "version ran on CUDA tensors")
+        out_cpu = satd_chain(small, specs, info_cpu)
+        for name in ("analysed", "refined"):
+            for lv, (lg, lc) in enumerate(zip(info_gpu[name].levels,
+                                              info_cpu[name].levels)):
+                for key in ("x", "y", "sad"):
+                    if not torch.equal(getattr(lg, key).cpu(),
+                                       getattr(lc, key)):
+                        raise AssertionError(
+                            f"small end-to-end dct {dct}: {name} level {lv} "
+                            f"{key} differs between the card and the CPU")
+        if not torch.equal(out_gpu.cpu(), out_cpu):
+            raise AssertionError(f"small end-to-end dct {dct}: denoised "
+                                 "pixels differ between the card and the CPU")
+        if counts["fetch_blocks"] < 1:
+            raise AssertionError(f"small end-to-end dct {dct}: fetch_blocks "
+                                 f"never launched {counts}")
+        counts_by_mode[dct] = {k: v for k, v in counts.items() if v}
+    if not any(rescued.values()):
+        raise AssertionError("small end-to-end dct: the rescue ran in no "
+                             "mode")
+    emit({"phase": "small_end_to_end_dct", "size": [SMALL_W, SMALL_H],
+          "pairs": SATD_PAIRS, "bit_equal_to_cpu": True,
+          "rescued_blocks": rescued, "launches": counts_by_mode})
+
+
+def check_dct_path(phase, res):
+    """The DCT path's launch rules: both fetch kernels serve it, no SAD map
+    or probe kernel in any form runs."""
+    c = res["launches"]
+    if c["fetch_blocks"] < 1 or c["fetch_blocks_tiled"] < 1:
+        raise AssertionError(f"{phase}: a fetch kernel never launched {c}")
+    luma = [k for k in c if k.startswith(("sad_map", "probe_sads")) and c[k]]
+    if luma:
+        raise AssertionError(f"{phase}: a SAD map or probe kernel ran on the "
+                             f"DCT path {c}")
 
 
 def main():
@@ -853,11 +1139,13 @@ def main():
     torch.cuda.empty_cache()
     y1, y2, y3, k4_cases = yuv_kernel_cases(cfgs, gen, dev)
     s1, s2, s4 = satd_kernel_cases(gen, dev)
+    k5_cases = dct_kernel_cases(gen, dev)
     emit({"phase": "kernels_vs_plain", "tolerance": 0,
           "sad_map": k1_cases + y1, "probe_sads_tiled": k2_cases + y2,
           "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_cases,
           "sad_map[stats3]": s1, "probe_sads_tiled[stats3]": s2,
-          "probe_sads[stats3]": s4})
+          "probe_sads[stats3]": s4, "fetch_blocks": k5_cases})
+    dct_vs_cpu(dev)
 
     # ---- small end-to-end: card against the same code on the CPU ----------
     s_sspec, s_aspec, s_dcfg = headline_specs(SMALL_W, SMALL_H)
@@ -881,13 +1169,15 @@ def main():
         raise AssertionError("small end-to-end: denoised pixels differ "
                              "between the card and the CPU")
     gray_kernels = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled")
-    if min(small_counts[k] for k in gray_kernels) < 1:
+    if (min(small_counts[k] for k in gray_kernels[:2]) < 1
+            or fetches(small_counts) < 1):
         raise AssertionError(f"small end-to-end: a kernel never launched "
                              f"{small_counts}")
     emit({"phase": "small_end_to_end", "size": [SMALL_W, SMALL_H],
           "frames": 6, "bit_equal_to_cpu": True, "launches": small_counts})
     small_end_to_end_yuv(cfgs, dev)
     small_end_to_end_satd(dev)
+    small_end_to_end_dct(dev)
 
     # ---- gray main path at full width ---------------------------------------
     n_windows = 2
@@ -950,7 +1240,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- Recalculate path at full width -------------------------------------
-    recalc_specs = satd_specs(W, H, 0)
+    recalc_specs = chain_specs(W, H, 0)
     recalc_clip = satd_clip(RECALC_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
     satd_chain(recalc_clip, recalc_specs, {})                 # warm-up
     recalc = run_satd_path("recalc_main_path", recalc_clip, recalc_specs,
@@ -965,7 +1255,7 @@ def main():
                              "on both sides of thsad")
 
     # ---- SATD Analyse path at full width ------------------------------------
-    sa_specs = satd_specs(W, H, 5)
+    sa_specs = chain_specs(W, H, 5)
     sa_flash = satd_clip(SATD_PAIRS + 1, W, H, 0, YUV_FLASH, SATD_CLEAN, dev)
     satd_chain(sa_flash, sa_specs, {})                        # warm-up
     satd = run_satd_path("satd_analyse_path", sa_flash, sa_specs,
@@ -997,10 +1287,35 @@ def main():
                     lambda: satd_chain(sa_flash, sa_specs, {}))
         profile_run("satd_analyse_path_calm",
                     lambda: satd_chain(sa_calm, sa_specs, {}))
+    del recalc_clip, sa_flash, sa_calm
+    torch.cuda.empty_cache()
+
+    # ---- DCT Analyse path at full width -------------------------------------
+    dct_specs = chain_specs(W, H, 1, 1)
+    dct_flash = satd_clip(SATD_PAIRS + 1, W, H, 0, YUV_FLASH, SATD_CLEAN, dev)
+    satd_chain(dct_flash, dct_specs, {})                      # warm-up
+    dct = run_satd_path("dct_analyse_path", dct_flash, dct_specs, calm=False)
+    check_dct_path("dct_analyse_path", dct)
+    if dct["rescued_blocks"] < 1:
+        raise AssertionError("dct analyse path: the flash made no block bad; "
+                             "the rescue never ran")
+    dct_calm_clip = satd_clip(SATD_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
+    dct_calm = run_satd_path("dct_analyse_path_calm", dct_calm_clip,
+                             dct_specs, calm=True)
+    check_dct_path("dct_analyse_path_calm", dct_calm)
+    if dct_calm["rescued_blocks"]:
+        raise AssertionError("dct analyse path without the flash: the rescue "
+                             f"took {dct_calm['rescued_blocks']} blocks")
+    if profile:
+        profile_run("dct_analyse_path",
+                    lambda: satd_chain(dct_flash, dct_specs, {}))
+        profile_run("dct_analyse_path_calm",
+                    lambda: satd_chain(dct_calm_clip, dct_specs, {}))
 
     # ---- the kernels line --------------------------------------------------
     by_path = {"main_path": gray_counts, "yuv_main_path": counts,
-               "recalc_main_path": rc, "satd_analyse_path": sc}
+               "recalc_main_path": rc, "satd_analyse_path": sc,
+               "dct_analyse_path": dct["launches"]}
 
     def entry(name, source, replaces, case, path="yuv_main_path"):
         return dict(name=name, route="cuda", source=source,
@@ -1009,7 +1324,8 @@ def main():
                     launches_by_path={k: v[name] for k, v in by_path.items()},
                     max_abs_err=case["max_abs_err"], ms=case["ms"],
                     plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
-                    bound_by=case["bound_by"], library_ms=None,
+                    bound_by=case["bound_by"],
+                    library_ms=case.get("library_ms"),
                     measured_at=case["case"])
 
     emit({"kernels": [
@@ -1026,7 +1342,10 @@ def main():
         entry("probe_sads_tiled[stats3]", "mvtools_tpu_torch/csrc/probe.cu",
               "mvtools_tpu/ops/probe.py:632", s2[0], "recalc_main_path"),
         entry("probe_sads[stats3]", "mvtools_tpu_torch/csrc/probe_block.cu",
-              "mvtools_tpu/ops/probe.py:317", s4[0], "satd_analyse_path")]})
+              "mvtools_tpu/ops/probe.py:317", s4[0], "satd_analyse_path"),
+        entry("fetch_blocks", "mvtools_tpu_torch/csrc/fetch.cu",
+              "mvtools_tpu/ops/probe.py:899", k5_cases[0],
+              "dct_analyse_path")]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi.splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,24 +5,23 @@ consumers, after vapoursynth-mvtools: frames, pyramids and motion-vector
 fields are torch tensors with an explicit leading batch axis, the plain
 array work is eager PyTorch, and the hot operations (dense SAD map, tiled
 candidate probe, per-block candidate probe, each also in a three-stat form
-that yields SAD, SATD and the reference block's sum, and the reference-block
-fetch) are hand-written CUDA kernels under csrc/, compiled with nvcc at
-first use.
+that yields SAD, SATD and the reference block's sum, and the tiled and the
+per-block reference-block fetch) are hand-written CUDA kernels under csrc/,
+compiled with nvcc at first use.
 
 This package imports torch and numpy only.  Ported so far: Super -> batched
 lockstep Analyse -> Recalculate -> Degrain for 8-bit GRAY and YUV clips (pel
 1/2, chroma, overlapped blocks, any pyramid depth and radius, searches HEX2
-and EXHAUSTIVE), with the plain-SAD cost (dct 0) and the SATD costs (dct
-5-10), and the entry points analyse / analyse_batch, recalculate,
-degrain.degrain, models.denoise.degrain_window and
-models.denoise.degrain_clip.  Not ported: the DCT costs (dct 1-4), the other
-searches (UMH, ONETIME, NSTEP, LOGARITHMIC, HORIZONTAL, VERTICAL), trymany,
-divide, engine="exact", pel 4, 16-bit clips, fields.  Each raises
-NotImplementedError.
+and EXHAUSTIVE), with the plain-SAD cost (dct 0), the DCT costs (dct 1-4)
+and the SATD costs (dct 5-10), and the entry points analyse / analyse_batch,
+recalculate, degrain.degrain, models.denoise.degrain_window and
+models.denoise.degrain_clip.  Not ported: the other searches (UMH, ONETIME,
+NSTEP, LOGARITHMIC, HORIZONTAL, VERTICAL), trymany, divide, engine="exact",
+pel 4, 16-bit clips, fields.  Each raises NotImplementedError.
 
 Precision: the pipeline is integer (pixels uint8, block math int32, costs
-int64) with two float64 islands (lambda adaptation, degrain weights), kept
-in float64 on the device.
+int64) with three float64 islands (lambda adaptation, degrain weights, the
+DCT of the dct 1-4 costs), kept in float64 on the device.
 """
 
 from .core.types import (  # noqa: F401

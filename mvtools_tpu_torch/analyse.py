@@ -20,10 +20,10 @@ costs int64.
 Float islands: the lambda adaptation uses C doubles (pobFetchPredictors
 PlaneOfBlocks.cpp:461-462), reproduced here in float64 on the device.
 
-Ported: luma and chroma, overlapped block grids, dct 0 and the SATD costs
-dct 5-10, pel 1/2, 8-bit, searches HEX2 and EXHAUSTIVE, no
-trymany/divide/field_shift, every level on the dense SAD map.  Anything else
-(the DCT costs dct 1-4 among it) raises NotImplementedError.
+Ported: luma and chroma, overlapped block grids, the plain-SAD cost (dct 0),
+the DCT costs (dct 1-4) and the SATD costs (dct 5-10), pel 1/2, 8-bit,
+searches HEX2 and EXHAUSTIVE, no trymany/divide/field_shift, every level on
+the dense map.  Anything else raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ from . import field_engine as fe
 from .core import geometry
 from .core.config import AnalyseSpec
 from .core.types import MVField, MVPlaneField, SearchType
-from .field_engine import mix_satd_cost
+from .field_engine import mix_dct_cost, mix_dct_cost_sums, mix_satd_cost
+from .ops import dct as dct_ops
 from .ops import sad as sad_ops
 from .ops.pad import edge_pad
 from .super import Super
@@ -88,19 +89,23 @@ class DenseEvaluator:
 
     A uniform displacement is one SHIFT of the whole ref plane + an
     elementwise |src-ref| + per-block box sums — no gathers, bit-identical
-    SAD values.  With dctmode 5-10 the luma cost is the SATD mix: the SATD is
-    taken per block on block views of the shifted region, the reference
-    sums come from the same box sums.
+    SAD values.  With dctmode 1-4 the luma cost is the DCT mix and with
+    dctmode 5-10 the SATD mix: the transform is taken per block on block
+    views of the shifted region, the reference sums come from the same box
+    sums.
     """
 
     def __init__(self, ctx: LevelCtx, pad: int, dctmode: int = 0,
-                 src_luma=None, dctweight16=None):
-        """src_luma: [J, nblk] int64 source block sums; dctweight16: [J]."""
+                 src_luma=None, dctweight16=None, dct_src=None):
+        """src_luma: [J, nblk] int64 source block sums; dctweight16: [J];
+        dct_src: [J, nblk, bsy, bsx] int32 requantised DCT of the source
+        blocks (dct 1-4)."""
         self.ctx = ctx
         self.pad = pad
         self.dctmode = dctmode
         self.src_luma = src_luma
         self.dctweight16 = dctweight16
+        self.dct_src = dct_src
         self._src_view = None           # [J, nblk, bsy, bsx], made on demand
         bsx, bsy = ctx.blk_size
         bcx, bcy = ctx.blk_size_c
@@ -185,7 +190,8 @@ class DenseEvaluator:
 
     def luma_sads(self, vx: int, vy: int) -> torch.Tensor:
         """[J, nblk] int64 luma cost at the uniform pel-units displacement
-        (vx, vy), Python ints: the SAD, or the SATD mix for dct 5-10
+        (vx, vy), Python ints: the SAD, the DCT mix for dct 1-4 or the SATD
+        mix for dct 5-10
         (pobGetRefBlock pel math, PlaneOfBlocks.cpp:34-54 — block origins
         are pel-aligned so the subplane index is uniform)."""
         ctx = self.ctx
@@ -203,12 +209,20 @@ class DenseEvaluator:
         region = self._shifted_region(self.ref_pad, idx, sy, sx, self.hr,
                                       self.wr)
         (bsx, bsy), (ovx, ovy), (nbx, nby) = ctx.blk_size, ctx.overlap, ctx.nblk
+        ref_view = _blocks_of(region, 0, 0, nby, nbx, bsy, bsx, bsy - ovy,
+                              bsx - ovx)
+        if self.dctmode <= 4:
+            ref_luma = (self._block_sums(region, ctx.blk_size, ctx.overlap,
+                                         ctx.nblk)
+                        if self.dctmode >= 3 else None)
+            return mix_dct_cost(self.dctmode, s, self.dct_src,
+                                dct_ops.dct_block(ref_view, ctx.bits),
+                                self.src_luma, ref_luma,
+                                self.dctweight16[:, None], bsx)
         if self._src_view is None:
             self._src_view = _blocks_of(self.src_region, 0, 0, nby, nbx, bsy,
                                         bsx, bsy - ovy, bsx - ovx)
-        satd_v = sad_ops.satd(
-            self._src_view, _blocks_of(region, 0, 0, nby, nbx, bsy, bsx,
-                                       bsy - ovy, bsx - ovx))
+        satd_v = sad_ops.satd(self._src_view, ref_view)
         ref_luma = self._block_sums(region, ctx.blk_size, ctx.overlap,
                                     ctx.nblk)
         return mix_satd_cost(self.dctmode, s, satd_v, self.src_luma, ref_luma,
@@ -307,10 +321,6 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
     level = ctx.level
     dev = ctx.src_planes[0].device
     dctmode = level_params["dctmode"]
-    if 1 <= dctmode <= 4:
-        raise NotImplementedError(
-            f"dct={dctmode}: the DCT costs dct 1-4 are not ported (dct 0 and "
-            "the SATD costs dct 5-10 are)")
     if rescue_mode not in ("inline", "defer", "apply"):
         raise ValueError(f"unknown rescue_mode {rescue_mode!r}")
     smallest = level_params["smallest_plane"]
@@ -418,7 +428,7 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
         raise NotImplementedError(
             f"level {level}: the plane cannot ride the dense SAD map; the "
             "probe-only search that serves such levels is not ported")
-    cost = fe.satd_cost(dctmode, src_blocks[0], dctweight16)
+    cost = fe.cost_keywords(dctmode, src_blocks[0], dctweight16, ctx.bits)
     stacks = fe.pad_stacks(ctx)
     prober = fe.FieldProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
                             pnew, stacks=stacks, **cost)
@@ -690,9 +700,9 @@ def _unported_costs(spec: AnalyseSpec):
     """(condition, what) pairs of the luma costs that are not ported."""
     m = spec.meta
     return [
-        (1 <= spec.dct <= 4,
-         f"dct={spec.dct} (the DCT costs dct 1-4; dct 0 and the SATD costs "
-         "dct 5-10 are ported)"),
+        (1 <= spec.dct <= 4 and (m.bits_per_sample != 8 or m.pel == 4),
+         f"dct={spec.dct} with {m.bits_per_sample}-bit input at pel={m.pel} "
+         "(the DCT costs dct 1-4 are ported for 8-bit input at pel 1 and 2)"),
         (spec.dct >= 5 and not sad_ops.satd_supported(m.blk_size_x,
                                                       m.blk_size_y),
          f"dct={spec.dct} with {m.blk_size_x}x{m.blk_size_y} blocks (no SATD "

@@ -67,8 +67,8 @@ def _normalise_weights(wrefs: List[torch.Tensor]):
 
 def gather_blocks(plane_stack: torch.Tensor, block_x, block_y, mv_x, mv_y,
                   bsy: int, bsx: int, log_pel: int, pad_x_pel: int,
-                  pad_y_pel: int, sub_x: int = 0,
-                  sub_y: int = 0) -> torch.Tensor:
+                  pad_y_pel: int, sub_x: int = 0, sub_y: int = 0, *,
+                  pitch_fp: int) -> torch.Tensor:
     """Fetch one [bsy, bsx] int32 patch per block from a pel-subplane stack.
 
     plane_stack: [B, pel^2, PH, PW] uint8; block_x/y: [nby, nbx] unpadded
@@ -79,7 +79,8 @@ def gather_blocks(plane_stack: torch.Tensor, block_x, block_y, mv_x, mv_y,
     The subplane comes from the
     position's own parity; a full-pel origin outside the plane is clamped
     so the whole patch stays inside it (what a window slice does with an
-    out-of-range start)."""
+    out-of-range start).  pitch_fp: full-pel distance between consecutive
+    blocks of a grid row of block_x [nby, nbx], for the tiled fetch."""
     nb, n_sub, ph, pw = plane_stack.shape
     lp = max(int(round(n_sub ** 0.5)).bit_length() - 1, 0)
     m = (1 << lp) - 1
@@ -89,8 +90,9 @@ def gather_blocks(plane_stack: torch.Tensor, block_x, block_y, mv_x, mv_y,
     fy = (ya >> lp).clamp(0, ph - bsy)
     cx = ((fx << lp) | (xa & m)).reshape(nb, -1, 1).contiguous()
     cy = ((fy << lp) | (ya & m)).reshape(nb, -1, 1).contiguous()
-    flat = probe_ops.fetch_blocks_tiled(plane_stack, cy, cx, bsy, bsx,
-                                        1 << lp)[:, :, 0]
+    flat = probe_ops.fetch_blocks_tiled(
+        plane_stack, cy, cx, bsy, bsx, 1 << lp, row_len=block_x.shape[1],
+        pitch_x=pitch_fp)[:, :, 0]
     return flat.reshape(nb, *block_x.shape, bsy, bsx)
 
 
@@ -217,7 +219,8 @@ def degrain(src_planes: Sequence[torch.Tensor], super_refs: Sequence[Super],
                                      0).to(I32))
             ref_blocks.append(gather_blocks(
                 super_refs[r].planes[plane][0], pos_x, pos_y, vx, vy, p_bsy,
-                p_bsx, log_pel, hpad_p * pel, vpad_p * pel, sub_x, sub_y))
+                p_bsx, log_pel, hpad_p * pel, vpad_p * pel, sub_x, sub_y,
+                pitch_fp=(bsx - ovx) >> sub_x))
         wsrc, wrefs = _normalise_weights(wrefs)
 
         if ovx == 0 and ovy == 0:

@@ -9,7 +9,8 @@ an explicit leading job axis: [J, nblk].  Every stage is one of:
   shares (zero trial, the rescue cross/hex4 around (0,0)) costs one
   whole-plane shift + box sums.
 * `MapProber.check`: per-block candidates looked up in the dense SAD map
-  (ops/sadmap.py, one kernel pass per level).
+  (ops/sadmap.py, one kernel pass per level; for the DCT costs a map of the
+  mixed cost, built row by row from fetched blocks).
 * `FieldProber.check`: per-block candidates probed with the probe kernels
   (ops/probe.py: tiled, or per block on planes too small for a tile
   window) — the bad-SAD rescue, which walks far from the map anchor.
@@ -23,9 +24,10 @@ batch minimum wins, as the reference's strict `cost < mincost` update does.
 
 Not bit-exact vs the reference's sequential engine by design: neighbour
 predictors lag one Jacobi iteration and badcount feedback is per-block.
-Ported: the plain-SAD cost (dct 0) and the SATD-mixed luma costs (dct
-5-10, from the three-stat forms of the map and the probes), chroma and
-overlapped block grids.  The DCT costs (dct 1-4) are not.
+Ported: the plain-SAD cost (dct 0), the DCT-mixed luma costs (dct 1-4,
+from blocks fetched by ops/probe.py's fetches and transformed by
+ops/dct.py) and the SATD-mixed luma costs (dct 5-10, from the three-stat
+forms of the map and the probes), chroma and overlapped block grids.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from .core.types import SearchType
+from .ops import dct as dct_ops
 from .ops import probe as probe_ops
 from .ops import sad as sad_ops
 from .ops import sadmap
@@ -47,6 +50,7 @@ I64 = torch.int64
 _INF = 1 << 62
 
 host_syncs = 0   # scalar reads the host waited for (loop/branch conditions)
+rescued_blocks = 0   # (job, block) pairs the bad-SAD rescue took
 
 
 def any_true(mask: torch.Tensor) -> bool:
@@ -112,20 +116,63 @@ def mix_satd_cost(dctmode: int, s, satd_v, src_luma, ref_luma, dctweight16):
     raise ValueError(f"dctmode {dctmode}")
 
 
-def satd_cost(dctmode: int, src_luma_blocks, dctweight16) -> dict:
-    """The cost keywords (dctmode, src_luma, dctweight16) that FieldProber,
-    MapProber and DenseEvaluator take, from the luma source blocks
-    [J, nblk, bs_y, bs_x] and the per-job weight [J].  src_luma holds the
-    source blocks' sums for the adaptive modes 7, 8 and 10, which compare
-    them with the reference's; the other modes never read them."""
-    if dctmode in (7, 8, 10):
-        src_luma = sad_ops.luma(src_luma_blocks).to(I64)
+def mix_dct_cost(dctmode: int, s, dct_src, dct_ref, src_luma, ref_luma,
+                 dctweight16, bsx: int):
+    """Luma cost for the DCT modes 1-4 from requantised DCT blocks
+    (pobLumaSAD PlaneOfBlocks.cpp:123-163), int64.  dct_src / dct_ref:
+    [..., bh, bw] int32 (ops/dct.py); s: the plain SAD (mode 1 never reads
+    it); src_luma, ref_luma and dctweight16 must broadcast against the
+    block axes' result."""
+    ds = (dct_src - dct_ref).abs().sum(dim=(-2, -1))
+    dc = (dct_src[..., 0, 0] - dct_ref[..., 0, 0]).abs()
+    return mix_dct_cost_sums(dctmode, s, ds, dc, src_luma, ref_luma,
+                             dctweight16, bsx)
+
+
+def mix_dct_cost_sums(dctmode: int, s, ds, dc, src_luma, ref_luma,
+                      dctweight16, bsx: int):
+    """mix_dct_cost from the sums: ds = sum |dctS - dctR| over the block,
+    dc = |dctS[0, 0] - dctR[0, 0]|.  All operands are non-negative, so the
+    floor divisions are the reference's C divisions.  Mode 2 keeps the SAD
+    where dctweight16 is 0; modes 3 and 4 switch per block on
+    |srcL - refL| > (srcL + refL) >> 5."""
+    ds = ds.to(I64)
+    dc = dc.to(I64)
+    if dctmode == 1:
+        return (ds + dc * 3) * bsx // 2
+    s = s.to(I64)
+    if dctmode == 2:
+        dctsad = (ds + dc * 3) * bsx // 2
+        w16 = dctweight16.to(I64)
+        mixed = (s * (16 - w16) + dctsad * w16) // 16
+        return torch.where(w16 > 0, mixed, s)
+    if dctmode in (3, 4):
+        dctsad = ds * bsx // 2
+        adapt = (src_luma - ref_luma).abs() > ((src_luma + ref_luma) >> 5)
+        mixed = (s // 2 + dctsad // 2 if dctmode == 3
+                 else s // 4 + dctsad // 2 + dctsad // 4)
+        return torch.where(adapt, mixed, s)
+    raise ValueError(f"dctmode {dctmode}")
+
+
+def cost_keywords(dctmode: int, src_blocks, dctweight16, bits: int) -> dict:
+    """The cost keywords (dctmode, src_luma, dctweight16, dct_src) that
+    FieldProber, MapProber and DenseEvaluator take, from the luma source
+    blocks [J, nblk, bs_y, bs_x] and the per-job weight [J].  src_luma holds
+    the source blocks' sums for the adaptive modes 3, 4, 7, 8 and 10, which
+    compare them with the reference's (zeros for the other cost modes);
+    dct_src the source blocks' requantised DCT for the DCT modes 1-4."""
+    if dctmode in (3, 4, 7, 8, 10):
+        src_luma = sad_ops.luma(src_blocks).to(I64)
     elif dctmode:
-        src_luma = torch.zeros(src_luma_blocks.shape[:2], dtype=I64,
-                               device=src_luma_blocks.device)
+        src_luma = torch.zeros(src_blocks.shape[:2], dtype=I64,
+                               device=src_blocks.device)
     else:
         src_luma = None
-    return dict(dctmode=dctmode, src_luma=src_luma, dctweight16=dctweight16)
+    dct_src = (dct_ops.dct_block(src_blocks, bits)
+               if 1 <= dctmode <= 4 else None)
+    return dict(dctmode=dctmode, src_luma=src_luma, dctweight16=dctweight16,
+                dct_src=dct_src)
 
 
 def _offset_tensors(offsets, device):
@@ -145,15 +192,18 @@ class FieldProber:
 
     def __init__(self, ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds, pnew,
                  stacks=None, dctmode: int = 0, src_luma=None,
-                 dctweight16=None):
+                 dctweight16=None, dct_src=None):
         """src_blocks: per color plane [J, nblk, bs_y, bs_x] uint8 (luma, or
         luma, U, V with ctx.chroma); stacks: the padded stacks of
-        pad_stacks(ctx), made here when not given.  dctmode 5-10 makes the
-        luma cost the SATD mix of src_luma [J, nblk] int64 (the source
-        blocks' sums) and dctweight16 [J]; chroma stays plain SAD."""
+        pad_stacks(ctx), made here when not given.  dctmode 1-4 makes the
+        luma cost the DCT mix of the source blocks' requantised DCT dct_src
+        [J, nblk, bs_y, bs_x] int32, dctmode 5-10 the SATD mix; both read
+        src_luma [J, nblk] int64 (the source blocks' sums) and dctweight16
+        [J] (cost_keywords makes all four); chroma stays plain SAD."""
         self.dctmode = dctmode
         self.src_luma = src_luma
         self.dctweight16 = dctweight16
+        self.dct_src = dct_src
         self.ctx = ctx
         self.pel = ctx.pel
         self.logp = ctx.log_pel
@@ -203,9 +253,46 @@ class FieldProber:
             stats3[..., 2].to(I64),
             self.dctweight16.reshape((-1, 1) + extra))
 
+    def _fetch_ref_blocks(self, cy, cx, tiled: bool = False):
+        """[J, nblk, K, bs_y, bs_x] int32 reference blocks at padded pel
+        positions [J, nblk, K]: the per-block fetch (K5), or with `tiled`
+        the tiled fetch, which hands a stack under its tile window to K5."""
+        bs_y, bs_x = self.bs[1], self.bs[0]
+        if tiled:
+            return probe_ops.fetch_blocks_tiled(
+                self.stack, cy, cx, bs_y, bs_x, self.pel, row_len=self.nbx,
+                pitch_x=self.pitch_x)
+        return probe_ops.fetch_blocks(self.stack, cy, cx, bs_y, bs_x,
+                                      self.pel)
+
+    def _dct_cost(self, cy, cx, tiled: bool = False):
+        """[J, nblk, K] int64 DCT-mode (1-4) luma costs at padded pel
+        positions [J, nblk, K]: fetch the candidate blocks, DCT them, mix
+        (pobLumaSAD).  `tiled` fetches through the tiled fetch, for
+        candidates that cluster per block tile as the dct map's grid rows
+        do."""
+        refs = self._fetch_ref_blocks(cy.contiguous(), cx.contiguous(),
+                                      tiled)
+        dct_ref = dct_ops.dct_block(refs, self.ctx.bits)
+        s = (None if self.dctmode == 1 else
+             (refs - self.src_blocks[:, :, None]).abs().sum(dim=(-2, -1)))
+        adaptive = self.dctmode in (3, 4)
+        ref_luma = refs.sum(dim=(-2, -1)) if adaptive else None
+        src_luma = self.src_luma[..., None] if adaptive else None
+        return mix_dct_cost(self.dctmode, s, self.dct_src[:, :, None],
+                            dct_ref, src_luma, ref_luma,
+                            self.dctweight16.reshape(-1, 1, 1), self.bs[0])
+
     def _luma_probe(self, cy, cx, offsets):
         """[J, nblk, K, D] int64 luma costs at padded pel positions: plain
-        SAD, or the SATD mix for dct 5-10."""
+        SAD, the DCT mix for dct 1-4 (from fetched blocks) or the SATD mix
+        for dct 5-10."""
+        if 1 <= self.dctmode <= 4:
+            ox, oy = _offset_tensors(offsets, cy.device)
+            ccy = (cy[..., None] + oy).flatten(2)
+            ccx = (cx[..., None] + ox).flatten(2)
+            return self._dct_cost(ccy, ccx).reshape(
+                cy.shape + (len(offsets),))
         if self.dctmode:
             return self._mix(self._probe(
                 self.stack, cy, cx, self.src_blocks, offsets, self.bs[1],
@@ -221,7 +308,8 @@ class FieldProber:
 
     def luma_sads(self, vx, vy, offsets=((0, 0),)):
         """[J, nblk, D] int64 luma costs at per-block candidates (vx, vy) +
-        static pel offsets (plain SAD, or the SATD mix for dct 5-10)."""
+        static pel offsets (plain SAD, the DCT mix for dct 1-4 or the SATD
+        mix for dct 5-10)."""
         cy = (self.base_y + vy)[..., None]
         cx = (self.base_x + vx)[..., None]
         return self._luma_probe(cy, cx, offsets)[:, :, 0, :]
@@ -407,16 +495,16 @@ def map_supported(ctx, r: int, dctmode: int = 0) -> bool:
     """Static predicate: MapProber usable on this level's geometry (8-bit,
     pel <= 2, windows fit the padded stacks, chroma pitch integral; the
     SATD modes 5-10 additionally need the stat map's alignment: pitch and
-    block width multiples of 8, block height of 4).  dct 1-4 is not
-    ported."""
+    block width multiples of 8, block height of 4; the DCT modes 1-4 build
+    their map from fetched blocks and need nothing more)."""
     bsx, bsy = ctx.blk_size
-    if dctmode and not 5 <= dctmode <= 10:
+    if not 0 <= dctmode <= 10:
         return False
     if ctx.bits != 8 or ctx.pel > 2:
         return False
     pitch = bsx - ctx.overlap[0]
-    if dctmode and (pitch % 8 or bsx % 8 or bsy % 4
-                    or not sad_ops.satd_supported(bsx, bsy)):
+    if dctmode >= 5 and (pitch % 8 or bsx % 8 or bsy % 4
+                         or not sad_ops.satd_supported(bsx, bsy)):
         return False
     tile = _map_tile(ctx)
     hp = ctx.padded[1] + 2 * FieldProber.PAD + probe_ops.ALIGN_SLACK_Y
@@ -469,13 +557,15 @@ class MapProber(FieldProber):
 
     def __init__(self, ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds, pnew,
                  pred_vx, pred_vy, r: int = 0, stacks=None, dctmode: int = 0,
-                 src_luma=None, dctweight16=None):
+                 src_luma=None, dctweight16=None, dct_src=None):
         super().__init__(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
                          pnew, stacks=stacks, dctmode=dctmode,
-                         src_luma=src_luma, dctweight16=dctweight16)
+                         src_luma=src_luma, dctweight16=dctweight16,
+                         dct_src=dct_src)
         # dct 5-10: the luma map holds (SAD, SATD, reference sum) triples
-        # and the mix runs on each looked-up triple; chroma maps stay SAD
-        self._stats = "sad_satd_luma" if dctmode else "sad"
+        # and the mix runs on each looked-up triple; dct 1-4: it holds the
+        # mixed cost itself, built from fetched blocks; chroma maps stay SAD
+        self._stats = "sad_satd_luma" if dctmode >= 5 else "sad"
         if not r:
             r = map_radius(ctx)
         self.r = r
@@ -539,10 +629,21 @@ class MapProber(FieldProber):
                            sh_y)
         self._av_x = per_block(av_x)                       # [J, nblk] pel
         self._av_y = per_block(av_y)
-        self._m_l = sadmap.sad_map(
-            self.stack, ctx.src_planes[0], full_pel(av_y, c_y, "y"),
-            full_pel(av_x, c_x, "x"), r, r, bsy, bsx, pel, tile, pitch,
-            pitch_y, nbx, nby, vpad, hpad, stats=self._stats)
+        if 1 <= dctmode <= 4:
+            # one _dct_cost row per grid dy (the tiled fetch + the DCT),
+            # stacked to the plain-SAD map's [J, nblk, Dy, Dx] layout
+            cys = self.base_y + self._av_y
+            cxs = (self.base_x + self._av_x)[..., None] + torch.arange(
+                -r, r + 1, dtype=I32, device=dev)
+            self._m_l = torch.stack([
+                self._dct_cost((cys + iy)[..., None].expand_as(cxs), cxs,
+                               tiled=True).to(I32)
+                for iy in range(-r, r + 1)], dim=2)
+        else:
+            self._m_l = sadmap.sad_map(
+                self.stack, ctx.src_planes[0], full_pel(av_y, c_y, "y"),
+                full_pel(av_x, c_x, "x"), r, r, bsy, bsx, pel, tile, pitch,
+                pitch_y, nbx, nby, vpad, hpad, stats=self._stats)
         if ctx.chroma:
             bcx, bcy = ctx.blk_size_c
             self._rc_y, self._rc_x, pit_c, pit_cy = _chroma_map_geom(ctx, r)
@@ -742,8 +843,7 @@ def _hex2_general(p: FieldProber, st, i_me_range, lam, pred, active=None):
 def refine(p: FieldProber, st, search: SearchType, param: int, lam, pred,
            active=None):
     """pobRefine (PlaneOfBlocks.cpp:772-816), field level; HEX2 and
-    EXHAUSTIVE are ported (with the plain-SAD cost and the SATD costs of
-    dct 5-10, whichever the prober carries)."""
+    EXHAUSTIVE are ported (with whichever cost the prober carries)."""
     if search == SearchType.EXHAUSTIVE:
         return _exhaustive(p, st, param, lam, pred, active=active)
     if search == SearchType.HEX2:
@@ -758,7 +858,7 @@ def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
               lam, idx, do_rescue: bool = True,
               probe_p: Optional[FieldProber] = None):
     """Whole-plane pseudo-EPZ for one Jacobi iteration
-    (pobPseudoEPZSearch PlaneOfBlocks.cpp:819-968, dct 0 and 5-10, no
+    (pobPseudoEPZSearch PlaneOfBlocks.cpp:819-968, every dct mode, no
     trymany).
 
     pred_main: (x, y, sad) main predictor tensors [J, nblk]; preds: list of
@@ -838,7 +938,11 @@ def field_rescue(p: FieldProber, dense, level_params, st, lam, pred,
     found_sad = st["bsad"]
     bad = (idx > 1) & (found_sad > badsad)
     pelf = p.pel
-    if not any_true(bad):
+    global host_syncs, rescued_blocks
+    host_syncs += 1
+    n_bad = int(bad.sum().item())      # the branch's one host read
+    rescued_blocks += n_bad
+    if not n_bad:
         return dict(st)
     if badrange < 0:
         raise NotImplementedError("badrange < 0 (ring rescue) is not ported")

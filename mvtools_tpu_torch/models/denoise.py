@@ -19,7 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..analyse import analyse_batch
+from ..analyse import _check_ported, analyse_batch
 from ..core.config import (AnalyseConfig, AnalyseSpec, SuperConfig,
                            SuperSpec)
 from ..convert import require_device
@@ -165,6 +165,7 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
     sspec = scfg.validate(fmt)
     aspec_f = dataclasses.replace(acfg, isb=False).validate(sspec)
     aspec_b = dataclasses.replace(acfg, isb=True).validate(sspec)
+    _check_ported(aspec_b, sspec, 0)     # before any work is done
     clip_planes = list(clip_planes)
     total = clip_planes[0].shape[0]
     dev = clip_planes[0].device

@@ -2,7 +2,7 @@
 
 The reference's innermost loop is one SAD per candidate vector per block
 (pobCheckMV_Template PlaneOfBlocks.cpp:219-261 over pobGetRefBlock's
-pel-plane pointer math :34-54).  Three operations live here, each as a CUDA
+pel-plane pointer math :34-54).  Four operations live here, each as a CUDA
 kernel (csrc/probe.cu, csrc/probe_block.cu, csrc/fetch.cu) with a plain
 PyTorch version beside it:
 
@@ -16,7 +16,12 @@ PyTorch version beside it:
   INVALID_SAD and lose every cost comparison.  A plane smaller than the tile
   window goes to probe_sads instead.
 * fetch_blocks_tiled — [J, nblk, K, bs_y, bs_x] int32 reference blocks at pel
-  positions, exact for every block.
+  positions of a block grid, exact for every block; rows and columns
+  outside the plane are clamped one by one.  A stack smaller than the tile
+  window goes to fetch_blocks instead.
+* fetch_blocks — the same, one window per (block, candidate), with the
+  full-pel origin clamped as a whole into the plane.  It serves the DCT
+  costs (dct 1-4), whose candidates are DCT-transformed after the fetch.
 
 Both probes also come in a three-stat form (stats="sad_satd_luma"): every
 entry is the triple (SAD, SATD, sum of the reference block) that the SATD
@@ -60,7 +65,8 @@ STATS = ("sad", "sad_satd_luma")
 
 # one count per kernel; the three-stat forms are kernels of their own
 launches = {"probe_sads": 0, "probe_sads_tiled": 0, "fetch_blocks_tiled": 0,
-            "probe_sads[stats3]": 0, "probe_sads_tiled[stats3]": 0}
+            "fetch_blocks": 0, "probe_sads[stats3]": 0,
+            "probe_sads_tiled[stats3]": 0}
 plain_calls_on_cuda = 0    # plain versions run on CUDA tensors (comparisons)
 
 
@@ -406,13 +412,13 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
 
 
 # ---------------------------------------------------------------------------
-# K3: block fetch
+# K3: tiled block fetch
 
 
 def fetch_blocks_tiled_plain(stack, cand_y, cand_x, bs_y: int, bs_x: int,
                              pel: int) -> torch.Tensor:
-    """Plain PyTorch version of the block fetch (same contract as the
-    kernel)."""
+    """Plain PyTorch version of the tiled block fetch (same contract as the
+    kernel): rows and columns clamped into the plane one by one."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
@@ -420,9 +426,8 @@ def fetch_blocks_tiled_plain(stack, cand_y, cand_x, bs_y: int, bs_x: int,
                                 pel.bit_length() - 1)
 
 
-def _fetch_lib():
-    lib = cuda_build.load("fetch")
-    fn = lib.mvt_fetch_blocks
+def _fetch_lib(name: str):
+    fn = getattr(cuda_build.load("fetch"), name)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
@@ -430,31 +435,93 @@ def _fetch_lib():
     return fn
 
 
-def fetch_blocks_tiled(stack, cand_y, cand_x, bs_y: int, bs_x: int,
-                       pel: int) -> torch.Tensor:
-    """[J, nblk, K, bs_y, bs_x] int32 reference blocks.
-
-    stack: [J, pel^2, Hp, Wp] uint8; cand_y/cand_x: [J, nblk, K] int32 pel
-    positions of the block origin in the stack.  Exact for every block;
-    rows/columns outside the plane read its edge pixels."""
-    if not stack.is_cuda:
-        return fetch_blocks_tiled_plain(stack, cand_y, cand_x, bs_y, bs_x,
-                                        pel)
+def _check_fetch_args(what, stack, cand_y, cand_x, pel):
     dev = stack.device
     _check(stack, "stack", torch.uint8, 4)
     _check(cand_y, "cand_y", I32, 3, dev)
     _check(cand_x, "cand_x", I32, 3, dev)
-    nj, nblk, kk = cand_y.shape
-    if (cand_x.shape != cand_y.shape or stack.shape[0] != nj
+    if (cand_x.shape != cand_y.shape or stack.shape[0] != cand_y.shape[0]
             or stack.shape[1] != pel * pel):
-        raise ValueError("fetch_blocks_tiled: inconsistent shapes")
+        raise ValueError(f"{what}: inconsistent shapes")
+
+
+def _launch_fetch(what, c_name, stack, cand_y, cand_x, bs_y, bs_x, pel):
+    _check_fetch_args(what, stack, cand_y, cand_x, pel)
+    dev = stack.device
+    nj, nblk, kk = cand_y.shape
     out = torch.empty((nj, nblk, kk, bs_y, bs_x), dtype=I32, device=dev)
     with torch.cuda.device(dev):
-        err = _fetch_lib()(
+        err = _fetch_lib(c_name)(
             stack.data_ptr(), cand_y.data_ptr(), cand_x.data_ptr(),
             out.data_ptr(), nj, pel * pel, stack.shape[2], stack.shape[3],
             nblk, kk, bs_y, bs_x, pel.bit_length() - 1,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "fetch_blocks_tiled")
-    launches["fetch_blocks_tiled"] += 1
+    cuda_build.check_launch(err, what)
+    launches[what] += 1
     return out
+
+
+FETCH_TILE = 8   # blocks per tile of the tiled fetch's window
+
+
+def fetch_blocks_tiled(stack, cand_y, cand_x, bs_y: int, bs_x: int,
+                       pel: int, row_len: int, pitch_x: int) -> torch.Tensor:
+    """[J, nblk, K, bs_y, bs_x] int32 reference blocks over a
+    [nrows, row_len] block grid whose blocks lie pitch_x full pels apart.
+
+    stack: [J, pel^2, Hp, Wp] uint8; cand_y/cand_x: [J, nblk, K] int32 pel
+    positions of the block origin in the stack.  Exact for every block;
+    rows/columns outside the plane read its edge pixels.  A stack under the
+    tile window (tile_params of one block, FETCH_TILE blocks wide) or a grid
+    that is not whole rows goes to fetch_blocks, as the JAX package hands it
+    to its per-block fetch kernel."""
+    wy_total, wx_total, _, _ = tile_params(((0, 0),), bs_y, bs_x, pel,
+                                           FETCH_TILE, pitch_x)
+    if (stack.shape[-2] < wy_total or stack.shape[-1] < wx_total
+            or cand_y.shape[1] % row_len != 0):
+        return fetch_blocks(stack, cand_y, cand_x, bs_y, bs_x, pel)
+    if not stack.is_cuda:
+        return fetch_blocks_tiled_plain(stack, cand_y, cand_x, bs_y, bs_x,
+                                        pel)
+    return _launch_fetch("fetch_blocks_tiled", "mvt_fetch_blocks_tiled",
+                         stack, cand_y, cand_x, bs_y, bs_x, pel)
+
+
+# ---------------------------------------------------------------------------
+# K5: per-block fetch
+
+
+def fetch_blocks_plain(stack, cand_y, cand_x, bs_y: int,
+                       bs_x: int, pel: int) -> torch.Tensor:
+    """Plain PyTorch version of the per-block fetch (same contract as the
+    kernel): the full-pel origin is clamped AS A WHOLE to
+    [0, Hp - bs_y] x [0, Wp - bs_x], what a window slice does with an
+    out-of-range start, so a block is always a bs_y x bs_x window of the
+    plane."""
+    global plain_calls_on_cuda
+    if stack.is_cuda:
+        plain_calls_on_cuda += 1
+    logp = pel.bit_length() - 1
+    pelm = pel - 1
+    hp, wp = stack.shape[-2:]
+    sub = (cand_x & pelm) | ((cand_y & pelm) << logp)
+    return _gather_at(stack, sub, (cand_y >> logp).clamp(0, hp - bs_y),
+                      (cand_x >> logp).clamp(0, wp - bs_x), bs_y, bs_x)
+
+
+def fetch_blocks(stack, cand_y, cand_x, bs_y: int, bs_x: int,
+                 pel: int) -> torch.Tensor:
+    """[J, nblk, K, bs_y, bs_x] int32 reference blocks, one per
+    (job, block, candidate).
+
+    stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
+    [J, nblk, K] int32 candidate pel positions of the block origin (see
+    module doc).  Subplane (cx & (pel-1)) | ((cy & (pel-1)) << logp); the
+    full-pel origin is clamped as a whole into the plane.  The kernel serves
+    every call on CUDA tensors, however few the blocks."""
+    if stack.shape[-2] < bs_y or stack.shape[-1] < bs_x:
+        raise ValueError("fetch_blocks: the plane is smaller than a block")
+    if not stack.is_cuda:
+        return fetch_blocks_plain(stack, cand_y, cand_x, bs_y, bs_x, pel)
+    return _launch_fetch("fetch_blocks", "mvt_fetch_blocks", stack, cand_y,
+                         cand_x, bs_y, bs_x, pel)

@@ -14,10 +14,11 @@ the clipped predictor field (field_engine.MapProber), gated per block by
 `cost > thsad`.  Every tensor carries an explicit leading job axis [J, ...];
 supers and the old field may come without it (one frame pair).
 
-Ported: the lockstep engine, 8-bit, pel 1/2, dct 0 and the SATD costs dct
-5-10, searches HEX2 and EXHAUSTIVE, smooth 0 and 1, any old / new block grid.
-engine="exact", divide, fields, field_shift, UMH and the other searches and
-the DCT costs dct 1-4 raise NotImplementedError.
+Ported: the lockstep engine, 8-bit, pel 1/2, the plain-SAD cost (dct 0), the
+DCT costs (dct 1-4) and the SATD costs (dct 5-10), searches HEX2 and
+EXHAUSTIVE, smooth 0 and 1, any old / new block grid.  engine="exact",
+divide, fields, field_shift, UMH and the other searches raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -230,8 +231,9 @@ def recalculate(src_super: Super, ref_super: Super, old_mv: MVField,
             _blocks_of(ctx.src_planes[p], vpad_c, hpad_c, nby, nbx, bcy, bcx,
                        (bsy - ovy) >> logy, (bsx - ovx) >> logx)
             for p in (1, 2)]
-    cost = fe.satd_cost(spec.dct, src_blocks[0],
-                        torch.full((nj,), 8, dtype=I32, device=dev))
+    cost = fe.cost_keywords(spec.dct, src_blocks[0],
+                            torch.full((nj,), 8, dtype=I32, device=dev),
+                            ctx.bits)
     stacks = fe.pad_stacks(ctx)
     prober = fe.FieldProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
                             spec.pnew, stacks=stacks, **cost)

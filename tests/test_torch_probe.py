@@ -122,7 +122,7 @@ def _port_gather(stack, pos_x, pos_y, mvx, mvy, bs, hpad, pel):
         torch.from_numpy(stack), torch.from_numpy(pos_x),
         torch.from_numpy(pos_y), torch.from_numpy(mvx),
         torch.from_numpy(mvy), bs, bs, pel.bit_length() - 1, hpad * pel,
-        hpad * pel).numpy()
+        hpad * pel, pitch_fp=bs).numpy()
 
 
 @pytest.mark.parametrize("pel", [1, 2])
@@ -169,15 +169,21 @@ def test_gather_blocks_clamps_past_the_top_left_edge(pel):
 
 
 def test_fetch_blocks_reads_edge_pixels_outside_the_plane():
-    """The fetch itself clamps rows/columns, so no position can fault."""
+    """The fetches themselves clamp, so no position can fault: the tiled
+    fetch's rows/columns one by one, the per-block fetch (which the tiled
+    one hands a plane this small to) the block's origin as a whole."""
     stack = torch.arange(2 * 6 * 8, dtype=torch.uint8).reshape(1, 2, 6, 8)[
         :, :1].contiguous()
     cy = torch.tensor([[[-2], [4]]], dtype=torch.int32)
     cx = torch.tensor([[[-3], [6]]], dtype=torch.int32)
-    out = probe_ops.fetch_blocks_tiled(stack, cy, cx, 4, 4, 1)
     p = stack[0, 0].to(torch.int32)
     iy = torch.arange(4)
+    out = probe_ops.fetch_blocks_tiled_plain(stack, cy, cx, 4, 4, 1)
     want0 = p[(iy - 2).clamp(0, 5)][:, (iy - 3).clamp(0, 7)]
     want1 = p[(iy + 4).clamp(0, 5)][:, (iy + 6).clamp(0, 7)]
     assert torch.equal(out[0, 0, 0], want0)
     assert torch.equal(out[0, 1, 0], want1)
+    out = probe_ops.fetch_blocks_tiled(stack, cy, cx, 4, 4, 1, row_len=2,
+                                       pitch_x=4)
+    assert torch.equal(out[0, 0, 0], p[0:4, 0:4])
+    assert torch.equal(out[0, 1, 0], p[2:6, 4:8])

@@ -5,8 +5,10 @@ dct 0 and dct 5 on a clip that leaves blocks on both sides of thsad.
 
 Both packages are fed the SAME old field and the same pyramids (made once
 by the JAX package and carried across through convert.py), so that only
-Recalculate is compared.  Inputs are made with numpy from a seed; every
-comparison is assert_array_equal (tolerance 0 — the pipeline is integer)."""
+Recalculate is compared; the JAX side is one cached run
+(torch_port_reference.load_recalc).  Inputs are made with numpy from a
+seed; every comparison is assert_array_equal (tolerance 0 — the pipeline is
+integer)."""
 import dataclasses
 import os
 import sys
@@ -39,67 +41,23 @@ from mvtools_tpu_torch.super import Super
 
 import torch_port_reference as tpr
 
-W, H, PEL = 160, 128, 2
-PAN = (1, 2)                       # pixels down / right per frame
-CLEAN = (32, 48, 64, 80)           # y, x, h, w free of fresh noise
+W, H, PEL = tpr.RC_W, tpr.RC_H, tpr.RC_PEL
+CONFIGS = tpr.RC_CONFIGS
 
 
-def _specs(pkg_config, pkg_types, **rkw):
+def _specs(pkg_config, pkg_types):
     """(sspec, old 16x16 overlap-0 AnalyseSpec) in either package."""
-    fmt = pkg_types.VideoFormat(W, H, 8, pkg_types.ColorFamily.GRAY)
-    sspec = pkg_config.SuperConfig(pel=PEL, levels=1,
-                                   chroma=False).validate(fmt)
-    old = pkg_config.AnalyseConfig(blksize=16, levels=1, chroma=False,
-                                   truemotion=True).validate(sspec)
-    return sspec, old
-
-
-def _old_field(old_meta, rng, nj):
-    """[J, nby, nbx] old vectors: the clip's true pan, off by up to two pel
-    in a third of the blocks and far off in a few, with SADs to match."""
-    nby, nbx = old_meta.blk_y, old_meta.blk_x
-    x = np.full((nj, nby, nbx), -PAN[1] * PEL, np.int32)
-    y = np.full((nj, nby, nbx), -PAN[0] * PEL, np.int32)
-    off = rng.random((nj, nby, nbx)) < 0.33
-    x += np.where(off, rng.integers(-2, 3, x.shape), 0).astype(np.int32)
-    y += np.where(off, rng.integers(-2, 3, y.shape), 0).astype(np.int32)
-    far = rng.random((nj, nby, nbx)) < 0.05
-    x += np.where(far, rng.integers(-60, 61, x.shape), 0).astype(np.int32)
-    y += np.where(far, rng.integers(-60, 61, y.shape), 0).astype(np.int32)
-    sad = rng.integers(0, 9000, (nj, nby, nbx)).astype(np.int64)
-    return x, y, sad
+    return tpr.recalc_specs(pkg_config, pkg_types)
 
 
 @pytest.fixture(scope="module")
-def clip():
-    """Three frames -> two jobs (frame 1 against frame 2 and frame 0), the
-    JAX package's pyramids as numpy, and the old field."""
-    frames = tpr.make_yuv_frames(3, W, H, seed=21, flash=None, noise=6,
-                                 pan=PAN, clean=CLEAN)[0]
-    sspec_j, old_j = _specs(jax_config, jax_types)
-    sups = [mvt.build_super([jnp.asarray(f)], sspec_j) for f in frames]
-    planes = [np.asarray(s.planes[0][0]) for s in sups]
-    rng = np.random.default_rng(22)
-    # job 0: frame 1 -> frame 2 (content moves by -PAN), job 1: 1 -> 0
-    x, y, sad = _old_field(old_j.meta, rng, 2)
-    x[1], y[1] = -x[1], -y[1]
-    return dict(frames=frames, sups=sups, planes=planes, old=(x, y, sad))
-
-
-def _jax_recalculate(clip, job, rcfg_kw):
-    sspec, old_spec = _specs(jax_config, jax_types)
-    rcfg = jax_recalc.RecalculateConfig(**rcfg_kw)
-    rspec = rcfg.to_analyse_config().validate(sspec)
-    x, y, sad = (a[job] for a in clip["old"])
-    old = jax_types.MVField(
-        (jax_types.MVPlaneField(jnp.asarray(x), jnp.asarray(y),
-                                jnp.asarray(sad)),),
-        jnp.ones((), jnp.int32), old_spec.meta)
-    ref = clip["sups"][2 if job == 0 else 0]
-    out = jax_recalc.recalculate(clip["sups"][1], ref, old, rspec, rcfg,
-                                 engine="lockstep")
-    lv = out.levels[0]
-    return np.asarray(lv.x), np.asarray(lv.y), np.asarray(lv.sad)
+def clip(tmp_path_factory):
+    """The JAX package's level-0 pyramids of three frames, the old field of
+    the two jobs (frame 1 against frame 2 and frame 0) and the JAX package's
+    refined fields."""
+    ref = tpr.load_recalc(tmp_path_factory)
+    return dict(ref, planes=list(ref["planes"]),
+                old=(ref["old_x"], ref["old_y"], ref["old_sad"]))
 
 
 def _port_inputs(clip, jobs, rcfg_kw):
@@ -121,33 +79,21 @@ def _port_inputs(clip, jobs, rcfg_kw):
     return src, ref, old, rspec, rcfg
 
 
-CONFIGS = {
-    "dct0-16ov8": dict(blksize=16, overlap=8, thsad=200, chroma=False, dct=0),
-    "dct5-16ov8": dict(blksize=16, overlap=8, thsad=200, chroma=False, dct=5),
-    "dct5-8ov0-exh": dict(blksize=8, overlap=0, thsad=200, chroma=False,
-                          dct=5, search=3, searchparam=2, smooth=0),
-    "dct7-16ov8": dict(blksize=16, overlap=8, thsad=100, chroma=False, dct=7),
-}
-
-
 def _kw(pkg_types, kw):
-    kw = dict(kw)
-    if "search" in kw:
-        kw["search"] = pkg_types.SearchType(kw["search"])
-    return kw
+    return tpr.recalc_kw(pkg_types, kw)
 
 
 @pytest.fixture(scope="module")
 def results(clip):
     """Per configuration: the port's batched [J = 2] result and the JAX
-    package's two single-job results."""
+    package's result of each job."""
     out = {}
     for name, kw in CONFIGS.items():
         args = _port_inputs(clip, (0, 1), _kw(port, kw))
         before = dict(probe_ops.launches)
         got = port.recalculate(*args)
         assert dict(probe_ops.launches) == before      # CPU: no launch
-        want = [_jax_recalculate(clip, j, _kw(jax_types, kw))
+        want = [tuple(clip[f"{name}_{k}"][j] for k in ("x", "y", "sad"))
                 for j in (0, 1)]
         out[name] = (got, want, args)
     return out
@@ -256,8 +202,8 @@ def test_recalculate_config_matches_jax():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(dct=1), "dct=1"),
-    (dict(dct=4), "dct=4"),
+    (dict(dct=1, pel=4), "dct=1"),
+    (dict(dct=4, pel=4), "dct=4"),
     (dict(divide=1), "divide"),
     (dict(fields=True), "fields"),
     (dict(search=SearchType.UMH), "search=UMH"),
@@ -271,7 +217,8 @@ def test_unported_options_raise(kw, what):
     kw = dict(kw)
     call = {k: kw.pop(k) for k in ("field_shift", "engine") if k in kw}
     fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
-    sspec = SuperConfig(pel=PEL, levels=1, chroma=False).validate(fmt)
+    sspec = SuperConfig(pel=kw.pop("pel", PEL), levels=1,
+                        chroma=False).validate(fmt)
     rcfg = port.RecalculateConfig(blksize=16, overlap=8, chroma=False, **kw)
     rspec = rcfg.to_analyse_config().validate(sspec)
     dummy = Super(((torch.zeros((1, 4, 8, 8), dtype=torch.uint8),),), sspec)
@@ -289,47 +236,26 @@ def test_unported_options_raise(kw, what):
 
 
 @pytest.fixture(scope="module")
-def chroma_results():
-    """Recalculate with chroma=True and dct 5 on a YUV420 pair, one job, in
-    both packages: the luma cost is the SATD, U and V add their SADs."""
-    planes = tpr.make_yuv_frames(2, W, H, seed=23, flash=None, noise=6,
-                                 pan=PAN, clean=CLEAN)
-    kw = dict(blksize=16, overlap=8, thsad=200, chroma=True, dct=5)
-
-    def specs(config, types, recalc):
-        fmt = types.VideoFormat(W, H, 8, types.ColorFamily.YUV420)
-        sspec = config.SuperConfig(pel=PEL, levels=1,
-                                   chroma=True).validate(fmt)
-        old = config.AnalyseConfig(blksize=16, levels=1, chroma=True,
-                                   truemotion=True).validate(sspec)
-        rcfg = recalc.RecalculateConfig(**kw)
-        return sspec, old, rcfg, rcfg.to_analyse_config().validate(sspec)
-
-    sspec_j, old_j, rcfg_j, rspec_j = specs(jax_config, jax_types, jax_recalc)
-    sups = [mvt.build_super([jnp.asarray(p[i]) for p in planes], sspec_j)
-            for i in range(2)]
-    x, y, sad = _old_field(old_j.meta, np.random.default_rng(24), 1)
-    old = jax_types.MVField(
-        (jax_types.MVPlaneField(jnp.asarray(x[0]), jnp.asarray(y[0]),
-                                jnp.asarray(sad[0])),),
-        jnp.ones((), jnp.int32), old_j.meta)
-    want = jax_recalc.recalculate(sups[0], sups[1], old, rspec_j, rcfg_j,
-                                  engine="lockstep").levels[0]
-
-    sspec, old_p, rcfg, rspec = specs(port_config, port_types, port)
+def chroma_results(clip):
+    """Recalculate with chroma=True and dct 5 on a YUV420 pair, one job, fed
+    the JAX package's pyramids: the luma cost is the SATD, U and V add their
+    SADs."""
+    sspec, old_p = tpr.recalc_specs(port_config, port_types, "YUV420")
+    rcfg = port.RecalculateConfig(**tpr.RC_CHROMA)
+    rspec = rcfg.to_analyse_config().validate(sspec)
     assert rspec.chroma
     src, ref = (convert.super_from_numpy(
-        [[np.array(s.planes[p][0])[None]] for p in range(3)], sspec,
-        device="cpu") for s in sups)
+        [[clip[f"chroma_planes{p}"][i][None]] for p in range(3)], sspec,
+        device="cpu") for i in (0, 1))
+    old = tuple(clip[f"chroma_old_{k}"] for k in ("x", "y", "sad"))
     got = port.recalculate(
         src, ref, convert.mvfield_from_numpy(
-            [(x, y, sad)], convert.spec_to_dict(old_p.meta), device="cpu"),
+            [old], convert.spec_to_dict(old_p.meta), device="cpu"),
         rspec, rcfg).levels[0]
-    return got, want
+    return got, {k: clip[f"chroma_{k}"] for k in ("x", "y", "sad")}
 
 
 @pytest.mark.parametrize("key", ["x", "y", "sad"])
 def test_recalculate_with_chroma_matches_jax(chroma_results, key):
     got, want = chroma_results
-    np.testing.assert_array_equal(getattr(got, key)[0].numpy(),
-                                  np.asarray(getattr(want, key)))
+    np.testing.assert_array_equal(getattr(got, key)[0].numpy(), want[key])

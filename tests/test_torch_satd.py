@@ -31,6 +31,8 @@ from mvtools_tpu_torch.core import config as port_config, types as port_types
 from mvtools_tpu_torch.ops import sad as sad_ops
 from mvtools_tpu_torch.super import build_super
 
+import torch_port_reference as tpr
+
 SIZES = [(4, 4), (8, 4), (8, 8), (16, 8), (16, 16), (32, 16), (32, 32)]
 
 
@@ -114,45 +116,25 @@ def test_mix_satd_cost_rejects_other_modes():
 # dctweight16 > 0: Analyse with dct 6 on a pair whose brightness differs
 
 
-def test_analyse_dct6_with_a_brightness_change_matches_jax():
+def test_analyse_dct6_with_a_brightness_change_matches_jax(tmp_path_factory):
     """Mode 6 mixes SATD into the SAD by dctweight16 = min(16, |mean luma
     change of the coarsest level| / block area), which is 0 on a calm pair.
     Job 0's reference frame is 6 brighter than its source, job 1's is not:
     the weight is per job, and both jobs must come out as the JAX package's
-    analyse() gives them one at a time."""
-    w, h, levels = 128, 96, 2
-    rng = np.random.default_rng(77)
-    base = rng.integers(0, 230, (h + 8, w + 8)).astype(np.uint8)
-    f0 = base[:h, :w]
-    f1 = base[1:h + 1, 2:w + 2]
-    grain = rng.integers(-3, 4, (h, w))
-    frames = np.stack([
-        f0, np.clip(f1.astype(np.int64) + grain + 6, 0, 255).astype(np.uint8),
-        np.clip(f1.astype(np.int64) + grain, 0, 255).astype(np.uint8)])
-
-    def specs(config, types):
-        fmt = types.VideoFormat(w, h, 8, types.ColorFamily.GRAY)
-        sspec = config.SuperConfig(pel=2, levels=levels,
-                                   chroma=False).validate(fmt)
-        return sspec, config.AnalyseConfig(
-            blksize=16, levels=levels, chroma=False, truemotion=True,
-            dct=6).validate(sspec)
-
-    sspec_j, aspec_j = specs(jax_config, jax_types)
-    sups_j = [mvt.build_super([jnp.asarray(f)], sspec_j) for f in frames]
-    want = [mvt.analyse(sups_j[0], sups_j[r], aspec_j, engine="lockstep")
-            for r in (1, 2)]
-
-    sspec, aspec = specs(port_config, port_types)
+    analyse_batch gives them (torch_port_reference.load_dct6), which by its
+    contract is each job's analyse(engine="lockstep") alone."""
+    ref = tpr.load_dct6(tmp_path_factory)
+    levels = tpr.DCT6_LEVELS
+    frames = ref["frames"]
+    np.testing.assert_array_equal(frames, tpr.make_dct6_frames())
+    sspec, aspec = tpr.dct6_specs(port_config, port_types)
     sups = build_super([torch.from_numpy(frames)], sspec)
     got = analyse_batch(sups.map(lambda a: a[[0, 0]]),
                         sups.map(lambda a: a[[1, 2]]), aspec)
     for lv in range(levels):
         for key in ("x", "y", "sad"):
-            for j in (0, 1):
-                np.testing.assert_array_equal(
-                    getattr(got.levels[lv], key)[j].numpy(),
-                    np.asarray(getattr(want[j].levels[lv], key)))
+            np.testing.assert_array_equal(
+                getattr(got.levels[lv], key).numpy(), ref[f"mv_{key}{lv}"])
     # the weight the finest level saw: 5 or 6 for job 0, 0 for job 1
     ctx = _level_ctx(sspec, aspec, 1, sups.map(lambda a: a[[0, 0]]),
                      sups.map(lambda a: a[[1, 2]]))
@@ -167,7 +149,6 @@ def test_analyse_dct6_with_a_brightness_change_matches_jax():
     # and the mix changed job 0's costs: its SADs are not the dct 0 ones
     plain = analyse_batch(
         sups.map(lambda a: a[[0, 0]]), sups.map(lambda a: a[[1, 2]]),
-        port_config.AnalyseConfig(blksize=16, levels=levels, chroma=False,
-                         truemotion=True).validate(sspec))
+        tpr.dct6_specs(port_config, port_types, dct=0)[1])
     assert not torch.equal(plain.levels[0].sad[0], got.levels[0].sad[0])
     assert torch.equal(plain.levels[0].sad[1], got.levels[0].sad[1])

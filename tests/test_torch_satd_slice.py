@@ -115,8 +115,8 @@ def test_rescue_ran_on_satd_costs_down_to_the_block_probe(ref, run):
     assert widths[3] < wx_total <= widths[2]
 
 
-@pytest.mark.parametrize("key", ["x", "y", "sad"])
-def test_recalculate_dct5_on_the_jax_field_matches_jax(ref, key):
+@pytest.fixture(scope="module")
+def recalc_on_jax_field(ref):
     """Recalculate held alone: fed the JAX package's pyramids and the JAX
     package's analysed field through convert.py."""
     sspec, aspec, rcfg, rspec = _configs()
@@ -128,10 +128,15 @@ def test_recalculate_dct5_on_the_jax_field_matches_jax(ref, key):
          for lv in range(tpr.SATD_LEVELS)],
         convert.spec_to_dict(aspec.meta), device="cpu")
     src, rf = tpr.satd_job_indices()
-    got = port.recalculate(sups.map(lambda a: a[src]),
-                           sups.map(lambda a: a[rf]), old, rspec, rcfg)
-    np.testing.assert_array_equal(getattr(got.levels[0], key).numpy(),
-                                  ref[f"rc_{key}"])
+    return port.recalculate(sups.map(lambda a: a[src]),
+                            sups.map(lambda a: a[rf]), old, rspec, rcfg)
+
+
+@pytest.mark.parametrize("key", ["x", "y", "sad"])
+def test_recalculate_dct5_on_the_jax_field_matches_jax(ref, recalc_on_jax_field,
+                                                        key):
+    np.testing.assert_array_equal(
+        getattr(recalc_on_jax_field.levels[0], key).numpy(), ref[f"rc_{key}"])
 
 
 @pytest.mark.parametrize("key", ["x", "y", "sad"])

@@ -210,8 +210,8 @@ def test_field_prober_agrees_with_the_maps(ref, port_run):
         torch.where(ok[..., 5], ca[..., 5], 0).numpy())
 
 
-@pytest.mark.parametrize("plane", range(3))
-def test_degrain_yuv_matches_jax(ref, port_run, plane):
+@pytest.fixture(scope="module")
+def degrain_run(ref, port_run):
     """Overlapped three-plane Degrain2, batched over the clip's frames, on
     the JAX side's vectors, clip-edge validity included."""
     sspec, aspec = tpr.specs(ref)
@@ -228,8 +228,13 @@ def test_degrain_yuv_matches_jax(ref, port_run, plane):
                    sups.map(lambda a: a[prv[sl]])]
         mvs += [_jobs(mvb, sl), _jobs(mvb, slice(nj + k * T, nj + (k + 1) * T))]
         valid += [next_ok[:, k], prev_ok[:, k]]
-    out = degrain(_clip(ref), sups_r, mvs, aspec.meta,
-                  DegrainConfig(thsad=400), valid=valid)
+    return degrain(_clip(ref), sups_r, mvs, aspec.meta,
+                   DegrainConfig(thsad=400), valid=valid)
+
+
+@pytest.mark.parametrize("plane", range(3))
+def test_degrain_yuv_matches_jax(ref, degrain_run, plane):
+    out = degrain_run
     assert out[plane].dtype == torch.uint8
     np.testing.assert_array_equal(out[plane].numpy(), ref[f"degrain{plane}"])
 
@@ -349,7 +354,7 @@ def _tiny_clip(bits=8):
     (dict(acfg=AnalyseConfig(fields=True, tff=True)), "fields"),
     (dict(scfg=SuperConfig(pel=4)), "pel"),
     (dict(bits=16), "16-bit"),
-    (dict(acfg=AnalyseConfig(dct=1)), "dct"),
+    (dict(acfg=AnalyseConfig(dct=1), scfg=SuperConfig(pel=4)), "dct"),
     (dict(acfg=AnalyseConfig(trymany=True)), "trymany"),
 ], ids=["exact", "mesh", "spatial", "fields", "pel4", "16bit", "dct",
         "trymany"])

@@ -1,11 +1,15 @@
 """Shared JAX-side reference for the tests of the PyTorch port
 (tests/test_torch_*.py).
 
-The JAX lockstep engine is slow to compile on the CPU, so each of THREE
-small geometries is run through the JAX package once per test run — supers,
-one analyse_batch call, degrain per output frame — and cached as an .npz
-that every test file (and every pytest-xdist worker) loads.  The first
-worker to take a run's lock computes it; the others wait for the file.
+The JAX lockstep engine is slow on the CPU (a minute or more per analysed
+pyramid, set by the number of operations it dispatches, not by the frame
+size), so each reference below is run through the JAX package once per test
+run and cached as an .npz that every test file (and every pytest-xdist
+worker) loads.  A reference is computed by whichever process first takes
+its lock; the others wait for the file.  Under pytest-xdist the first
+fixture to need a reference also starts two background processes that
+compute four of them in turn while the workers run other tests (see
+_prefetch); each exits when the worker that started it does.
 
 * load(): gray, 3 levels, no overlap, radius 1 (the headline path).
 * load_yuv(): YUV420, levels=0 (4 levels at this size), overlap 8, chroma,
@@ -16,7 +20,8 @@ worker to take a run's lock computes it; the others wait for the file.
   there go through the per-block probe.
 * load_satd(): the SATD slice, gray: Analyse with dct 5 (blk 16 overlap 8,
   levels=0: 4 levels at this size) -> Recalculate with dct 5 (blk 16 overlap
-  8) -> Degrain1, radius 1 over a 4-frame clip.  Frame 1 flashes over most
+  8, the jobs batched by jax.vmap) -> Degrain1, radius 1 over a 4-frame
+  clip.  Frame 1 flashes over most
   of the frame, so three of the four jobs turn bad at every level and the
   rescue runs on SATD costs; the level-3 stack (480 wide) is narrower than
   the tiled probe's window, so its probes go through the per-block probe.
@@ -25,14 +30,34 @@ worker to take a run's lock computes it; the others wait for the file.
   default's 40 000, so with dct 5 no flash alone is ever "bad" at the
   default.  A region free of fresh noise leaves Recalculate blocks under
   thsad in the calm job.
+* load_dct(): the DCT slice, gray 112x80: Analyse with dct 1 (blk 16, two
+  levels) -> Recalculate with dct 2 (blk 16 overlap 8), three jobs.  Frame 1
+  flashes over half the frame, so the two jobs that pair it are bad at both
+  levels and the rescue runs on DCT costs; the third job is calm.  The
+  level-1 stack (504 wide) is narrower than the tiled fetch's window (512),
+  so the dense DCT map there is fetched block by block.  badsad is 1500 (6000 for a 16x16
+  block): the DCT cost of a brightness step (about 8 * 3 * the DC step of
+  96) is no larger than that of the fresh noise of a calm pair, so only the
+  flash's mismatched blocks lie over it, and no calm block does.
+* load_recalc(): Recalculate alone, 160x128 gray, on a seeded old field, in
+  four configurations (dct 0, 5 and 7, blk 16 overlap 8 and blk 8 with the
+  exhaustive search) and once with chroma (YUV420, dct 5).
+* load_dct6(): Analyse with dct 6 on a pair whose brightness changes (two
+  levels at 128x96), so that the SATD mix's per-job weight is not 0.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
 import dataclasses
+import fcntl
 import json
 import os
+import subprocess
+import sys
+import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -115,29 +140,39 @@ def _compute() -> dict:
     return out
 
 
-def _load(tmp_path_factory, stem: str, compute) -> dict:
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent              # shared by all workers of the run
+def _shared_dir(tmp_path_factory=None) -> Path:
+    """The directory every process of one test run shares: under
+    pytest-xdist one named by the run's id in the temporary directory (the
+    prefetch, which starts before any fixture runs, finds it by that id),
+    else the session's base temporary directory."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if uid:
+        d = Path(tempfile.gettempdir()) / f"mvt-torch-reference-{uid}"
+        d.mkdir(exist_ok=True)
+        return d
+    return tmp_path_factory.getbasetemp()
+
+
+def _ensure(base: Path, stem: str) -> Path:
+    """The reference's .npz, computed under its lock by the first process
+    that needs it; a process that finds the lock held waits for it (a lock
+    whose holder died is released with it, and the file is then computed
+    here)."""
     final = base / f"{stem}.npz"
-    lock = base / f"{stem}.lock"
-    deadline = time.time() + 1200
-    while not final.exists():
-        try:
-            fd = os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
-        except FileExistsError:
-            if time.time() > deadline:
-                raise RuntimeError("timed out waiting for the JAX reference")
-            time.sleep(0.5)
-            continue
-        os.close(fd)
-        try:
+    if final.exists():
+        return final
+    with open(base / f"{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not final.exists():
             tmp = base / f"{stem}.{os.getpid()}.tmp.npz"
-            np.savez(tmp, **compute())
+            np.savez(tmp, **COMPUTE[stem]())
             os.replace(tmp, final)
-        finally:
-            os.unlink(lock)
-    with np.load(final) as z:
+    return final
+
+
+def _load(tmp_path_factory, stem: str) -> dict:
+    _prefetch()
+    with np.load(_ensure(_shared_dir(tmp_path_factory), stem)) as z:
         return {k: z[k] for k in z.files}
 
 
@@ -341,12 +376,13 @@ def _compute_satd() -> dict:
     for lv in range(SATD_LEVELS):
         for k in ("x", "y", "sad"):
             out[f"mv_{k}{lv}"] = np.asarray(getattr(mvb.levels[lv], k))
-    refined = [jax_recalc.recalculate(
-        sups[s], sups[r], tm(lambda a, j=j: a[j], mvb), rspec, rcfg,
-        engine="lockstep") for j, (s, r) in enumerate(zip(src, ref))]
+    # the jobs batched by vmap: one call instead of one per job, the same
+    # result (a job's refinement does not depend on the others)
+    rc = jax.vmap(lambda s, r, f: jax_recalc.recalculate(
+        s, r, f, rspec, rcfg, engine="lockstep"))(ss, rs, mvb)
     for k in ("x", "y", "sad"):
-        out[f"rc_{k}"] = np.stack(
-            [np.asarray(getattr(f.levels[0], k)) for f in refined])
+        out[f"rc_{k}"] = np.asarray(getattr(rc.levels[0], k))
+    refined = [tm(lambda a, j=j: a[j], rc) for j in range(len(src))]
     deg = []
     for i, c in enumerate(range(SATD_RADIUS, SATD_FRAMES - SATD_RADIUS)):
         deg.append(np.asarray(degrain(
@@ -359,18 +395,35 @@ def _compute_satd() -> dict:
 
 def load(tmp_path_factory) -> dict:
     """The gray reference arrays, computed at most once per test run."""
-    return _load(tmp_path_factory, "torch_port_reference", _compute)
+    return _load(tmp_path_factory, "torch_port_reference")
 
 
 def load_yuv(tmp_path_factory) -> dict:
     """The YUV420 reference arrays, computed at most once per test run."""
-    return _load(tmp_path_factory, "torch_port_reference_yuv", _compute_yuv)
+    return _load(tmp_path_factory, "torch_port_reference_yuv")
 
 
 def load_satd(tmp_path_factory) -> dict:
     """The SATD slice's reference arrays, computed at most once per test
     run."""
-    return _load(tmp_path_factory, "torch_port_reference_satd", _compute_satd)
+    return _load(tmp_path_factory, "torch_port_reference_satd")
+
+
+def load_dct(tmp_path_factory) -> dict:
+    """The DCT slice's reference arrays, computed at most once per test
+    run."""
+    return _load(tmp_path_factory, "torch_port_reference_dct")
+
+
+def load_recalc(tmp_path_factory) -> dict:
+    """Recalculate's reference arrays, computed at most once per test run."""
+    return _load(tmp_path_factory, "torch_port_reference_recalc")
+
+
+def load_dct6(tmp_path_factory) -> dict:
+    """The dct 6 Analyse reference arrays, computed at most once per test
+    run."""
+    return _load(tmp_path_factory, "torch_port_reference_dct6")
 
 
 def specs(ref: dict):
@@ -379,3 +432,294 @@ def specs(ref: dict):
     from mvtools_tpu_torch import convert
     return (convert.super_spec_from_dict(json.loads(str(ref["sspec_json"]))),
             convert.analyse_spec_from_dict(json.loads(str(ref["aspec_json"]))))
+
+
+def _stack_supers(sups, idx):
+    import jax
+    import jax.numpy as jnp
+    return jax.tree_util.tree_map(lambda *a: jnp.stack(a),
+                                  *[sups[i] for i in idx])
+
+
+# ---------------------------------------------------------------------------
+# The DCT slice: gray, Analyse dct 1 -> Recalculate dct 2
+
+DCT_W, DCT_H, DCT_LEVELS, DCT_FRAMES = 112, 80, 2, 4
+DCT_FLASH = (16, 16, 48, 80)       # y, x, h, w
+DCT_SEED = 41
+DCT_BADSAD = 1500
+DCT_THSAD = 200
+DCT_SRC, DCT_REF = (1, 1, 2), (2, 0, 3)    # two flash jobs, one calm
+
+
+def make_dct_frames():
+    """[DCT_FRAMES, H, W] uint8: the luma plane of make_yuv_frames, flash
+    bright in frame 1, +-4 fresh noise, pan (1, 1)."""
+    return make_yuv_frames(DCT_FRAMES, DCT_W, DCT_H, DCT_SEED, DCT_FLASH,
+                           YUV_NOISE, YUV_PAN)[0]
+
+
+def dct_configs(config, types, recalc):
+    """(SuperSpec, AnalyseSpec, RecalculateConfig, its AnalyseSpec) of the
+    DCT slice from either package's config / types / recalculate modules."""
+    fmt = types.VideoFormat(DCT_W, DCT_H, 8, types.ColorFamily.GRAY)
+    sspec = config.SuperConfig(pel=2, levels=DCT_LEVELS,
+                               chroma=False).validate(fmt)
+    aspec = config.AnalyseConfig(
+        blksize=16, levels=DCT_LEVELS, truemotion=True, chroma=False, dct=1,
+        badsad=DCT_BADSAD).validate(sspec)
+    rcfg = recalc.RecalculateConfig(blksize=16, overlap=8, thsad=DCT_THSAD,
+                                    chroma=False, truemotion=True, dct=2)
+    return sspec, aspec, rcfg, rcfg.to_analyse_config().validate(sspec)
+
+
+def _compute_dct() -> dict:
+    import jax
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    from mvtools_tpu import recalculate as jax_recalc
+    from mvtools_tpu.core import config, types
+
+    frames = make_dct_frames()
+    sspec, aspec, rcfg, rspec = dct_configs(config, types, jax_recalc)
+    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    ss, rs = _stack_supers(sups, DCT_SRC), _stack_supers(sups, DCT_REF)
+    mvb = mvt.analyse_batch(ss, rs, aspec)
+    rc = jax.vmap(lambda s, r, f: jax_recalc.recalculate(
+        s, r, f, rspec, rcfg, engine="lockstep"))(ss, rs, mvb)
+    out = {"frames": frames, "mv_validity": np.asarray(mvb.validity),
+           "rc_validity": np.asarray(rc.validity)}
+    for lv in range(DCT_LEVELS):
+        out[f"super{lv}"] = np.stack(
+            [np.asarray(s.planes[0][lv]) for s in sups])
+        for k in ("x", "y", "sad"):
+            out[f"mv_{k}{lv}"] = np.asarray(getattr(mvb.levels[lv], k))
+    for k in ("x", "y", "sad"):
+        out[f"rc_{k}"] = np.asarray(getattr(rc.levels[0], k))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Recalculate alone, on a seeded old field
+
+RC_W, RC_H, RC_PEL = 160, 128, 2
+RC_PAN = (1, 2)                    # pixels down / right per frame
+RC_CLEAN = (32, 48, 64, 80)        # y, x, h, w free of fresh noise
+RC_CONFIGS = {
+    "dct0-16ov8": dict(blksize=16, overlap=8, thsad=200, chroma=False, dct=0),
+    "dct5-16ov8": dict(blksize=16, overlap=8, thsad=200, chroma=False, dct=5),
+    "dct5-8ov0-exh": dict(blksize=8, overlap=0, thsad=200, chroma=False,
+                          dct=5, search=3, searchparam=2, smooth=0),
+    "dct7-16ov8": dict(blksize=16, overlap=8, thsad=100, chroma=False, dct=7),
+}
+RC_CHROMA = dict(blksize=16, overlap=8, thsad=200, chroma=True, dct=5)
+
+
+def recalc_specs(config, types, family="GRAY", pel=RC_PEL):
+    """(SuperSpec, old 16x16 overlap-0 AnalyseSpec) of the Recalculate
+    references in either package."""
+    fmt = types.VideoFormat(RC_W, RC_H, 8, getattr(types.ColorFamily, family))
+    chroma = family != "GRAY"
+    sspec = config.SuperConfig(pel=pel, levels=1, chroma=chroma).validate(fmt)
+    old = config.AnalyseConfig(blksize=16, levels=1, chroma=chroma,
+                               truemotion=True).validate(sspec)
+    return sspec, old
+
+
+def recalc_kw(types, kw):
+    """A RC_CONFIGS entry as RecalculateConfig keywords of either package."""
+    kw = dict(kw)
+    if "search" in kw:
+        kw["search"] = types.SearchType(kw["search"])
+    return kw
+
+
+def recalc_old_field(old_meta, rng, nj):
+    """[J, nby, nbx] old vectors: the clip's true pan, off by up to two pel
+    in a third of the blocks and far off in a few, with SADs to match."""
+    nby, nbx = old_meta.blk_y, old_meta.blk_x
+    x = np.full((nj, nby, nbx), -RC_PAN[1] * RC_PEL, np.int32)
+    y = np.full((nj, nby, nbx), -RC_PAN[0] * RC_PEL, np.int32)
+    off = rng.random((nj, nby, nbx)) < 0.33
+    x += np.where(off, rng.integers(-2, 3, x.shape), 0).astype(np.int32)
+    y += np.where(off, rng.integers(-2, 3, y.shape), 0).astype(np.int32)
+    far = rng.random((nj, nby, nbx)) < 0.05
+    x += np.where(far, rng.integers(-60, 61, x.shape), 0).astype(np.int32)
+    y += np.where(far, rng.integers(-60, 61, y.shape), 0).astype(np.int32)
+    sad = rng.integers(0, 9000, (nj, nby, nbx)).astype(np.int64)
+    return x, y, sad
+
+
+def _compute_recalc() -> dict:
+    """Three gray frames -> two jobs (frame 1 against frame 2 and frame 0)
+    on the JAX package's pyramids and a seeded old field, refined in each of
+    RC_CONFIGS (the two jobs batched by jax.vmap); and one YUV420 pair with
+    chroma in the search."""
+    import jax
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    from mvtools_tpu import recalculate as jax_recalc
+    from mvtools_tpu.core import config, types
+
+    frames = make_yuv_frames(3, RC_W, RC_H, seed=21, flash=None, noise=6,
+                             pan=RC_PAN, clean=RC_CLEAN)[0]
+    sspec, old_spec = recalc_specs(config, types)
+    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    rng = np.random.default_rng(22)
+    # job 0: frame 1 -> frame 2 (content moves by -RC_PAN), job 1: 1 -> 0
+    x, y, sad = recalc_old_field(old_spec.meta, rng, 2)
+    x[1], y[1] = -x[1], -y[1]
+    out = {"planes": np.stack([np.asarray(s.planes[0][0]) for s in sups]),
+           "old_x": x, "old_y": y, "old_sad": sad}
+    old = types.MVField((types.MVPlaneField(jnp.asarray(x), jnp.asarray(y),
+                                            jnp.asarray(sad)),),
+                        jnp.ones((2,), jnp.int32), old_spec.meta)
+    ss, rs = _stack_supers(sups, (1, 1)), _stack_supers(sups, (2, 0))
+    for name, kw in RC_CONFIGS.items():
+        rcfg = jax_recalc.RecalculateConfig(**recalc_kw(types, kw))
+        rspec = rcfg.to_analyse_config().validate(sspec)
+        got = jax.vmap(lambda s, r, f: jax_recalc.recalculate(
+            s, r, f, rspec, rcfg, engine="lockstep"))(ss, rs, old)
+        for k in ("x", "y", "sad"):
+            out[f"{name}_{k}"] = np.asarray(getattr(got.levels[0], k))
+
+    planes = make_yuv_frames(2, RC_W, RC_H, seed=23, flash=None, noise=6,
+                             pan=RC_PAN, clean=RC_CLEAN)
+    sspec_c, old_c = recalc_specs(config, types, "YUV420")
+    rcfg = jax_recalc.RecalculateConfig(**RC_CHROMA)
+    rspec = rcfg.to_analyse_config().validate(sspec_c)
+    sups = [mvt.build_super([jnp.asarray(p[i]) for p in planes], sspec_c)
+            for i in range(2)]
+    x, y, sad = recalc_old_field(old_c.meta, np.random.default_rng(24), 1)
+    old = types.MVField(
+        (types.MVPlaneField(jnp.asarray(x[0]), jnp.asarray(y[0]),
+                            jnp.asarray(sad[0])),),
+        jnp.ones((), jnp.int32), old_c.meta)
+    got = jax_recalc.recalculate(sups[0], sups[1], old, rspec, rcfg,
+                                 engine="lockstep").levels[0]
+    for p in range(3):
+        out[f"chroma_planes{p}"] = np.stack(
+            [np.asarray(sup.planes[p][0]) for sup in sups])
+    out.update(chroma_old_x=x, chroma_old_y=y, chroma_old_sad=sad)
+    for k in ("x", "y", "sad"):
+        out[f"chroma_{k}"] = np.asarray(getattr(got, k))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Analyse with dct 6 on a pair whose brightness changes
+
+DCT6_W, DCT6_H, DCT6_LEVELS = 128, 96, 2
+
+
+def make_dct6_frames():
+    """[3, H, W] uint8: frame 0, and frame 0 moved by (1, 2) px with +-3
+    grain, once 6 brighter and once not."""
+    w, h = DCT6_W, DCT6_H
+    rng = np.random.default_rng(77)
+    base = rng.integers(0, 230, (h + 8, w + 8)).astype(np.uint8)
+    f1 = base[1:h + 1, 2:w + 2].astype(np.int64)
+    grain = rng.integers(-3, 4, (h, w))
+    return np.stack([
+        base[:h, :w], np.clip(f1 + grain + 6, 0, 255).astype(np.uint8),
+        np.clip(f1 + grain, 0, 255).astype(np.uint8)])
+
+
+def dct6_specs(config, types, dct=6):
+    fmt = types.VideoFormat(DCT6_W, DCT6_H, 8, types.ColorFamily.GRAY)
+    sspec = config.SuperConfig(pel=2, levels=DCT6_LEVELS,
+                               chroma=False).validate(fmt)
+    return sspec, config.AnalyseConfig(
+        blksize=16, levels=DCT6_LEVELS, chroma=False, truemotion=True,
+        dct=dct).validate(sspec)
+
+
+def _compute_dct6() -> dict:
+    """Frame 0 against frames 1 and 2 as one analyse_batch call (its
+    contract: each job as analyse(engine="lockstep") gives it alone)."""
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    from mvtools_tpu.core import config, types
+
+    frames = make_dct6_frames()
+    sspec, aspec = dct6_specs(config, types)
+    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    mvb = mvt.analyse_batch(_stack_supers(sups, (0, 0)),
+                            _stack_supers(sups, (1, 2)), aspec)
+    out = {"frames": frames}
+    for lv in range(DCT6_LEVELS):
+        for k in ("x", "y", "sad"):
+            out[f"mv_{k}{lv}"] = np.asarray(getattr(mvb.levels[lv], k))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Computing the references ahead of the tests that need them
+
+COMPUTE = {
+    "torch_port_reference": _compute,
+    "torch_port_reference_yuv": _compute_yuv,
+    "torch_port_reference_satd": _compute_satd,
+    "torch_port_reference_dct": _compute_dct,
+    "torch_port_reference_recalc": _compute_recalc,
+    "torch_port_reference_dct6": _compute_dct6,
+}
+# two background processes, the references in the order each computes them.
+# pytest-xdist hands out the test files with the most tests first; the YUV
+# and Recalculate references are needed by the first tests of files handed
+# out at once, so those workers compute them themselves; the rest are needed
+# later (the dct 6 one by the last test of its file) and are made here
+PREFETCH = (("torch_port_reference_dct6", "torch_port_reference_satd"),
+            ("torch_port_reference", "torch_port_reference_dct"))
+
+
+def _prefetch() -> None:
+    """Under pytest-xdist, start the background processes that compute the
+    PREFETCH references, once per test run: the first fixture to need any
+    reference starts them (pytest-xdist hands out the files that need
+    references first), so they are made while the workers run other tests,
+    on the cores the workers leave free.  Every reference still goes through
+    _ensure, which waits for a process computing it or computes it itself.
+    Outside pytest-xdist nothing starts and each reference is made when a
+    fixture first needs it."""
+    global _prefetched
+    if _prefetched or not os.environ.get("PYTEST_XDIST_TESTRUNUID"):
+        return
+    _prefetched = True
+    base = _shared_dir()
+    try:
+        os.close(os.open(base / "prefetch.started",
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        return
+    for i, stems in enumerate(PREFETCH):
+        with open(base / f"prefetch{i}.log", "w") as log:
+            subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), str(base),
+                 str(os.getpid()), *stems],
+                cwd=os.path.dirname(os.path.dirname(os.path.abspath(
+                    __file__))), stdin=subprocess.DEVNULL, stdout=log,
+                stderr=subprocess.STDOUT)
+
+
+_prefetched = False        # this process has tried to start the prefetch
+
+
+def _exit_with_parent(parent: int) -> None:
+    """Exit this process as soon as `parent` (the worker that started it)
+    is gone, whatever this process is doing."""
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1)
+        os._exit(0)
+    threading.Thread(target=watch, daemon=True).start()
+
+
+if __name__ == "__main__":
+    # a prefetch process: python torch_port_reference.py BASE PARENT STEM...
+    _exit_with_parent(int(sys.argv[2]))
+    sys.path.insert(0, os.getcwd())
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    for stem in sys.argv[3:]:
+        _ensure(Path(sys.argv[1]), stem)
