@@ -8,7 +8,9 @@ PyTorch built for CUDA:
 
 It builds the CUDA kernels from mvtools_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card at the shapes the main paths
-give it (integers: tolerance 0), checks small end-to-end runs on the card
+give it (integers: tolerance 0; the tiled probe also with an `active` mask
+that leaves about 30 % of the entries live, the SAD map also at block
+pitches 14 and 6 and at pel 1), checks small end-to-end runs on the card
 against the same code on CPU tensors, and drives five main paths at full
 width:
 
@@ -50,11 +52,13 @@ result.  The last line is {"ok": true, "device": {...}}.
 
 additionally traces one more full-width run of each of the nine clips with
 torch.profiler and prints where the device time went (busy share, kernels by
-time).
+time, and the summed device time of the SAD map and the tiled probe in
+either form).
 """
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +93,10 @@ OPS_PER_PIXEL = {"sad": 2, "sad_satd_luma": 9}
 STATS3 = "sad_satd_luma"
 
 W, H, BATCH, RADIUS = 1920, 1080, 8, 1
+# the times of the previous K1 / K2 bodies at the gray path's levels 0-2
+# (ms on an H100 80GB HBM3 at 700 W, as PERF.md records them)
+GRAY_K1_BEFORE = (2.879, 0.599, 0.172)
+GRAY_K2_BEFORE = (0.374, 0.100, 0.067)
 FLASH = (416, 832, 256, 256)
 SMALL_W, SMALL_H, SMALL_FLASH = 256, 192, (32, 64, 96, 128)
 # the YUV420 path: 14 frames, flash over most of the frame, noise of +-4 per
@@ -196,9 +204,12 @@ def stats_tag(stats):
     return "" if stats == "sad" else " three stats"
 
 
-def k1_case(ctx, stacks, gen, plane=0, stats="sad"):
+def k1_case(ctx, stacks, gen, plane=0, stats="sad", extra="",
+            before_ms=None):
     """sad_map at one level's main-path shape; anchors spread over the
-    whole legal range, both clamp ends included."""
+    whole legal range, both clamp ends included.  before_ms: the previous
+    kernel body's time at this shape, as PERF.md records it, printed beside
+    this run's time."""
     bsy, bsx, pit_y, pit_x, oy, ox, _ = plane_geom(ctx, plane)
     stack = stacks[plane]
     nbx, nby = ctx.nblk
@@ -220,7 +231,8 @@ def k1_case(ctx, stacks, gen, plane=0, stats="sad"):
             pit_x, pit_y, nbx, nby, oy, ox, stats)
     out = sadmap.sad_map(*args)
     want, plain_ms = time_plain(lambda: sadmap.sad_map_plain(*args))
-    label = case_label(ctx, plane, stats_tag(stats))
+    label = case_label(ctx, plane, f" pel {ctx.pel} pitch {pit_x}"
+                       + stats_tag(stats) + extra)
     err = compare(f"sad_map {label}", out, want)
     del want
     ms = time_cuda(lambda: sadmap.sad_map(*args), 5)
@@ -229,8 +241,38 @@ def k1_case(ctx, stacks, gen, plane=0, stats="sad"):
     n_bytes = (stack.numel() + src_plane.numel()
                + 4 * (afy.numel() + afx.numel()) + 4 * out.numel())
     b_ms, b_by = bound(n_bytes, n_ops)
-    return dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    res = dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    if stats == "sad":
+        g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile, pit_x)
+        res["launch"] = {k: g[k] for k in ("threads", "smem", "nws", "nox",
+                                           "n_chunk")}
+    if before_ms is not None:
+        res["before_ms"] = before_ms
+    return res
+
+
+def k1_geometry_cases(gen, dev):
+    """K1 at the geometries whose code paths the headline and YUV shapes do
+    not reach: a block pitch that is not a multiple of 4 (blk 16 overlap 2:
+    pitch 14; blk 8 overlap 2: pitch 6, 8x8 blocks) and pel 1, each on level
+    0 of a 1080p gray clip, 4 jobs."""
+    fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
+    clip = make_test_clip(5, W, H, seed=4, device=dev)
+    src_idx = torch.tensor([1, 1, 3, 3], device=dev)
+    ref_idx = torch.tensor([2, 0, 4, 2], device=dev)
+    cases = []
+    for pel, bs, ov in ((2, 16, 2), (2, 8, 2), (1, 16, 0)):
+        sspec = SuperConfig(pel=pel, levels=1, chroma=False).validate(fmt)
+        aspec = AnalyseConfig(blksize=bs, overlap=ov, levels=1,
+                              chroma=False).validate(sspec)
+        sups = build_super([clip], sspec)
+        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
+        cases.append(k1_case(ctx, stacks, gen))
+        del ctx, stacks, sups
+    del clip
+    torch.cuda.empty_cache()
+    return cases
 
 
 def probe_inputs(ctx, stacks, gen, plane, kk, spread=6, far_share=0.05):
@@ -256,7 +298,7 @@ def probe_inputs(ctx, stacks, gen, plane, kk, spread=6, far_share=0.05):
     cy = (base_y[None, :, None] + vy).contiguous()
     cx = (base_x[None, :, None] + vx).contiguous()
     src_blocks = _blocks_of(ctx.src_planes[plane], oy, ox, nby, nbx, bsy,
-                            bsx, pit_y, pit_x)
+                            bsx, pit_y, pit_x).contiguous()
     return stack, cy, cx, src_blocks, bsy, bsx, pit_x
 
 
@@ -268,11 +310,25 @@ def probe_bound(stack, cy, src_blocks, out, n_valid, d, bsy, bsx,
     return bound(n_bytes, n_ops)
 
 
-def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad"):
+def live_mask(shape, gen, dev, block_share=0.5, entry_share=0.6):
+    """An `active` mask [J, nblk, K, D] with about block_share *
+    entry_share of its entries live: whole (job, block, candidate) rows are
+    dead (their warps end at once), the rest live entry by entry."""
+    rows = torch.rand(shape[:3] + (1,), generator=gen, device=dev) < block_share
+    return rows & (torch.rand(shape, generator=gen, device=dev) < entry_share)
+
+
+def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad",
+            masked=False, before_ms=None):
     """probe_sads_tiled around a smooth vector field; a twentieth of the
-    candidates is thrown far off its tile so INVALID_SAD is exercised."""
+    candidates is thrown far off its tile so INVALID_SAD is exercised.
+    masked: with an `active` mask that leaves about 30 % of the entries
+    live and whole warps dead.  before_ms: the previous kernel body's time
+    at this shape, as PERF.md records it."""
     stack, cy, cx, src_blocks, bsy, bsx, pit_x = probe_inputs(
         ctx, stacks, gen, plane, kk)
+    active = (live_mask(tuple(cy.shape) + (len(offsets),), gen, stack.device)
+              if masked else None)
     nbx = ctx.nblk[0]
     tile = 8 if kk <= 2 else 4
     geom = probe.tile_params(offsets, bsy, bsx, ctx.pel, tile, pit_x)
@@ -284,19 +340,23 @@ def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad"):
     def run():
         return probe.probe_sads_tiled(stack, cy, cx, src_blocks, offsets,
                                       bsy, bsx, ctx.pel, row_len=nbx,
-                                      pitch_x=pit_x, stats=stats)
+                                      pitch_x=pit_x, stats=stats,
+                                      active=active)
 
-    label += stats_tag(stats)
-    before = read_counts()
+    label += stats_tag(stats) + (" masked" if masked else "")
+    counts0 = read_counts()
     out = run()
     name = "probe_sads_tiled" + ("" if stats == "sad" else "[stats3]")
-    if read_counts()[name] != before[name] + 1:
+    if read_counts()[name] != counts0[name] + 1:
         raise AssertionError(f"{name} {label}: the kernel did not launch")
     want, plain_ms = time_plain(lambda: probe.probe_sads_tiled_plain(
         stack, cy, cx, src_blocks, offsets, bsy, bsx, ctx.pel, nbx, tile,
-        *geom, stats))
+        *geom, stats, active))
     err = compare(f"probe_sads_tiled {label}", out, want)
     sads = out if stats == "sad" else out[..., 0]
+    if masked and not bool((sads[~active] == probe.INVALID_SAD).all()):
+        raise AssertionError(f"probe_sads_tiled {label}: an inactive entry "
+                             "is not INVALID_SAD")
     if stats != "sad" and not torch.equal(
             (out == probe.INVALID_SAD).all(dim=-1),
             (out == probe.INVALID_SAD).any(dim=-1)):
@@ -309,11 +369,19 @@ def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad"):
                              f"valid and invalid candidates ({n_valid}, "
                              f"{n_invalid})")
     ms = time_cuda(run, 10)
-    b_ms, b_by = probe_bound(stack, cy, src_blocks, out, n_valid,
-                             len(offsets), bsy, bsx, stats)
-    return dict(case=label, shape=list(out.shape), invalid=n_invalid,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    # the entries this run's data needs: valid and live
+    n_needed = int((sads != probe.INVALID_SAD).sum())
+    b_ms, b_by = probe_bound(stack, cy, src_blocks, out,
+                             n_needed / len(offsets), len(offsets), bsy, bsx,
+                             stats)
+    res = dict(case=label, shape=list(out.shape), invalid=n_invalid,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    if masked:
+        res["live_share"] = float(active.float().mean())
+    if before_ms is not None:
+        res["before_ms"] = before_ms
+    return res
 
 
 def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad"):
@@ -348,13 +416,14 @@ def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad"):
 def gather_index(stack, cy, cx, bsy, bsx, pel):
     """Broadcast int64 index tensors (job, subplane, row, column) that make
     one advanced-indexing gather stack[index] compute the blocks of the
-    per-block fetch (the full-pel origin clamped as a whole)."""
+    per-block fetch (the full-pel origin taken as a whole, the way a window
+    slice takes it: probe.wrap_clamp)."""
     logp = pel.bit_length() - 1
     nj, _, hp, wp = stack.shape
     dev = stack.device
     sub = ((cx & (pel - 1)) | ((cy & (pel - 1)) << logp)).long()
-    fy = (cy >> logp).clamp(0, hp - bsy).long()
-    fx = (cx >> logp).clamp(0, wp - bsx).long()
+    fy = probe.wrap_clamp(cy >> logp, hp, bsy).long()
+    fx = probe.wrap_clamp(cx >> logp, wp, bsx).long()
     job = torch.arange(nj, device=dev).reshape(nj, 1, 1, 1, 1)
     return (job, sub[..., None, None],
             fy[..., None, None] + torch.arange(bsy, device=dev)[:, None],
@@ -408,8 +477,8 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH):
     lp = 1
     xa = (((pos_x << 1) + mvx) >> sub) + pad_x
     ya = (((pos_y << 1) + mvy) >> sub) + pad_y
-    fx = (xa >> lp).clamp(0, stack.shape[3] - bsx)
-    fy = (ya >> lp).clamp(0, stack.shape[2] - bsy)
+    fx = probe.wrap_clamp(xa >> lp, stack.shape[3], bsx)
+    fy = probe.wrap_clamp(ya >> lp, stack.shape[2], bsy)
     cx = ((fx << lp) | (xa & 1)).reshape(nb, -1, 1).contiguous()
     cy = ((fy << lp) | (ya & 1)).reshape(nb, -1, 1).contiguous()
     want, plain_ms = time_plain(lambda: probe.fetch_blocks_tiled_plain(
@@ -467,10 +536,21 @@ def profile_run(label, fn):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
+
+    def summed(kernel):
+        sel = [r for r in rows if re.search(kernel + r"[<(]", r[0])]
+        return {"ms": sum(r[2] for r in sel),
+                "launches": sum(r[1] for r in sel)}
+
     emit({"phase": "profile", "run": label, "traced_wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_busy_share_of_traced_wall": busy_ms / wall_ms,
           "device_launches": sum(r[1] for r in rows),
+          "kernel_sums": {name: summed(kernel) for name, kernel in (
+              ("sad_map", "sadmap_kernel"),
+              ("probe_sads_tiled", "probe_kernel"),
+              ("sad_map[stats3]", "sadmap_stats3_kernel"),
+              ("probe_sads_tiled[stats3]", "probe_stats3_kernel"))},
           "top_kernels": [{"name": k[:60], "count": c, "ms": ms}
                           for k, c, ms in rows[:12]]})
 
@@ -616,10 +696,14 @@ def yuv_kernel_cases(cfgs, gen, dev):
     k1, k2, k3, k4 = [], [], [], []
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
     for plane in (0, 1):
-        k1.append(k1_case(ctx, stacks, gen, plane))
-        k2.append(k2_case(ctx, stacks, gen, HEXAGON if plane == 0 else grid16,
-                          1, case_label(ctx, plane, " K=1 D=%d"
-                                        % (6 if plane == 0 else 16)), plane))
+        k1.append(k1_case(ctx, stacks, gen, plane,
+                          before_ms=13.096 if plane == 0 else 1.551))
+        offsets = HEXAGON if plane == 0 else grid16
+        label = case_label(ctx, plane, " K=1 D=%d" % len(offsets))
+        k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane,
+                          before_ms=1.080 if plane == 0 else 1.159))
+        k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane,
+                          masked=True))
         k3.append(k3_case(sspec, aspec.meta, sups, gen, plane, frames=n))
     del ctx, stacks
     for lv, plane, sets in ((4, 1, ((grid16, 1), (ring, 1), (((0, 0),), 6))),
@@ -848,6 +932,8 @@ def satd_kernel_cases(gen, dev):
     for offsets, what in ((HEXAGON, "hexagon D=6"), (ring, "ring D=8")):
         k2.append(k2_case(ctx, stacks, gen, offsets, 1,
                           f"level 0 K=1 {what}", stats=STATS3))
+    k2.append(k2_case(ctx, stacks, gen, HEXAGON, 1, "level 0 K=1 hexagon D=6",
+                      stats=STATS3, masked=True))
     del ctx, stacks
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 5)
     for offsets in (HEXAGON, tuple(fe._HEXP), ((0, 0),)):
@@ -1086,6 +1172,61 @@ def check_dct_path(phase, res):
                              f"DCT path {c}")
 
 
+def kernels_vs_plain(dev):
+    """Every kernel against its plain version on the card at the main
+    paths' shapes (tolerance 0); prints the phase and returns the case of
+    each kernel that the kernels line reports."""
+    sspec, aspec, _ = headline_specs(W, H)
+    cfgs = flagship_configs()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    clip = make_test_clip(BATCH + 2 * RADIUS, W, H, seed=1, flash=FLASH,
+                          device=dev)
+    sups = build_super([clip], sspec)
+    src_idx = torch.tensor([c for c in range(1, BATCH + 1) for _ in (0, 1)],
+                           device=dev)
+    ref_idx = torch.tensor([c + s for c in range(1, BATCH + 1)
+                            for s in (1, -1)], device=dev)
+    k1_cases, k2_cases = [], []
+    for lv in range(aspec.meta.lv_count):
+        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
+        k1_cases.append(k1_case(ctx, stacks, gen,
+                                before_ms=GRAY_K1_BEFORE[lv]))
+        k2_cases.append(k2_case(ctx, stacks, gen, HEXAGON, 1,
+                                f"level {lv} K=1 hexagon D=6",
+                                before_ms=GRAY_K2_BEFORE[lv]))
+        if lv == 0:
+            k2_cases.append(k2_case(ctx, stacks, gen, tuple(fe._HEXP), 1,
+                                    "level 0 K=1 walk D=8",
+                                    before_ms=0.477))
+            k2_cases.append(k2_case(ctx, stacks, gen,
+                                    tuple(fe._ring_offsets(1, 1)), 1,
+                                    "level 0 K=1 ring D=8",
+                                    before_ms=0.478))
+            k2_cases.append(k2_case(ctx, stacks, gen, ((0, 0),), 6,
+                                    "level 0 K=6 D=1", before_ms=0.574))
+            k2_cases.append(k2_case(ctx, stacks, gen, ((0, 0),), 6,
+                                    "level 0 K=6 D=1", masked=True))
+        del ctx, stacks
+    k3_cases = [k3_case(sspec, aspec.meta, sups, gen)]
+    del sups, clip
+    torch.cuda.empty_cache()
+    y1, y2, y3, k4_cases = yuv_kernel_cases(cfgs, gen, dev)
+    k1_cases += k1_geometry_cases(gen, dev)
+    s1, s2, s4 = satd_kernel_cases(gen, dev)
+    k5_cases = dct_kernel_cases(gen, dev)
+    cases = {"sad_map": k1_cases + y1, "probe_sads_tiled": k2_cases + y2,
+             "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_cases,
+             "sad_map[stats3]": s1, "probe_sads_tiled[stats3]": s2,
+             "probe_sads[stats3]": s4, "fetch_blocks": k5_cases}
+    emit({"phase": "kernels_vs_plain", "tolerance": 0, **cases})
+    # the cases the kernels line reports: the main paths' shapes
+    return {"sad_map": y1[0], "probe_sads_tiled": y2[0],
+            "fetch_blocks_tiled": y3[0], "probe_sads": k4_cases[0],
+            "sad_map[stats3]": s1[0], "probe_sads_tiled[stats3]": s2[0],
+            "probe_sads[stats3]": s4[0], "fetch_blocks": k5_cases[0]}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1108,46 +1249,12 @@ def main():
                       for n in cuda_build.SOURCES]})
 
     # ---- kernels against their plain versions -----------------------------
-    sspec, aspec, dcfg = headline_specs(W, H)
-    cfgs = flagship_configs()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    clip = make_test_clip(BATCH + 2 * RADIUS, W, H, seed=1, flash=FLASH,
-                          device=dev)
-    sups = build_super([clip], sspec)
-    src_idx = torch.tensor([c for c in range(1, BATCH + 1) for _ in (0, 1)],
-                           device=dev)
-    ref_idx = torch.tensor([c + s for c in range(1, BATCH + 1)
-                            for s in (1, -1)], device=dev)
-    k1_cases, k2_cases = [], []
-    for lv in range(aspec.meta.lv_count):
-        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
-        k1_cases.append(k1_case(ctx, stacks, gen))
-        k2_cases.append(k2_case(ctx, stacks, gen, HEXAGON, 1,
-                                f"level {lv} K=1 hexagon D=6"))
-        if lv == 0:
-            k2_cases.append(k2_case(ctx, stacks, gen, tuple(fe._HEXP), 1,
-                                    "level 0 K=1 walk D=8"))
-            k2_cases.append(k2_case(ctx, stacks, gen,
-                                    tuple(fe._ring_offsets(1, 1)), 1,
-                                    "level 0 K=1 ring D=8"))
-            k2_cases.append(k2_case(ctx, stacks, gen, ((0, 0),), 6,
-                                    "level 0 K=6 D=1"))
-        del ctx, stacks
-    k3_cases = [k3_case(sspec, aspec.meta, sups, gen)]
-    del sups, clip
-    torch.cuda.empty_cache()
-    y1, y2, y3, k4_cases = yuv_kernel_cases(cfgs, gen, dev)
-    s1, s2, s4 = satd_kernel_cases(gen, dev)
-    k5_cases = dct_kernel_cases(gen, dev)
-    emit({"phase": "kernels_vs_plain", "tolerance": 0,
-          "sad_map": k1_cases + y1, "probe_sads_tiled": k2_cases + y2,
-          "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_cases,
-          "sad_map[stats3]": s1, "probe_sads_tiled[stats3]": s2,
-          "probe_sads[stats3]": s4, "fetch_blocks": k5_cases})
+    shown = kernels_vs_plain(dev)
     dct_vs_cpu(dev)
 
     # ---- small end-to-end: card against the same code on the CPU ----------
+    sspec, aspec, dcfg = headline_specs(W, H)
+    cfgs = flagship_configs()
     s_sspec, s_aspec, s_dcfg = headline_specs(SMALL_W, SMALL_H)
     small = make_test_clip(6, SMALL_W, SMALL_H, seed=2, flash=SMALL_FLASH,
                            device="cpu")
@@ -1330,21 +1437,24 @@ def main():
 
     emit({"kernels": [
         entry("sad_map", "mvtools_tpu_torch/csrc/sadmap.cu",
-              "mvtools_tpu/ops/sadmap.py:145", y1[0]),
+              "mvtools_tpu/ops/sadmap.py:145", shown["sad_map"]),
         entry("probe_sads_tiled", "mvtools_tpu_torch/csrc/probe.cu",
-              "mvtools_tpu/ops/probe.py:632", y2[0]),
+              "mvtools_tpu/ops/probe.py:632", shown["probe_sads_tiled"]),
         entry("fetch_blocks_tiled", "mvtools_tpu_torch/csrc/fetch.cu",
-              "mvtools_tpu/ops/probe.py:970", y3[0]),
+              "mvtools_tpu/ops/probe.py:970", shown["fetch_blocks_tiled"]),
         entry("probe_sads", "mvtools_tpu_torch/csrc/probe_block.cu",
-              "mvtools_tpu/ops/probe.py:317", k4_cases[0]),
+              "mvtools_tpu/ops/probe.py:317", shown["probe_sads"]),
         entry("sad_map[stats3]", "mvtools_tpu_torch/csrc/sadmap.cu",
-              "mvtools_tpu/ops/sadmap.py:145", s1[0], "recalc_main_path"),
+              "mvtools_tpu/ops/sadmap.py:145", shown["sad_map[stats3]"],
+              "recalc_main_path"),
         entry("probe_sads_tiled[stats3]", "mvtools_tpu_torch/csrc/probe.cu",
-              "mvtools_tpu/ops/probe.py:632", s2[0], "recalc_main_path"),
+              "mvtools_tpu/ops/probe.py:632",
+              shown["probe_sads_tiled[stats3]"], "recalc_main_path"),
         entry("probe_sads[stats3]", "mvtools_tpu_torch/csrc/probe_block.cu",
-              "mvtools_tpu/ops/probe.py:317", s4[0], "satd_analyse_path"),
+              "mvtools_tpu/ops/probe.py:317", shown["probe_sads[stats3]"],
+              "satd_analyse_path"),
         entry("fetch_blocks", "mvtools_tpu_torch/csrc/fetch.cu",
-              "mvtools_tpu/ops/probe.py:899", k5_cases[0],
+              "mvtools_tpu/ops/probe.py:899", shown["fetch_blocks"],
               "dct_analyse_path")]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi.splitlines()[0], flush=True)

@@ -16,11 +16,13 @@
 //   stay exact for every block; here every block reads its own patch and L2
 //   serves the overlap, so the result is exact by construction.  Its callers
 //   (Degrain, the DCT map rows) keep every block inside the plane.
-// * K5 (mvt_fetch_blocks): the full-pel origin is clamped AS A WHOLE to
-//   [0, hp - bs_y] x [0, wp - bs_x], what the JAX package's window slice
-//   does with an out-of-range start, so every block is a window of the
-//   plane.  It serves the DCT costs' candidate blocks (dct 1-4) and the
-//   stacks under the tiled fetch's window.
+// * K5 (mvt_fetch_blocks): the full-pel origin is taken AS A WHOLE the way
+//   the JAX package's window slice (and its Pallas kernel, run in interpret
+//   mode) takes an out-of-range start: a negative start wraps once round
+//   the plane, then it is clamped to [0, hp - bs_y] x [0, wp - bs_x], so
+//   every block is a window of the plane.  It serves the DCT costs'
+//   candidate blocks (dct 1-4) and the stacks under the tiled fetch's
+//   window.
 //
 // Bound on this card: bytes (a bs_y x bs_x block read, four times that
 // written per candidate; no arithmetic).  K3: one thread per output element
@@ -74,6 +76,8 @@ __global__ void fetch_block_kernel(const uint8_t* __restrict__ stack,
     const int pelm = (1 << logp) - 1;
     const int sub = (cx & pelm) | ((cy & pelm) << logp);
     int fy = cy >> logp, fx = cx >> logp;
+    fy += fy < 0 ? hp : 0;                 // a window slice's start
+    fx += fx < 0 ? wp : 0;
     fy = fy < 0 ? 0 : (fy > hp - bs_y ? hp - bs_y : fy);
     fx = fx < 0 ? 0 : (fx > wp - bs_x ? wp - bs_x : fx);
     const uint8_t* src =

@@ -21,12 +21,13 @@
 // place inside the window:
 //
 //   wb_y = (cand_y + min_dy) >> logp
-//   oy   = clamp(wb_y, 0, hp - wy) + ((ay >> logp) - wb_y)        (x alike)
+//   oy   = clamp(wrap(wb_y), 0, hp - wy) + ((ay >> logp) - wb_y)  (x alike)
 //
-// Pixels are not clamped one by one.  The search bounds keep every candidate
-// of the motion search inside the padded stack, where the shift is zero.  (A
-// window start left of or above the stack clamps to 0 here; the JAX slice
-// this was derived from wraps such a start round to the far edge.)
+// where wrap adds hp to a negative start: the JAX package's window slice,
+// and its Pallas kernel run in interpret mode, take a start left of or
+// above the stack round to the far edge.  Pixels are not clamped one by
+// one.  The search bounds keep every candidate of the motion search inside
+// the padded stack, where the shift is zero.
 //
 // Bound on this card: bytes for a handful of offsets, operations for a large
 // offset set (bs_y*bs_x abs-diff accumulates per output).  This kernel serves
@@ -62,6 +63,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// A window slice's start: a negative start wraps once round the axis, then
+// the n-long window is clamped inside it.
+__device__ __forceinline__ int window_start(int start, int size, int n) {
+    return clampi(start < 0 ? start + size : start, 0, size - n);
+}
+
 __global__ void probe_block_kernel(const uint8_t* __restrict__ stack,
                                    const int* __restrict__ cand_y,
                                    const int* __restrict__ cand_x,
@@ -79,8 +86,8 @@ __global__ void probe_block_kernel(const uint8_t* __restrict__ stack,
     const int cy = cand_y[w], cx = cand_x[w];
     const int wb_y = (cy + p.min_dy) >> p.logp;
     const int wb_x = (cx + p.min_dx) >> p.logp;
-    const int shift_y = clampi(wb_y, 0, p.hp - p.wy) - wb_y;
-    const int shift_x = clampi(wb_x, 0, p.wp - p.wx) - wb_x;
+    const int shift_y = window_start(wb_y, p.hp, p.wy) - wb_y;
+    const int shift_x = window_start(wb_x, p.wp, p.wx) - wb_x;
 
     const int pelm = (1 << p.logp) - 1;
     const size_t plane = (size_t)p.hp * p.wp;
@@ -123,8 +130,8 @@ __global__ void probe_block_stats3_kernel(
     const int cy = cand_y[w], cx = cand_x[w];
     const int wb_y = (cy + p.min_dy) >> p.logp;
     const int wb_x = (cx + p.min_dx) >> p.logp;
-    const int shift_y = clampi(wb_y, 0, p.hp - p.wy) - wb_y;
-    const int shift_x = clampi(wb_x, 0, p.wp - p.wx) - wb_x;
+    const int shift_y = window_start(wb_y, p.hp, p.wy) - wb_y;
+    const int shift_x = window_start(wb_x, p.wp, p.wx) - wb_x;
 
     const int pelm = (1 << p.logp) - 1;
     const size_t plane = (size_t)p.hp * p.wp;

@@ -77,17 +77,19 @@ def gather_blocks(plane_stack: torch.Tensor, block_x, block_y, mv_x, mv_y,
     Matches useBlock's mvpGetPointer addressing (MVDegrains.h:192-206):
     blx = (block_pos << log_pel) + mv, shifted arithmetically for chroma.
     The subplane comes from the
-    position's own parity; a full-pel origin outside the plane is clamped
-    so the whole patch stays inside it (what a window slice does with an
-    out-of-range start).  pitch_fp: full-pel distance between consecutive
-    blocks of a grid row of block_x [nby, nbx], for the tiled fetch."""
+    position's own parity; a full-pel origin outside the plane is taken
+    the way a window slice takes an out-of-range start (probe.wrap_clamp:
+    a negative start wraps once round the plane, then the whole patch is
+    clamped inside it), as the JAX package's CPU path does.  pitch_fp:
+    full-pel distance between consecutive blocks of a grid row of block_x
+    [nby, nbx], for the tiled fetch."""
     nb, n_sub, ph, pw = plane_stack.shape
     lp = max(int(round(n_sub ** 0.5)).bit_length() - 1, 0)
     m = (1 << lp) - 1
     xa = (((block_x << log_pel) + mv_x) >> sub_x) + pad_x_pel
     ya = (((block_y << log_pel) + mv_y) >> sub_y) + pad_y_pel
-    fx = (xa >> lp).clamp(0, pw - bsx)
-    fy = (ya >> lp).clamp(0, ph - bsy)
+    fx = probe_ops.wrap_clamp(xa >> lp, pw, bsx)
+    fy = probe_ops.wrap_clamp(ya >> lp, ph, bsy)
     cx = ((fx << lp) | (xa & m)).reshape(nb, -1, 1).contiguous()
     cy = ((fy << lp) | (ya & m)).reshape(nb, -1, 1).contiguous()
     flat = probe_ops.fetch_blocks_tiled(

@@ -233,15 +233,18 @@ class FieldProber:
     # -- raw SAD evaluation -------------------------------------------------
 
     def _probe(self, stack, cy, cx, src, offsets, bs_y, bs_x, pitch,
-               stats="sad"):
+               stats="sad", active=None):
         """[J, nblk, K, D] int32 through the tiled probe ([..., 3] stat
         triples with stats="sad_satd_luma"); a candidate outside its
         tile's window reports INVALID_SAD and loses every cost comparison
-        (the dense zero trial guarantees a real bound).  A plane too small
-        for the tile window takes the per-block probe instead."""
+        (the dense zero trial guarantees a real bound), and so does an
+        entry that `active` ([J, nblk, K, D] bool, None: all) leaves out.
+        A plane too small for the tile window takes the per-block probe
+        instead."""
         return probe_ops.probe_sads_tiled(
             stack, cy.contiguous(), cx.contiguous(), src, offsets, bs_y,
-            bs_x, self.pel, row_len=self.nbx, pitch_x=pitch, stats=stats)
+            bs_x, self.pel, row_len=self.nbx, pitch_x=pitch, stats=stats,
+            active=active)
 
     def _mix(self, stats3):
         """[J, nblk, ..., 3] (SAD, SATD, reference sum) -> the mixed luma
@@ -283,10 +286,12 @@ class FieldProber:
                             dct_ref, src_luma, ref_luma,
                             self.dctweight16.reshape(-1, 1, 1), self.bs[0])
 
-    def _luma_probe(self, cy, cx, offsets):
+    def _luma_probe(self, cy, cx, offsets, active=None):
         """[J, nblk, K, D] int64 luma costs at padded pel positions: plain
         SAD, the DCT mix for dct 1-4 (from fetched blocks) or the SATD mix
-        for dct 5-10."""
+        for dct 5-10.  `active` ([J, nblk, K, D] bool) lets the probes skip
+        the entries the caller discards (they report INVALID_SAD); the DCT
+        costs ignore it."""
         if 1 <= self.dctmode <= 4:
             ox, oy = _offset_tensors(offsets, cy.device)
             ccy = (cy[..., None] + oy).flatten(2)
@@ -296,9 +301,11 @@ class FieldProber:
         if self.dctmode:
             return self._mix(self._probe(
                 self.stack, cy, cx, self.src_blocks, offsets, self.bs[1],
-                self.bs[0], self.pitch_x, stats="sad_satd_luma"))
+                self.bs[0], self.pitch_x, stats="sad_satd_luma",
+                active=active))
         return self._probe(self.stack, cy, cx, self.src_blocks, offsets,
-                           self.bs[1], self.bs[0], self.pitch_x).to(I64)
+                           self.bs[1], self.bs[0], self.pitch_x,
+                           active=active).to(I64)
 
     def _cpos(self, v, log_ratio: int):
         """Chroma coordinate of a luma pel vector: division by the
@@ -306,32 +313,38 @@ class FieldProber:
         rounding of pobGetRefBlockU/V, PlaneOfBlocks.cpp:57-77)."""
         return (v + (v < 0).to(I32) * ((1 << log_ratio) - 1)) >> log_ratio
 
-    def luma_sads(self, vx, vy, offsets=((0, 0),)):
+    def luma_sads(self, vx, vy, offsets=((0, 0),), active=None):
         """[J, nblk, D] int64 luma costs at per-block candidates (vx, vy) +
         static pel offsets (plain SAD, the DCT mix for dct 1-4 or the SATD
-        mix for dct 5-10)."""
+        mix for dct 5-10); an entry that `active` ([J, nblk, D] bool, None:
+        all) leaves out may report INVALID_SAD instead."""
         cy = (self.base_y + vy)[..., None]
         cx = (self.base_x + vx)[..., None]
-        return self._luma_probe(cy, cx, offsets)[:, :, 0, :]
+        act = None if active is None else active[:, :, None, :]
+        return self._luma_probe(cy, cx, offsets, act)[:, :, 0, :]
 
-    def _chroma_probe(self, cy, cx, offsets):
+    def _chroma_probe(self, cy, cx, offsets, active=None):
         """U + V SADs [J, nblk, K, D] int64 at chroma pel positions."""
         su = self._probe(self.stack_u, cy, cx, self.src_u_blocks, offsets,
-                         self.bsc[1], self.bsc[0], self.pitch_xc)
+                         self.bsc[1], self.bsc[0], self.pitch_xc,
+                         active=active)
         sv = self._probe(self.stack_v, cy, cx, self.src_v_blocks, offsets,
-                         self.bsc[1], self.bsc[0], self.pitch_xc)
+                         self.bsc[1], self.bsc[0], self.pitch_xc,
+                         active=active)
         return _sat_add(su, sv)
 
-    def chroma_sads(self, vx, vy, offsets=((0, 0),)):
+    def chroma_sads(self, vx, vy, offsets=((0, 0),), active=None):
         """[J, nblk, D] int64 chroma SADs (U + V) at the chroma positions
-        of the luma candidates.
+        of the luma candidates; an entry that `active` ([J, nblk, D] bool,
+        None: all) leaves out may report a sentinel instead.
 
         Multi-offset sets share ONE probe per plane: the chroma displacement
         of a luma offset is one of a small static delta grid (the truncating
         division can land on either of two chroma-pel cells depending on the
         candidate's parity and sign), so the whole grid is probed around the
         candidate's own chroma position and the exact column is selected per
-        (block, offset) afterwards."""
+        (block, offset) afterwards; with `active` a block's whole grid is
+        probed when any of its entries is live, and skipped otherwise."""
         if not self.chroma:
             return torch.zeros(vx.shape + (len(offsets),), dtype=I64,
                                device=vx.device)
@@ -341,8 +354,9 @@ class FieldProber:
             dx, dy = offsets[0]
             cx = self.cbase_x + self._cpos(vx + dx, logx)
             cy = self.cbase_y + self._cpos(vy + dy, logy)
+            act = None if active is None else active[:, :, None, :]
             return self._chroma_probe(cy[..., None], cx[..., None],
-                                      ((0, 0),))[:, :, :, 0]
+                                      ((0, 0),), act)[:, :, :, 0]
         xs = [o[0] for o in offsets]
         ys = [o[1] for o in offsets]
         gx0, gx1 = (min(xs) - rx) >> logx, ((max(xs) + rx) >> logx) + 1
@@ -351,9 +365,11 @@ class FieldProber:
                      for ddx in range(gx0, gx1))
         base_dx = self._cpos(vx, logx)
         base_dy = self._cpos(vy, logy)
+        act = (None if active is None
+               else active.any(dim=-1)[:, :, None, None])
         tot = self._chroma_probe((self.cbase_y + base_dy)[..., None],
                                  (self.cbase_x + base_dx)[..., None],
-                                 grid)[:, :, 0, :]          # [J, nblk, |grid|]
+                                 grid, act)[:, :, 0, :]     # [J, nblk, |grid|]
         ox, oy = _offset_tensors(offsets, vx.device)
         ddx = self._cpos(vx[..., None] + ox, logx) - base_dx[..., None] - gx0
         ddy = self._cpos(vy[..., None] + oy, logy) - base_dy[..., None] - gy0
@@ -370,13 +386,24 @@ class FieldProber:
         """Evaluate per-block candidates x static offsets, enumerated
         offset-major in order; the first candidate reaching the minimum
         wins if it improves on st["mincost"] (pobCheckMV
-        PlaneOfBlocks.cpp:219-261)."""
+        PlaneOfBlocks.cpp:219-261).
+
+        extra_mask ([J, nblk, 1] or [J, nblk, D] bool) is handed to the
+        probes as their `active` argument, so the card skips the entries it
+        leaves out.  That changes no result: _update gives every entry
+        outside the mask the cost _INF, whatever its SAD, so a skipped
+        entry never reaches the minimum, and the SAD, vector and direction
+        it would carry are never picked; the entries inside the mask get
+        the same SADs as without it."""
         dxmin, dxmax, dymin, dymax = self.bounds
         offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
         cvx = torch.minimum(torch.maximum(cand_x, dxmin), dxmax - 1)
         cvy = torch.minimum(torch.maximum(cand_y, dymin), dymax - 1)
-        ls = self.luma_sads(cvx, cvy, offsets)          # [J, nblk, D]
-        cs = self.chroma_sads(cvx, cvy, offsets) if self.chroma else None
+        act = (None if extra_mask is None else torch.broadcast_to(
+            extra_mask, cvx.shape + (len(offsets),)))
+        ls = self.luma_sads(cvx, cvy, offsets, act)     # [J, nblk, D]
+        cs = (self.chroma_sads(cvx, cvy, offsets, act) if self.chroma
+              else None)
         ox, oy = _offset_tensors(offsets, cand_x.device)
         vx = cand_x[..., None] + ox
         vy = cand_y[..., None] + oy
@@ -715,13 +742,14 @@ class MapProber(FieldProber):
             self._cpos(vy, logy) - self._avc_y[..., None] + self._rc_y,
             self._cpos(vx, logx) - self._avc_x[..., None] + self._rc_x)
 
-    def luma_sads(self, vx, vy, offsets=((0, 0),)):
+    def luma_sads(self, vx, vy, offsets=((0, 0),), active=None):
         """[J, nblk, D] int64 map values at (vx + dx, vy + dy);
-        INVALID_SAD outside the grid."""
+        INVALID_SAD outside the grid.  A lookup costs the same for every
+        entry, so `active` is ignored."""
         ox, oy = _offset_tensors(offsets, vx.device)
         return self._luma_at(vx[..., None] + ox, vy[..., None] + oy)
 
-    def chroma_sads(self, vx, vy, offsets=((0, 0),)):
+    def chroma_sads(self, vx, vy, offsets=((0, 0),), active=None):
         if not self.chroma:
             return torch.zeros(vx.shape + (len(offsets),), dtype=I64,
                                device=vx.device)

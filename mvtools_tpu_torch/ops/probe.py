@@ -20,8 +20,9 @@ PyTorch version beside it:
   outside the plane are clamped one by one.  A stack smaller than the tile
   window goes to fetch_blocks instead.
 * fetch_blocks — the same, one window per (block, candidate), with the
-  full-pel origin clamped as a whole into the plane.  It serves the DCT
-  costs (dct 1-4), whose candidates are DCT-transformed after the fetch.
+  full-pel origin taken into the plane as a whole, the way a window slice
+  takes it (wrap_clamp).  It serves the DCT costs (dct 1-4), whose
+  candidates are DCT-transformed after the fetch.
 
 Both probes also come in a three-stat form (stats="sad_satd_luma"): every
 entry is the triple (SAD, SATD, sum of the reference block) that the SATD
@@ -166,6 +167,16 @@ def _block_costs(ref, src, stats3: bool):
                         ref.sum(dim=(-2, -1))), dim=-1)
 
 
+def wrap_clamp(start, size: int, n: int):
+    """The start of an n-long window of a size-long axis the way a JAX
+    window slice (lax.dynamic_slice) takes it, and so the JAX package's
+    CPU paths and its Pallas kernels run in interpret mode: a negative
+    start wraps once round the axis, then the window is clamped inside it.
+    The search keeps every window inside the padded stack, where this is
+    the start itself."""
+    return torch.where(start < 0, start + size, start).clamp(0, size - n)
+
+
 def _gather_at(stack, sub, fy, fx, bs_y: int, bs_x: int):
     """int32 [..., bs_y, bs_x] patches of stack [J, n_sub, H, W] from
     subplane `sub` at full-pel origin (fy, fx), all [J, ...]; rows/columns
@@ -198,8 +209,8 @@ def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     """Plain PyTorch version of the per-block probe (same contract as the
     kernel, either form).  Out-of-range rule: the window of the whole offset set is
     shifted as a whole into the plane and each offset's block keeps its
-    place inside it — what a clamped window slice followed by an in-window
-    slice does."""
+    place inside it — what a window slice (wrap_clamp) followed by an
+    in-window slice does."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
@@ -210,8 +221,8 @@ def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     hp, wp = stack.shape[-2:]
     wb_y = (cand_y + min_dy) >> logp
     wb_x = (cand_x + min_dx) >> logp
-    shift_y = wb_y.clamp(0, hp - wy) - wb_y
-    shift_x = wb_x.clamp(0, wp - wx) - wb_x
+    shift_y = wrap_clamp(wb_y, hp, wy) - wb_y
+    shift_x = wrap_clamp(wb_x, wp, wx) - wb_x
     src = src_blocks.to(I32)[:, :, None]                    # [J, nblk, 1, ..]
     cols = []
     for dx, dy in offsets:
@@ -302,11 +313,11 @@ def probe_sads_tiled_plain(stack, cand_y, cand_x, src_blocks, offsets,
                            bs_y: int, bs_x: int, pel: int, row_len: int,
                            tile: int, wy_total: int, wx_total: int,
                            center_y: int, center_x: int,
-                           stats: str = "sad") -> torch.Tensor:
+                           stats: str = "sad", active=None) -> torch.Tensor:
     """Plain PyTorch version of the tiled probe (same contract as the
     kernel, either form): per-candidate SADs (or stat triples) where the
-    candidate window fits its tile's extent, INVALID_SAD (in all three)
-    elsewhere."""
+    candidate window fits its tile's extent and the entry is active,
+    INVALID_SAD (in all three) elsewhere."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
@@ -343,15 +354,36 @@ def probe_sads_tiled_plain(stack, cand_y, cand_x, src_blocks, offsets,
                                    bs_x, logp)
         cols.append(_block_costs(ref, src, stats3))
     out = torch.stack(cols, dim=3)
-    valid = valid.reshape(valid.shape + (1,) * (out.ndim - 3))
-    return torch.where(valid, out, INVALID_SAD).to(I32)
+    keep = valid[..., None]
+    if active is not None:
+        keep = keep & active
+    return _invalid_where(keep, out)
+
+
+def _invalid_where(keep, out):
+    """out with INVALID_SAD (in all three stats) where keep [J, nblk, K, D]
+    is False."""
+    keep = keep.reshape(keep.shape + (1,) * (out.ndim - keep.ndim))
+    return torch.where(keep, out, INVALID_SAD).to(I32)
+
+
+def _active_mask(active, shape, device):
+    """A contiguous bool [J, nblk, K, D] copy of an `active` argument
+    (anything that broadcasts to it), or None for "all"."""
+    if active is None:
+        return None
+    if active.dtype != torch.bool:
+        raise ValueError(f"active: need a bool tensor, got {active.dtype}")
+    if active.device != device:
+        raise ValueError(f"active: on {active.device}, expected {device}")
+    return torch.broadcast_to(active, shape).contiguous()
 
 
 def _probe_lib(stats3: bool):
     lib = cuda_build.load("probe")
     fn = lib.mvt_probe_sads_tiled_stats3 if stats3 else lib.mvt_probe_sads_tiled
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 20 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -360,7 +392,8 @@ def _probe_lib(stats3: bool):
 def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
                      bs_y: int, bs_x: int, pel: int, row_len: int,
                      pitch_x: int, tile: int = 0, margin_y: int = 20,
-                     margin_x: int = 64, stats: str = "sad") -> torch.Tensor:
+                     margin_x: int = 64, stats: str = "sad",
+                     active=None) -> torch.Tensor:
     """[J, nblk, K, D] int32 SADs over a [nrows, row_len] block grid; with
     stats="sad_satd_luma" [J, nblk, K, D, 3] triples (SAD, SATD, sum of the
     reference block), an off-tile candidate reporting INVALID_SAD in all
@@ -369,12 +402,16 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
     [J, nblk, K] int32 candidate pel positions (see module doc);
     src_blocks: [J, nblk, bs_y, bs_x] uint8; offsets: static [(dx, dy), ...]
-    pel offsets evaluated per candidate.  Block rows are treated as
-    edge-padded to a multiple of `tile` (the kernel clamps member indices
+    pel offsets evaluated per candidate; active: optional bool tensor that
+    broadcasts to [J, nblk, K, D] (None: all): an inactive entry reads
+    nothing and reports INVALID_SAD (in all three).  Block rows are treated
+    as edge-padded to a multiple of `tile` (the kernel clamps member indices
     instead of materialising the padding).  A plane smaller than the tile
-    window is served by probe_sads: every candidate is then valid."""
+    window is served by probe_sads: every candidate is then valid, and the
+    mask is applied to its output."""
     offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
     nj, nblk, kk = cand_y.shape
+    active = _active_mask(active, (nj, nblk, kk, len(offsets)), stack.device)
     if tile <= 0:
         tile = 8 if kk <= 2 else 4
     wy_total, wx_total, center_y, center_x = tile_params(
@@ -382,26 +419,34 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
         margin_y=margin_y, margin_x=margin_x)
     if (stack.shape[-2] < wy_total or stack.shape[-1] < wx_total
             or nblk % row_len != 0):
-        return probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y,
-                          bs_x, pel, stats)
+        if active is None:
+            return probe_sads(stack, cand_y, cand_x, src_blocks, offsets,
+                              bs_y, bs_x, pel, stats)
+        return _invalid_where(active, probe_sads(
+            stack, cand_y, cand_x, src_blocks, offsets, bs_y, bs_x, pel,
+            stats))
     stats3 = _check_stats("probe_sads_tiled", stats, stack)
     _check_probe_args("probe_sads_tiled", stack, cand_y, cand_x, src_blocks,
                       bs_y, bs_x, pel, stats3)
     if not stack.is_cuda:
         return probe_sads_tiled_plain(
             stack, cand_y, cand_x, src_blocks, offsets, bs_y, bs_x, pel,
-            row_len, tile, wy_total, wx_total, center_y, center_x, stats)
+            row_len, tile, wy_total, wx_total, center_y, center_x, stats,
+            active)
 
     dev = stack.device
     min_dx, min_dy, wy, _, _, cxs = _tile_geom(offsets, bs_y, bs_x, pel)
     offs = _offsets_tensor(offsets, dev)
+    if src_blocks.data_ptr() % 4:
+        src_blocks = src_blocks.clone()     # the kernel reads 32-bit words
     name = "probe_sads_tiled[stats3]" if stats3 else "probe_sads_tiled"
     out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
                       dtype=I32, device=dev)
     with torch.cuda.device(dev):
         err = _probe_lib(stats3)(
             stack.data_ptr(), cand_y.data_ptr(), cand_x.data_ptr(),
-            src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
+            src_blocks.data_ptr(), offs.data_ptr(),
+            0 if active is None else active.data_ptr(), out.data_ptr(),
             nj, pel * pel, stack.shape[2], stack.shape[3], nblk, row_len,
             kk, len(offsets), tile, bs_y, bs_x, pel.bit_length() - 1,
             min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x,
@@ -494,9 +539,9 @@ def fetch_blocks_tiled(stack, cand_y, cand_x, bs_y: int, bs_x: int,
 def fetch_blocks_plain(stack, cand_y, cand_x, bs_y: int,
                        bs_x: int, pel: int) -> torch.Tensor:
     """Plain PyTorch version of the per-block fetch (same contract as the
-    kernel): the full-pel origin is clamped AS A WHOLE to
-    [0, Hp - bs_y] x [0, Wp - bs_x], what a window slice does with an
-    out-of-range start, so a block is always a bs_y x bs_x window of the
+    kernel): the full-pel origin is taken AS A WHOLE the way a window slice
+    takes an out-of-range start (wrap_clamp: into [0, Hp - bs_y] x
+    [0, Wp - bs_x]), so a block is always a bs_y x bs_x window of the
     plane."""
     global plain_calls_on_cuda
     if stack.is_cuda:
@@ -505,8 +550,8 @@ def fetch_blocks_plain(stack, cand_y, cand_x, bs_y: int,
     pelm = pel - 1
     hp, wp = stack.shape[-2:]
     sub = (cand_x & pelm) | ((cand_y & pelm) << logp)
-    return _gather_at(stack, sub, (cand_y >> logp).clamp(0, hp - bs_y),
-                      (cand_x >> logp).clamp(0, wp - bs_x), bs_y, bs_x)
+    return _gather_at(stack, sub, wrap_clamp(cand_y >> logp, hp, bs_y),
+                      wrap_clamp(cand_x >> logp, wp, bs_x), bs_y, bs_x)
 
 
 def fetch_blocks(stack, cand_y, cand_x, bs_y: int, bs_x: int,
@@ -517,8 +562,8 @@ def fetch_blocks(stack, cand_y, cand_x, bs_y: int, bs_x: int,
     stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
     [J, nblk, K] int32 candidate pel positions of the block origin (see
     module doc).  Subplane (cx & (pel-1)) | ((cy & (pel-1)) << logp); the
-    full-pel origin is clamped as a whole into the plane.  The kernel serves
-    every call on CUDA tensors, however few the blocks."""
+    full-pel origin is taken into the plane as a whole (wrap_clamp).  The
+    kernel serves every call on CUDA tensors, however few the blocks."""
     if stack.shape[-2] < bs_y or stack.shape[-1] < bs_x:
         raise ValueError("fetch_blocks: the plane is smaller than a block")
     if not stack.is_cuda:

@@ -149,11 +149,85 @@ def _check_stats(stats: str, stack, pitch_x: int, bs_y: int,
     return True
 
 
+# The plain map kernel's limits on this card: threads per CTA (its
+# __launch_bounds__) and shared memory a CTA may use (227 KB).
+MAP_MAX_THREADS = 512
+SMEM_LIMIT = 232448
+# template instantiations of csrc/sadmap.cu::sadmap_kernel: source words a
+# row step holds, and column accumulators a thread owns
+MAP_NWS = (1, 2, 4, 8)
+MAP_NOX = (6, 9, 16)
+
+
+def _parity_first(r: int, q: int, pelm: int) -> int:
+    """First offset d >= -r of pel parity q (the kernel's parity_first)."""
+    return -r + ((q + r) & pelm)
+
+
+def _parity_count(r: int, q: int, pel: int) -> int:
+    """Offsets of pel parity q in [-r, r]."""
+    d0 = _parity_first(r, q, pel - 1)
+    return max(0, ((r - d0) >> (pel.bit_length() - 1)) + 1)
+
+
+def map_launch_geom(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
+                    tile: int, pitch_x: int) -> dict:
+    """Launch geometry of the plain map kernel for one map shape: the
+    template choice, the work split and the shared-memory layout.
+
+    A thread owns one (block, subplane, full-pel row) and `nox` full-pel
+    columns of that grid row (n_chunk chunks cover the row); the CTA stages
+    the [pel^2, wy, ref_pitch] reference window, each block's source rows
+    ([tile, src_stride] bytes, word-aligned) and the tile's int32 results.
+    ref_pitch covers the last word any thread reads (its column start, the
+    block row's words and the funnel shift's spill); the two strides are odd
+    word counts, so the threads of a warp, which differ in their block, hit
+    different shared-memory banks."""
+    if pel not in (1, 2):
+        raise ValueError("map_launch_geom: pel must be 1 or 2")
+    logp = pel.bit_length() - 1
+    wpr = -(-bs_x // 4)
+    nws = next(n for n in reversed(MAP_NWS) if wpr % n == 0)
+    if bs_x % 4:
+        nws = 1
+    nox_max = max(_parity_count(r_x, q, pel) for q in range(pel))
+    nox = next((n for n in MAP_NOX if n >= nox_max), MAP_NOX[-1])
+    n_chunk = -(-nox_max // nox)
+    n_rows = pel * sum(_parity_count(r_y, q, pel) for q in range(pel))
+    items = tile * n_rows * n_chunk
+    passes = -(-items // MAP_MAX_THREADS)
+    threads = -(-(-(-items // passes)) // 32) * 32
+    min_oy, min_ox = (-r_y) >> logp, (-r_x) >> logp
+    wy = bs_y + (r_y >> logp) - min_oy
+    col_off = max((_parity_first(r_x, q, pel - 1) >> logp) - min_ox
+                  for q in range(pel))
+    last = ((tile - 1) * pitch_x + col_off + (n_chunk - 1) * nox
+            + 4 * wpr + nox + 2)
+    ref_pitch = -(-last // 4) * 4
+    if (ref_pitch // 4) % 2 == 0:
+        ref_pitch += 4
+    src_stride = bs_y * wpr * 4
+    if (src_stride // 4) % 2 == 0:
+        src_stride += 4
+    src_off = pel * pel * wy * ref_pitch
+    out_off = src_off + tile * src_stride
+    smem = out_off + tile * (2 * r_y + 1) * (2 * r_x + 1) * 4
+    return dict(threads=threads, smem=smem, ref_pitch=ref_pitch,
+                src_stride=src_stride, src_off=src_off, out_off=out_off,
+                nws=nws, nox=nox, n_chunk=n_chunk, n_rows=n_rows, wy=wy,
+                items=items)
+
+
+_GEOM_ARGS = ("threads", "smem", "ref_pitch", "src_stride", "src_off",
+              "out_off", "nws", "nox", "n_chunk", "n_rows")
+
+
 def _lib(stats3: bool):
     lib = cuda_build.load("sadmap")
     fn = lib.mvt_sad_map_stats3 if stats3 else lib.mvt_sad_map
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 \
+        n_int = 18 + (0 if stats3 else len(_GEOM_ARGS))
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -189,6 +263,11 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
             or tuple(anchor_fx.shape) != (nj, ntile)):
         raise ValueError("sad_map: inconsistent shapes")
     name = "sad_map[stats3]" if stats3 else "sad_map"
+    if stats3:
+        geom = ()
+    else:
+        g = map_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x)
+        geom = tuple(g[k] for k in _GEOM_ARGS)
     out = torch.empty((nj, nby * nbx, 2 * r_y + 1, 2 * r_x + 1)
                       + ((3,) if stats3 else ()), dtype=I32, device=dev)
     with torch.cuda.device(dev):
@@ -197,7 +276,7 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
             anchor_fx.data_ptr(), out.data_ptr(), nj, pel * pel,
             stack.shape[2], stack.shape[3], src_plane.shape[1],
             src_plane.shape[2], nbx, nby, tile, pitch_x, pitch_y, bs_y, bs_x,
-            src_y0, src_x0, r_y, r_x, pel.bit_length() - 1,
+            src_y0, src_x0, r_y, r_x, pel.bit_length() - 1, *geom,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, name)
     launches[name] += 1

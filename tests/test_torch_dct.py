@@ -391,3 +391,34 @@ def _gray_specs(**kw):
     sspec = port_config.SuperConfig(pel=2, levels=2, chroma=False).validate(fmt)
     return sspec, port_config.AnalyseConfig(blksize=16, levels=2, chroma=False,
                                             **kw).validate(sspec)
+
+
+def test_fetch_and_probe_before_the_stack_match_pallas(monkeypatch):
+    """Origins and windows that start left of or above the stack: the
+    port's per-block fetch (K5) and per-block probe (K4) take such a start
+    the way the JAX package's Pallas kernels do when run in interpret mode,
+    and the way its CPU path's window slice does: a negative start wraps
+    once round the plane, then the window is clamped inside it."""
+    pel = 2
+    from jax.experimental import pallas as pl
+    orig = pl.pallas_call
+    monkeypatch.setattr(jax_probe.pl, "pallas_call",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    rng = np.random.default_rng(45)
+    stack, cy, cx = _fetch_inputs(rng, pel, nj=1, nblk=6, kk=1)
+    cy[0, :, 0] = np.array([-2, -5, -17, 40, -1, 60], np.int32)
+    cx[0, :, 0] = np.array([40, -3, -17, -6, -1, -19], np.int32)
+    st, y, x = (torch.from_numpy(a) for a in (stack, cy, cx))
+    got = probe_ops.fetch_blocks(st, y, x, 16, 16, pel)[0].numpy()
+    want = np.asarray(jax_probe.fetch_blocks_pallas(
+        jnp.asarray(stack[0]), jnp.asarray(cy[0]), jnp.asarray(cx[0]), 16,
+        16, pel, chunk=2))
+    np.testing.assert_array_equal(got, want)
+    offsets = ((0, 0), (1, -2), (-2, 3))
+    src = rng.integers(0, 256, (1, 6, 16, 16), np.uint8)
+    got = probe_ops.probe_sads(st, y, x, torch.from_numpy(src), offsets, 16,
+                               16, pel)[0].numpy()
+    want = np.asarray(jax_probe.probe_sads_pallas(
+        jnp.asarray(stack[0]), jnp.asarray(cy[0]), jnp.asarray(cx[0]),
+        jnp.asarray(src[0].astype(np.int32)), offsets, 16, 16, pel, chunk=2))
+    np.testing.assert_array_equal(got, want)

@@ -27,6 +27,8 @@ from mvtools_tpu.ops import probe as jax_probe
 from mvtools_tpu_torch import degrain as port_degrain
 from mvtools_tpu_torch.ops import probe as probe_ops
 
+import torch_port_reference as tpr
+
 HEXAGON = ((-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2))
 RING = ((0, -1), (0, 1), (-1, 0), (1, 0), (-1, -1), (-1, 1), (1, -1), (1, 1))
 
@@ -144,12 +146,14 @@ def test_gather_blocks_matches_jax(pel):
 
 @pytest.mark.parametrize("pel", [1, 2])
 def test_gather_blocks_clamps_past_the_top_left_edge(pel):
-    """A vector pointing past the TOP/LEFT edge: the port clamps the
-    full-pel origin to 0 and keeps the position's own subplane.  (The JAX
-    package's CPU path is no reference here: its window slice wraps a
-    negative start around the plane before clamping, and its TPU path
-    clamps the pel position instead.  The search never emits such
-    vectors — its bounds keep every block inside the padded plane.)"""
+    """A vector pointing past the TOP/LEFT edge: the port takes the
+    full-pel origin the way the JAX package's CPU path (a window slice)
+    takes it, and so does the JAX package's Pallas fetch kernel run in
+    interpret mode: a negative start wraps once round the plane, then the
+    patch is clamped inside it; the subplane follows the position's own
+    parity.  (The JAX package's TPU path clamps the pel position to 0
+    before its kernel instead.  The search never emits such vectors — its
+    bounds keep every block inside the padded plane.)"""
     stack, pos_x, pos_y, mvx, mvy, bs, hpad = _gather_inputs(pel, True)
     got = _port_gather(stack, pos_x, pos_y, mvx, mvy, bs, hpad, pel)
     lp = pel.bit_length() - 1
@@ -158,9 +162,15 @@ def test_gather_blocks_clamps_past_the_top_left_edge(pel):
     ya = (pos_y << lp) + mvy + hpad * pel
     assert (xa < 0).any() and (ya < 0).any()
     sub = (xa & (pel - 1)) | ((ya & (pel - 1)) << lp)
-    fy = np.clip(ya >> lp, 0, ph - bs)
-    fx = np.clip(xa >> lp, 0, pw - bs)
+    fy, fx = ya >> lp, xa >> lp
+    fy = np.clip(np.where(fy < 0, fy + ph, fy), 0, ph - bs)
+    fx = np.clip(np.where(fx < 0, fx + pw, fx), 0, pw - bs)
     for b in range(nb):
+        want = jax_degrain.gather_blocks(
+            jnp.asarray(stack[b]), jnp.asarray(pos_x), jnp.asarray(pos_y),
+            jnp.asarray(mvx[b]), jnp.asarray(mvy[b]), bs, bs, lp,
+            hpad * pel, hpad * pel, pitch_fp=bs)
+        np.testing.assert_array_equal(got[b], np.asarray(want))
         for j in range(pos_x.shape[0]):
             for i in range(pos_x.shape[1]):
                 want = stack[b, sub[b, j, i], fy[b, j, i]:fy[b, j, i] + bs,
@@ -171,7 +181,9 @@ def test_gather_blocks_clamps_past_the_top_left_edge(pel):
 def test_fetch_blocks_reads_edge_pixels_outside_the_plane():
     """The fetches themselves clamp, so no position can fault: the tiled
     fetch's rows/columns one by one, the per-block fetch (which the tiled
-    one hands a plane this small to) the block's origin as a whole."""
+    one hands a plane this small to) the block's origin as a whole, the way
+    a window slice takes it (a negative start wraps once round the plane
+    first: probe.wrap_clamp)."""
     stack = torch.arange(2 * 6 * 8, dtype=torch.uint8).reshape(1, 2, 6, 8)[
         :, :1].contiguous()
     cy = torch.tensor([[[-2], [4]]], dtype=torch.int32)
@@ -185,5 +197,85 @@ def test_fetch_blocks_reads_edge_pixels_outside_the_plane():
     assert torch.equal(out[0, 1, 0], want1)
     out = probe_ops.fetch_blocks_tiled(stack, cy, cx, 4, 4, 1, row_len=2,
                                        pitch_x=4)
-    assert torch.equal(out[0, 0, 0], p[0:4, 0:4])
+    assert torch.equal(out[0, 0, 0], p[2:6, 4:8])     # -2 -> 4, -3 -> 5
     assert torch.equal(out[0, 1, 0], p[2:6, 4:8])
+
+
+def _masked_probe_inputs(stats, pel, kk, handover):
+    """Stack, candidates (a tenth thrown off their tile), source blocks and
+    an `active` mask with whole (job, block, candidate) rows dead; with
+    `handover` the stack is narrower than the tile window, so the call
+    goes to the per-block probe."""
+    rng = np.random.default_rng(70 + 8 * (stats != "sad") + 4 * pel + kk
+                                + 2 * handover)
+    bs, nbx, nby, pad, hpad = 16, 6, 3, 16, 16
+    ph, pw = nby * bs + 2 * hpad, nbx * bs + 2 * hpad + (0 if handover else 64)
+    nj, logp = 2, pel.bit_length() - 1
+    ref = rng.integers(0, 256, (nj, pel * pel, ph, pw), np.uint8)
+    stack = probe_ops.pad_stack(torch.from_numpy(ref), pad)
+    if handover:
+        stack = stack[..., :pw + 2 * pad].contiguous()
+    idx = np.arange(nby * nbx)
+    base_y = (hpad + bs * (idx // nbx) + pad) << logp
+    base_x = (hpad + bs * (idx % nbx) + pad) << logp
+    shape = (nj, nby * nbx, kk)
+    vy, vx = rng.integers(-5, 6, shape), rng.integers(-5, 6, shape)
+    far = rng.random(shape) < 0.1
+    vx = np.where(far, vx + 140 * pel, vx)
+    vy = np.where(far, vy + 30 * pel, vy)
+    cy = torch.from_numpy((base_y[None, :, None] + vy).astype(np.int32))
+    cx = torch.from_numpy((base_x[None, :, None] + vx).astype(np.int32))
+    if handover:           # the per-block probe needs its window in the plane
+        cx = cx.clamp(max=(stack.shape[-1] - bs - 3) << logp)
+    src = torch.from_numpy(rng.integers(0, 256, (nj, nby * nbx, bs, bs),
+                                        np.uint8))
+    offsets = HEXAGON[:4] if kk == 1 else ((0, 0),)
+    active = (torch.from_numpy(rng.random(shape + (len(offsets),)) < 0.6)
+              & torch.from_numpy(rng.random(shape + (1,)) < 0.7))
+    return stack, cy, cx, src, offsets, bs, nbx, active
+
+
+@pytest.mark.parametrize("handover", [False, True], ids=["tiled", "handover"])
+@pytest.mark.parametrize("kk", [1, 6])
+@pytest.mark.parametrize("pel", [1, 2])
+@pytest.mark.parametrize("stats", ["sad", "sad_satd_luma"])
+def test_probe_sads_tiled_active_mask(stats, pel, kk, handover):
+    """With `active`, probe_sads_tiled (its plain version here; the kernel
+    on the card) equals the unmasked output where active and is INVALID_SAD
+    (in all three stats) elsewhere, through the tiled probe and through its
+    hand-over to the per-block probe."""
+    stack, cy, cx, src, offsets, bs, nbx, active = _masked_probe_inputs(
+        stats, pel, kk, handover)
+    wy_total, wx_total = probe_ops.tile_params(
+        offsets, bs, bs, pel, 8 if kk <= 2 else 4, bs)[:2]
+    assert (stack.shape[-1] < wx_total) == handover
+    assert stack.shape[-2] >= wy_total
+    args = (stack, cy, cx, src, offsets, bs, bs, pel)
+    kw = dict(row_len=nbx, pitch_x=bs, stats=stats)
+    full = probe_ops.probe_sads_tiled(*args, **kw)
+    got = probe_ops.probe_sads_tiled(*args, **kw, active=active)
+    keep = active if stats == "sad" else active[..., None]
+    assert got.dtype == torch.int32 and got.shape == full.shape
+    assert torch.equal(got, torch.where(keep, full,
+                                        probe_ops.INVALID_SAD).to(torch.int32))
+    assert 0 < int(active.sum()) < active.numel()
+    assert bool((~active).flatten(2).all(dim=-1).any())    # dead rows
+    sads = full if stats == "sad" else full[..., 0]
+    assert bool((sads[active] != probe_ops.INVALID_SAD).any())
+    if handover:
+        assert not bool((sads == probe_ops.INVALID_SAD).any())
+    else:
+        assert bool((sads == probe_ops.INVALID_SAD).any())
+
+
+@pytest.mark.parametrize("family,offsets,mask_of", [
+    ("GRAY", tpr.WALK, tpr.entry_mask),     # the hexagon walk's 8 entries
+    ("YUV420", HEXAGON, tpr.entry_mask),    # the chroma delta grid
+    ("YUV420", ((1, -1),), tpr.block_mask), # one offset: chroma probed as is
+], ids=["gray-walk", "yuv-hexagon", "yuv-one-offset"])
+def test_field_prober_check_with_a_mask_keeps_the_state(family, offsets,
+                                                        mask_of):
+    """FieldProber.check hands its extra_mask to the probes, which then skip
+    the masked entries; the state it returns is the one the unmasked probes
+    give (_update costs every masked entry _INF)."""
+    tpr.check_masked_state(family, 0, offsets, mask_of)

@@ -5,6 +5,7 @@ the card by chip_smoke.py.
 
 Inputs are made with numpy from a seed and handed to both sides; every
 comparison is assert_array_equal (tolerance 0 — integers)."""
+import itertools
 import os
 import sys
 
@@ -80,3 +81,101 @@ def test_grid_offsets_match_jax():
     assert probe_ops.INVALID_SAD == int(jax_probe.INVALID_SAD)
     assert (probe_ops.ALIGN_SLACK_Y, probe_ops.ALIGN_SLACK_X) == (
         jax_probe.ALIGN_SLACK_Y, jax_probe.ALIGN_SLACK_X)
+
+
+def _admitted_map_shapes(family):
+    """Every (r_y, r_x, bs_y, bs_x, pel, tile, pitch_x) of a plain SAD map
+    (luma and chroma) that MapProber builds at 8-bit for a 1080p clip of
+    `family`: every valid block size, overlap, pel 1 and 2, every level
+    that map_supported admits."""
+    from mvtools_tpu_torch import AnalyseConfig, SuperConfig
+    from mvtools_tpu_torch import field_engine as fe
+    from mvtools_tpu_torch.analyse import _level_ctx
+    from mvtools_tpu_torch.core.config import _VALID_BLOCK_SIZES
+    from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
+    chroma = family != "GRAY"
+    fmt = VideoFormat(1920, 1080, 8, ColorFamily[family])
+    shapes = set()
+    for (bw, bh), pel in itertools.product(sorted(_VALID_BLOCK_SIZES), (1, 2)):
+        sspec = SuperConfig(pel=pel, levels=0, chroma=chroma).validate(fmt)
+        for ov in range(bw // 2 + 1):
+            try:
+                aspec = AnalyseConfig(blksize=bw, blksizev=bh, overlap=ov,
+                                      overlapv=min(ov, bh // 2), levels=0,
+                                      chroma=chroma).validate(sspec)
+            except ValueError:
+                continue
+            for lv in range(aspec.meta.lv_count):
+                ctx = _level_ctx(sspec, aspec, lv)
+                r = fe.map_radius(ctx)
+                if not fe.map_supported(ctx, r):
+                    continue
+                tile = fe._map_tile(ctx)
+                shapes.add((r, r, bh, bw, ctx.pel, tile, bw - ov))
+                if chroma:
+                    rc_y, rc_x, pit_c, _ = fe._chroma_map_geom(ctx, r)
+                    shapes.add((rc_y, rc_x) + ctx.blk_size_c[::-1]
+                               + (ctx.pel, tile, pit_c))
+    return sorted(shapes)
+
+
+def _map_items(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x, g):
+    """The plain map kernel's items (csrc/sadmap.cu::sadmap_kernel) of a
+    full tile, as arrays: the last reference word, the last staged row and
+    the output entries each item writes."""
+    logp, pelm = pel.bit_length() - 1, pel - 1
+    wpr, nox, nws = -(-bs_x // 4), g["nox"], g["nws"]
+    item = np.arange(tile * g["n_rows"] * g["n_chunk"])
+    b, rest = item % tile, item // tile
+    chunk, rid = rest % g["n_chunk"], rest // g["n_chunk"]
+
+    def first(r, q):
+        return -r + ((q + r) & pelm)
+
+    def count(r, d0):
+        return np.maximum(0, ((r - d0) >> logp) + 1)
+
+    per0 = count(r_y, first(r_y, 0)) << logp
+    py = (rid >= per0).astype(np.int64)
+    k = rid - py * per0
+    px = k & pelm
+    dy = first(r_y, py) + ((k >> logp) << logp)
+    dx0 = first(r_x, px)
+    ncol = np.minimum(nox, count(r_x, dx0) - chunk * nox)
+    min_oy, min_ox = (-r_y) >> logp, (-r_x) >> logp
+    col0 = b * pitch_x + (dx0 >> logp) + chunk * nox - min_ox
+    nrw = ((col0 & 3) + nox - 1 + 4 * nws - 1) // 4 + 1
+    last_word = (col0 >> 2) + wpr - nws + nrw - 1
+    sub = px | (py << logp)
+    last_row = sub * g["wy"] + (dy >> logp) - min_oy + bs_y - 1
+    entries = [(bb, (d + r_y) * (2 * r_x + 1) + x0 + (i << logp))
+               for bb, d, x0, n in zip(b, dy, dx0 + ((chunk * nox) << logp)
+                                       + r_x, ncol) for i in range(n)]
+    return last_word[ncol > 0], last_row[ncol > 0], entries
+
+
+@pytest.mark.parametrize("family", ["GRAY", "YUV420", "YUV422", "YUV444"])
+def test_map_launch_geom_fits_the_card(family):
+    """For every map shape the search admits at 8-bit, the plain map
+    kernel's launch geometry (ops/sadmap.py::map_launch_geom) fits a CTA's
+    227 KB of shared memory and a legal thread count (a multiple of 32, at
+    most the kernel's launch bound), and its items read only staged words
+    and rows and write every output entry of a tile exactly once."""
+    shapes = _admitted_map_shapes(family)
+    assert len(shapes) > 20
+    for shape in shapes:
+        r_y, r_x, bs_y, bs_x, pel, tile, pitch_x = shape
+        g = sadmap.map_launch_geom(*shape)
+        assert g["smem"] <= sadmap.SMEM_LIMIT, (shape, g)
+        assert g["threads"] % 32 == 0, (shape, g)
+        assert 32 <= g["threads"] <= sadmap.MAP_MAX_THREADS, (shape, g)
+        assert g["nws"] in sadmap.MAP_NWS and g["nox"] in sadmap.MAP_NOX
+        assert -(-bs_x // 4) % g["nws"] == 0
+        last_word, last_row, entries = _map_items(*shape, g)
+        assert last_word.max() < g["ref_pitch"] // 4, (shape, g)
+        assert last_row.max() < pel * pel * g["wy"], (shape, g)
+        d = (2 * r_y + 1) * (2 * r_x + 1)
+        assert len(entries) == tile * d, (shape, g)
+        assert len(set(entries)) == tile * d, (shape, g)
+        assert g["src_off"] >= pel * pel * g["wy"] * g["ref_pitch"]
+        assert g["out_off"] >= g["src_off"] + tile * bs_y * -(-bs_x // 4) * 4

@@ -26,6 +26,8 @@ from mvtools_tpu.ops import probe as jax_probe, sadmap as jax_sadmap
 
 from mvtools_tpu_torch.ops import probe as probe_ops, sadmap
 
+import torch_port_reference as tpr
+
 STATS = "sad_satd_luma"
 HEXAGON = ((-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2))
 RING = ((0, -1), (0, 1), (-1, 0), (1, 0), (-1, -1), (-1, 1), (1, -1), (1, 1))
@@ -230,3 +232,12 @@ def test_stats_forms_count_launches_of_their_own():
     before = dict(probe_ops.launches), probe_ops.plain_calls_on_cuda
     probe_ops.probe_sads(stack, cy, cx, src, RING, 8, 8, 1, stats=STATS)
     assert (dict(probe_ops.launches), probe_ops.plain_calls_on_cuda) == before
+
+
+@pytest.mark.parametrize("dctmode", [5, 7])
+def test_field_prober_check_with_a_mask_keeps_the_satd_state(dctmode):
+    """With the SATD costs the masked check goes through the three-stat
+    tiled probe (K2'), whose inactive entries report INVALID_SAD triples;
+    the state equals the one the unmasked probes give.  Mode 7 mixes in the
+    reference sums (the adaptive weight)."""
+    tpr.check_masked_state("GRAY", dctmode, tpr.WALK, tpr.entry_mask)

@@ -723,3 +723,126 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     for stem in sys.argv[3:]:
         _ensure(Path(sys.argv[1]), stem)
+
+
+# ---------------------------------------------------------------------------
+# A FieldProber on a small level (torch only): the masked-probe tests
+
+WALK = ((-1, -2), (-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2),
+        (-2, 0))                   # the hexagon walk's 8 entries
+
+
+def field_prober(family: str = "YUV420", dctmode: int = 0, width: int = 160,
+                 height: int = 96, seed: int = 7):
+    """(FieldProber, state, lam, pred) on level 0 of a small two-job batch
+    (pel 2, blk 16, overlap 8 with chroma), built the way
+    analyse.search_level_lockstep builds its prober, with the search's own
+    bounds; the state is a random field with mincosts that leave room to
+    improve.  Everything is torch on the CPU: no JAX run."""
+    import torch
+
+    from mvtools_tpu_torch import AnalyseConfig, SuperConfig
+    from mvtools_tpu_torch import field_engine as fe
+    from mvtools_tpu_torch.analyse import _blocks_of, _level_ctx
+    from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
+    from mvtools_tpu_torch.models.denoise import make_test_clip_yuv
+    from mvtools_tpu_torch.super import build_super
+
+    chroma = family != "GRAY"
+    fmt = VideoFormat(width, height, 8, ColorFamily[family])
+    sspec = SuperConfig(pel=2, levels=1, chroma=chroma).validate(fmt)
+    aspec = AnalyseConfig(blksize=16, overlap=8 if chroma else 0, levels=1,
+                          chroma=chroma, dct=dctmode).validate(sspec)
+    planes = make_test_clip_yuv(3, width, height, seed=seed, noise=4,
+                                pan=(1, 1), device="cpu")
+    sups = build_super(planes if chroma else planes[:1], sspec)
+    ctx = _level_ctx(sspec, aspec, 0, sups.map(lambda a: a[[1, 1]]),
+                     sups.map(lambda a: a[[2, 0]]))
+    (nbx, nby), (bsx, bsy), (ovx, ovy) = ctx.nblk, ctx.blk_size, ctx.overlap
+    logx, logy = ctx.log_ratio_uv
+    (hpad, hpad_c), (vpad, vpad_c), (pw, ph) = ctx.hpad, ctx.vpad, ctx.padded
+    logp, i32 = ctx.log_pel, torch.int32
+    idx = torch.arange(nbx * nby, dtype=i32)
+    bx, by = idx % nbx, idx // nbx
+    x0, y0 = hpad + (bsx - ovx) * bx, vpad + (bsy - ovy) * by
+    xc = hpad_c + ((bsx - ovx) >> logx) * bx
+    yc = vpad_c + ((bsy - ovy) >> logy) * by
+    # level 0: the search may reach the padded plane's edges
+    bounds = (-(x0 << logp), (pw - bsx - x0) << logp,
+              -(y0 << logp), (ph - bsy - y0) << logp)
+    src_blocks = [_blocks_of(ctx.src_planes[0], vpad, hpad, nby, nbx, bsy,
+                             bsx, bsy - ovy, bsx - ovx)]
+    if chroma:
+        src_blocks += [_blocks_of(ctx.src_planes[p], vpad_c, hpad_c, nby,
+                                  nbx, bsy >> logy, bsx >> logx,
+                                  (bsy - ovy) >> logy, (bsx - ovx) >> logx)
+                       for p in (1, 2)]
+    cost = fe.cost_keywords(dctmode, src_blocks[0],
+                            torch.tensor([3, 8], dtype=i32), ctx.bits)
+    prober = fe.FieldProber(ctx, src_blocks, x0, y0, xc, yc, bounds, 16,
+                            **cost)
+    rng = np.random.default_rng(seed)
+    shape = (2, nbx * nby)
+
+    def ints(lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32))
+
+    st = dict(bx=ints(-6, 7), by=ints(-6, 7), bsad=ints(0, 40000),
+              mincost=ints(0, 40000).to(torch.int64),
+              dir=torch.zeros(shape, dtype=i32))
+    lam = torch.from_numpy(rng.integers(0, 3000, shape))
+    return prober, st, lam, (ints(-4, 5), ints(-4, 5))
+
+
+def check_masked_state(family, dctmode, offsets, mask_of):
+    """FieldProber.check with an extra_mask (handed to the probes as their
+    `active` argument) against _update run on the unmasked probes' SADs with
+    the same mask: every field of the state must agree."""
+    import torch
+
+    from mvtools_tpu_torch import field_engine as fe
+    from mvtools_tpu_torch.ops import probe as probe_ops
+    p, st, lam, pred = field_prober(family, dctmode)
+    rng = np.random.default_rng(len(offsets) + 10 * dctmode)
+    shape = st["bx"].shape
+    cand_x = st["bx"] + torch.from_numpy(rng.integers(-3, 4, shape)
+                                         .astype(np.int32))
+    cand_y = st["by"] + torch.from_numpy(rng.integers(-3, 4, shape)
+                                         .astype(np.int32))
+    mask = mask_of(rng, shape, len(offsets))
+    dir_vals = list(range(len(offsets)))
+    got = p.check(st, cand_x, cand_y, offsets, update_xy=False,
+                  dir_vals=dir_vals, extra_mask=mask, lam=lam, pred=pred)
+    dxmin, dxmax, dymin, dymax = p.bounds
+    cvx = torch.minimum(torch.maximum(cand_x, dxmin), dxmax - 1)
+    cvy = torch.minimum(torch.maximum(cand_y, dymin), dymax - 1)
+    ls = p.luma_sads(cvx, cvy, offsets)
+    cs = p.chroma_sads(cvx, cvy, offsets) if p.chroma else None
+    ox = torch.tensor([o[0] for o in offsets], dtype=torch.int32)
+    oy = torch.tensor([o[1] for o in offsets], dtype=torch.int32)
+    want = fe._update(p, st, ls, cs, cand_x[..., None] + ox,
+                      cand_y[..., None] + oy, lam, pred, dir_vals=dir_vals,
+                      mask=mask, update_xy=False)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    # the mask reached the probe: skipped entries came back as sentinels
+    act = torch.broadcast_to(mask, ls.shape)
+    masked = p.luma_sads(cvx, cvy, offsets, act)
+    assert torch.equal(masked[act], ls[act])
+    if dctmode:       # the SATD mix of an INVALID_SAD triple
+        assert bool((masked[~act] != ls[~act]).any())
+    else:
+        assert bool((masked[~act] == probe_ops.INVALID_SAD).all())
+    assert bool((got["mincost"] < st["mincost"]).any())
+
+
+def entry_mask(rng, shape, d):
+    """A [J, nblk, D] mask, entry by entry."""
+    import torch
+    return torch.from_numpy(rng.random(shape + (d,)) < 0.4)
+
+
+def block_mask(rng, shape, d):
+    """A [J, nblk, 1] mask, block by block (the rescue's `active`)."""
+    import torch
+    return torch.from_numpy(rng.random(shape + (1,)) < 0.5)
