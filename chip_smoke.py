@@ -10,7 +10,11 @@ It builds the CUDA kernels from mvtools_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card at the shapes the main paths
 give it (integers: tolerance 0; the tiled probe also with an `active` mask
 that leaves about 30 % of the entries live, the SAD map also at block
-pitches 14 and 6 and at pel 1), checks small end-to-end runs on the card
+pitches 14 and 6 and at pel 1, its three-stat form also with 8x8 and 32x32
+blocks and at pel 1, the tiled fetch also on the DCT path's map rows, at
+origins outside the plane and with 8x8 blocks), prints the SASS opcode
+counts of the two kernels redesigned last, checks small end-to-end runs on
+the card
 against the same code on CPU tensors, and drives five main paths at full
 width:
 
@@ -53,15 +57,28 @@ result.  The last line is {"ok": true, "device": {...}}.
 additionally traces one more full-width run of each of the nine clips with
 torch.profiler and prints where the device time went (busy share, kernels by
 time, and the summed device time of the SAD map and the tiled probe in
-either form).
+either form and of the two fetches).
+
+    python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
+
+drives the full-width paths alone (no kernel comparisons, no small runs, no
+kernels line and no "ok" line), with the package of the checkout at DIR if
+given: the way to compare two trees' paths and kernel sums in one call.
 """
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+
+# --package-root DIR (with --paths-only) drives the mvtools_tpu_torch of
+# another checkout, so that one script times two trees in one call, in turns
+if "--package-root" in sys.argv:
+    sys.path.insert(0, os.path.abspath(
+        sys.argv[sys.argv.index("--package-root") + 1]))
 
 import torch
 
@@ -247,6 +264,10 @@ def k1_case(ctx, stacks, gen, plane=0, stats="sad", extra="",
         g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile, pit_x)
         res["launch"] = {k: g[k] for k in ("threads", "smem", "nws", "nox",
                                            "n_chunk")}
+    else:
+        g = sadmap.map3_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile, pit_x)
+        res["launch"] = {k: g[k] for k in ("threads", "smem", "passes", "nox",
+                                           "n_chunk", "n_band")}
     if before_ms is not None:
         res["before_ms"] = before_ms
     return res
@@ -448,9 +469,11 @@ def fetch_bound(stack, cy, out):
     return bound(4 * n_pix + 8 * cy.numel() + min(stack.numel(), n_pix), 0)
 
 
-def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH):
+def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH, before_ms=None):
     """fetch_blocks_tiled as degrain calls it: one block per grid block of
-    `frames` frames, vectors running past the clamp on every side."""
+    `frames` frames, vectors running past the clamp on every side.
+    before_ms: the first kernel body's time at this shape, as PERF.md
+    records it, printed beside this run's time."""
     sub = 1 if plane else 0
     bsy, bsx = meta.blk_size_y >> sub, meta.blk_size_x >> sub
     stack = sups.planes[plane][0][:frames].contiguous()
@@ -485,7 +508,7 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH):
         stack, cy, cx, bsy, bsx, sspec.pel))
     kind = "chroma" if plane else "luma"
     ov = f" overlap {meta.overlap_x}" if meta.overlap_x else ""
-    label = f"level 0 {kind}{ov}, {nb} frames"
+    label = f"level 0 {kind} {bsy}x{bsx}{ov}, {nb} frames"
     err = compare(f"fetch_blocks_tiled {label}", out.reshape(want.shape),
                   want)
     ms = time_cuda(lambda: probe.fetch_blocks_tiled(
@@ -496,7 +519,45 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH):
     b_ms, b_by = bound(n_bytes, 0)
     return dict(case=label, shape=list(want.shape), max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, before_ms=before_ms,
+                launch=probe.fetch_launch_geom(bsy, bsx))
+
+
+def k3_direct_case(label, stack, cy, cx, bsy, bsx, pel, row_len):
+    """fetch_blocks_tiled on given candidates of a block grid whose blocks
+    lie bsx full pels apart, against its plain version, with the library
+    gather beside it."""
+    before = probe.launches["fetch_blocks_tiled"]
+    out = probe.fetch_blocks_tiled(stack, cy, cx, bsy, bsx, pel,
+                                   row_len=row_len, pitch_x=bsx)
+    if probe.launches["fetch_blocks_tiled"] != before + 1:
+        raise AssertionError(f"fetch_blocks_tiled {label}: the kernel did "
+                             "not launch")
+    want, plain_ms = time_plain(lambda: probe.fetch_blocks_tiled_plain(
+        stack, cy, cx, bsy, bsx, pel))
+    err = compare(f"fetch_blocks_tiled {label}", out, want)
+    ms = time_cuda(lambda: probe.fetch_blocks_tiled(
+        stack, cy, cx, bsy, bsx, pel, row_len=row_len, pitch_x=bsx), 10)
+    lib_ms = library_gather_ms(stack, cy, cx, bsy, bsx, pel, want)
+    b_ms, b_by = fetch_bound(stack, cy, out)
+    return dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, before_ms=None,
+                launch=probe.fetch_launch_geom(bsy, bsx))
+
+
+def k3_blk8_case(gen, dev):
+    """fetch_blocks_tiled as degrain calls it on a 1080p gray clip with 8x8
+    blocks (pel 2, 32 400 blocks a frame)."""
+    fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
+    sspec = SuperConfig(pel=2, levels=1, chroma=False).validate(fmt)
+    aspec = AnalyseConfig(blksize=8, levels=1, chroma=False).validate(sspec)
+    clip = make_test_clip(BATCH, W, H, seed=5, device=dev)
+    sups = build_super([clip], sspec)
+    case = k3_case(sspec, aspec.meta, sups, gen)
+    del sups, clip
+    torch.cuda.empty_cache()
+    return case
 
 
 def k5_case(label, stack, cy, cx, bsy, bsx, pel):
@@ -519,6 +580,27 @@ def k5_case(label, stack, cy, cx, bsy, bsx, pel):
                 library_ms=lib_ms)
 
 
+def sass_opcodes(source, function):
+    """{opcode with its modifiers: count} of the SASS of every
+    instantiation of a kernel function in a built source's library
+    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+    exe = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", str(cuda_build._target(source))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Za-z0-9_.]*)", line)
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
 def profile_run(label, fn):
     """One traced run of fn(): device-busy share and the kernels by time."""
     from torch.autograd import DeviceType
@@ -538,7 +620,7 @@ def profile_run(label, fn):
     busy_ms = sum(r[2] for r in rows)
 
     def summed(kernel):
-        sel = [r for r in rows if re.search(kernel + r"[<(]", r[0])]
+        sel = [r for r in rows if re.search(kernel, r[0])]
         return {"ms": sum(r[2] for r in sel),
                 "launches": sum(r[1] for r in sel)}
 
@@ -546,13 +628,23 @@ def profile_run(label, fn):
           "device_busy_ms": busy_ms,
           "device_busy_share_of_traced_wall": busy_ms / wall_ms,
           "device_launches": sum(r[1] for r in rows),
-          "kernel_sums": {name: summed(kernel) for name, kernel in (
-              ("sad_map", "sadmap_kernel"),
-              ("probe_sads_tiled", "probe_kernel"),
-              ("sad_map[stats3]", "sadmap_stats3_kernel"),
-              ("probe_sads_tiled[stats3]", "probe_stats3_kernel"))},
+          "kernel_sums": {name: summed(kernel)
+                          for name, kernel in KERNEL_NAMES.items()},
           "top_kernels": [{"name": k[:60], "count": c, "ms": ms}
                           for k, c, ms in rows[:12]]})
+
+
+# the device functions of the kernels that --profile sums, as the trace
+# names them; the three-stat map and the fetches under their names in this
+# tree and in its parent's, so that --package-root reads both
+KERNEL_NAMES = {
+    "sad_map": r"sadmap_kernel[<(]",
+    "probe_sads_tiled": r"probe_kernel[<(]",
+    "sad_map[stats3]": r"sadmap(3|_stats3)_kernel[<(]",
+    "probe_sads_tiled[stats3]": r"probe_stats3_kernel[<(]",
+    "fetch_blocks_tiled": r"fetch_tiled_kernel\(|fetch_kernel<-?\d+, 1>",
+    "fetch_blocks": r"fetch_block_kernel\(|fetch_kernel<-?\d+, 0>",
+}
 
 
 PLAIN_KERNELS = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled",
@@ -704,7 +796,8 @@ def yuv_kernel_cases(cfgs, gen, dev):
                           before_ms=1.080 if plane == 0 else 1.159))
         k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane,
                           masked=True))
-        k3.append(k3_case(sspec, aspec.meta, sups, gen, plane, frames=n))
+        k3.append(k3_case(sspec, aspec.meta, sups, gen, plane, frames=n,
+                          before_ms=0.332 if plane == 0 else 0.095))
     del ctx, stacks
     for lv, plane, sets in ((4, 1, ((grid16, 1), (ring, 1), (((0, 0),), 6))),
                             (5, 0, ((HEXAGON, 1), (walk, 1),
@@ -923,12 +1016,12 @@ def satd_kernel_cases(gen, dev):
     ring = tuple(fe._ring_offsets(1, 1))
     k1, k2, k4 = [], [], []
     ctx, stacks = level_inputs(sspec, rspec, sups, src_idx, ref_idx, 0)
-    k1.append(k1_case(ctx, stacks, gen, stats=STATS3))
+    k1.append(k1_case(ctx, stacks, gen, stats=STATS3, before_ms=10.855))
     k2.append(k2_case(ctx, stacks, gen, ((0, 0),), 1,
                       case_label(ctx, 0, " K=1 D=1"), stats=STATS3))
     del ctx, stacks
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
-    k1.append(k1_case(ctx, stacks, gen, stats=STATS3))
+    k1.append(k1_case(ctx, stacks, gen, stats=STATS3, before_ms=2.914))
     for offsets, what in ((HEXAGON, "hexagon D=6"), (ring, "ring D=8")):
         k2.append(k2_case(ctx, stacks, gen, offsets, 1,
                           f"level 0 K=1 {what}", stats=STATS3))
@@ -938,7 +1031,21 @@ def satd_kernel_cases(gen, dev):
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 5)
     for offsets in (HEXAGON, tuple(fe._HEXP), ((0, 0),)):
         k4.append(k4_case(ctx, stacks, gen, offsets, 1, stats=STATS3))
-    del ctx, stacks, sups, clip
+    del ctx, stacks, sups
+    # K1' at the geometries the two paths do not reach: 8x8 and 32x32
+    # blocks, pitch 8 and 16, pel 1 (level 0 of the same clip, 4 jobs)
+    fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
+    for pel, bs, ov in ((2, 8, 0), (2, 32, 16), (1, 16, 8), (1, 16, 0)):
+        sspec = SuperConfig(pel=pel, levels=1, chroma=False).validate(fmt)
+        aspec = AnalyseConfig(blksize=bs, overlap=ov, levels=1, chroma=False,
+                              dct=5).validate(sspec)
+        sups = build_super([clip], sspec)
+        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx[:4],
+                                   ref_idx[:4], 0)
+        k1.append(k1_case(ctx, stacks, gen, stats=STATS3,
+                          extra=f" {bs}x{bs}"))
+        del ctx, stacks, sups
+    del clip
     torch.cuda.empty_cache()
     return k1, k2, k4
 
@@ -982,19 +1089,22 @@ def small_end_to_end_satd(dev):
 
 
 def dct_kernel_cases(gen, dev):
-    """K5 at the shapes the DCT path gives it, on the 1080p gray super of
+    """K5 (and K3 beside it) at the shapes the DCT path gives them, on the
+    1080p gray super of
     the DCT path (pel 2, blk 16, 8040 blocks per job at level 0, four jobs):
     a row of level 0's dense map (15 candidates one pel apart round a
     per-block anchor), the rescue's hexagon (6 candidates), a row of the
     map at level 5, whose stack is under the tiled fetch's window (the
-    hand-over), and origins past every edge of the stack (the clamp)."""
+    hand-over), and origins past every edge of the stack (the clamp).  K3
+    takes the level-0 map row (the tiled fetch of the DCT path's dense map,
+    field_engine.MapProber) and the origins past every edge."""
     sspec, aspec, _, _ = chain_specs(W, H, 1, 1)
     clip = satd_clip(SATD_PAIRS + 1, W, H, 1, YUV_FLASH, SATD_CLEAN, dev)
     sups = build_super([clip], sspec)
     src_idx = torch.tensor([1, 1, 3, 3], device=dev)
     ref_idx = torch.tensor([2, 0, 4, 2], device=dev)
     bs, pel = aspec.meta.blk_size_x, sspec.pel
-    cases = []
+    cases, k3 = [], []
     narrow_level = 5
     for lv in (0, narrow_level):
         ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
@@ -1028,6 +1138,8 @@ def dct_kernel_cases(gen, dev):
             label += " (the tiled fetch's hand-over)"
         cases.append(k5_case(label, stack, rcy, rcx, bs, bs, ctx.pel))
         if lv == 0:
+            k3.append(k3_direct_case(label + " (the DCT map row)", stack, rcy,
+                                     rcx, bs, bs, ctx.pel, nbx))
             hy = torch.tensor([o[1] for o in HEXAGON], device=dev,
                               dtype=torch.int32)
             hx = torch.tensor([o[0] for o in HEXAGON], device=dev,
@@ -1046,10 +1158,12 @@ def dct_kernel_cases(gen, dev):
                 (wp - bs + 7) * pel + 1
             cases.append(k5_case("level 0 origins past every edge K=4",
                                  stack, ey, ex, bs, bs, ctx.pel))
+            k3.append(k3_direct_case("level 0 origins past every edge K=4",
+                                     stack, ey, ex, bs, bs, ctx.pel, nbx))
         del ctx, stacks, stack
     del sups, clip
     torch.cuda.empty_cache()
-    return cases
+    return cases, k3
 
 
 def special_blocks(n, bh, bw, gen):
@@ -1208,13 +1322,14 @@ def kernels_vs_plain(dev):
             k2_cases.append(k2_case(ctx, stacks, gen, ((0, 0),), 6,
                                     "level 0 K=6 D=1", masked=True))
         del ctx, stacks
-    k3_cases = [k3_case(sspec, aspec.meta, sups, gen)]
+    k3_cases = [k3_case(sspec, aspec.meta, sups, gen, before_ms=0.109)]
     del sups, clip
     torch.cuda.empty_cache()
     y1, y2, y3, k4_cases = yuv_kernel_cases(cfgs, gen, dev)
     k1_cases += k1_geometry_cases(gen, dev)
     s1, s2, s4 = satd_kernel_cases(gen, dev)
-    k5_cases = dct_kernel_cases(gen, dev)
+    k5_cases, k3_dct = dct_kernel_cases(gen, dev)
+    k3_cases += k3_dct + [k3_blk8_case(gen, dev)]
     cases = {"sad_map": k1_cases + y1, "probe_sads_tiled": k2_cases + y2,
              "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_cases,
              "sad_map[stats3]": s1, "probe_sads_tiled[stats3]": s2,
@@ -1227,34 +1342,9 @@ def kernels_vs_plain(dev):
             "probe_sads[stats3]": s4[0], "fetch_blocks": k5_cases[0]}
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-                 "False); this script only runs on a GPU")
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
-    emit({"phase": "device", "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
-    t_start = time.perf_counter()
-
-    # ---- build ------------------------------------------------------------
-    build_s = cuda_build.build_all(verbose=True)
-    for name in cuda_build.SOURCES:
-        cuda_build.load(name)
-    emit({"phase": "build", "seconds": build_s,
-          "sources": [f"mvtools_tpu_torch/csrc/{n}.cu"
-                      for n in cuda_build.SOURCES]})
-
-    # ---- kernels against their plain versions -----------------------------
-    shown = kernels_vs_plain(dev)
-    dct_vs_cpu(dev)
-
-    # ---- small end-to-end: card against the same code on the CPU ----------
-    sspec, aspec, dcfg = headline_specs(W, H)
-    cfgs = flagship_configs()
+def small_end_to_end(dev):
+    """The gray headline path at 256x192 (degrain_window) on the card
+    against the same code on CPU tensors."""
     s_sspec, s_aspec, s_dcfg = headline_specs(SMALL_W, SMALL_H)
     small = make_test_clip(6, SMALL_W, SMALL_H, seed=2, flash=SMALL_FLASH,
                            device="cpu")
@@ -1275,16 +1365,53 @@ def main():
     if not torch.equal(out_gpu.cpu(), out_cpu):
         raise AssertionError("small end-to-end: denoised pixels differ "
                              "between the card and the CPU")
-    gray_kernels = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled")
-    if (min(small_counts[k] for k in gray_kernels[:2]) < 1
+    if (min(small_counts[k] for k in ("sad_map", "probe_sads_tiled")) < 1
             or fetches(small_counts) < 1):
         raise AssertionError(f"small end-to-end: a kernel never launched "
                              f"{small_counts}")
     emit({"phase": "small_end_to_end", "size": [SMALL_W, SMALL_H],
           "frames": 6, "bit_equal_to_cpu": True, "launches": small_counts})
-    small_end_to_end_yuv(cfgs, dev)
-    small_end_to_end_satd(dev)
-    small_end_to_end_dct(dev)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+                 "False); this script only runs on a GPU")
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    t_start = time.perf_counter()
+    paths_only = "--paths-only" in sys.argv[1:]
+
+    # ---- build ------------------------------------------------------------
+    build_s = cuda_build.build_all(verbose=True)
+    for name in cuda_build.SOURCES:
+        cuda_build.load(name)
+    emit({"phase": "build", "seconds": build_s,
+          "sources": [f"mvtools_tpu_torch/csrc/{n}.cu"
+                      for n in cuda_build.SOURCES]})
+    if not paths_only:
+        # the instructions of the two kernels this tree redesigned
+        emit({"phase": "sass", "sadmap3_kernel": sass_opcodes(
+            "sadmap", "sadmap3_kernel"), "fetch_kernel": sass_opcodes(
+            "fetch", "fetch_kernel")})
+
+    # ---- kernels against their plain versions -----------------------------
+    sspec, aspec, dcfg = headline_specs(W, H)
+    cfgs = flagship_configs()
+    gray_kernels = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled")
+    if not paths_only:
+        shown = kernels_vs_plain(dev)
+        dct_vs_cpu(dev)
+        # ---- small end-to-end: card against the same code on the CPU ------
+        small_end_to_end(dev)
+        small_end_to_end_yuv(cfgs, dev)
+        small_end_to_end_satd(dev)
+        small_end_to_end_dct(dev)
 
     # ---- gray main path at full width ---------------------------------------
     n_windows = 2
@@ -1418,6 +1545,11 @@ def main():
                     lambda: satd_chain(dct_flash, dct_specs, {}))
         profile_run("dct_analyse_path_calm",
                     lambda: satd_chain(dct_calm_clip, dct_specs, {}))
+
+    if paths_only:
+        emit({"phase": "done", "paths_only": True,
+              "seconds": time.perf_counter() - t_start})
+        return
 
     # ---- the kernels line --------------------------------------------------
     by_path = {"main_path": gray_counts, "yuv_main_path": counts,

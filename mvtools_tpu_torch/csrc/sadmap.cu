@@ -1,7 +1,7 @@
 // Dense SAD map (K1) and its three-stat form (K1').
 //
 // Replaces the TPU kernel mvtools_tpu/ops/sadmap.py::_sadmap_kernel
-// (sad_map_pallas): sadmap_kernel its stats="sad" form, sadmap_stats3_kernel
+// (sad_map_pallas): sadmap_kernel its stats="sad" form, sadmap3_kernel
 // its stats="sad_satd_luma" form.
 //
 // For every block of a tile of consecutive blocks in one block row, the SAD
@@ -52,18 +52,29 @@
 // nvcc -Xptxas -v (sm_90a): 32-59 registers a thread over the twelve
 // instantiations (sadmap_kernel<4, 9>: 40), no spills.
 //
-// The three-stat form writes, for the same grid, the triple (SAD, SATD, sum
-// of the reference block) per entry: out[job, block, dy + r_y, dx + r_x, 0..2]
-// (satd.cuh says what the SATD is).  Its CTA stages the window with a row
-// width of wx_max and the tile's source span as one [bs_y, span_max] array;
-// a group of lanes owns a (block, offset) pair and splits the block's 8x4
-// partitions.  Bound: integer operations, about 2.5 times the plain map's
-// per pixel (the two butterflies and the three accumulations).
+// The three-stat form (K1', sadmap3_kernel) writes, for the same grid, the
+// triple (SAD, SATD, sum of the reference block) per entry:
+// out[job, block, dy + r_y, dx + r_x, 0..2] (satd.cuh says what the SATD
+// is).  Bound: integer operations, 9 a pixel-offset as PERF.md counts them.
+// Its first body (the one K2' and K4' still use, satd.cuh::block_stats3)
+// gave each (block, offset) pair a group of lanes that loaded both blocks
+// byte by byte and transformed S - R afresh: about ten instructions per
+// pixel-offset, 10.855 ms at [8, 32026, 15, 15, 3] (H100 80GB HBM3, 700 W).
+// This body does each piece of work once: per CTA (job, tile) the
+// Hadamard transforms H(S) of the source span's 4x4 tiles, and per
+// subplane the box sums of every block-sized reference position (the
+// reference sum) and, band by band of four rows, the transforms H(R) of
+// every 4x4 reference position; an entry's SATD is then a sum over
+// coefficient pairs of the two tables (below), its SAD K1's byte-SIMD sum.
+// A thread owns one (block, full-pel grid row, chunk of NOX full-pel
+// columns) of the subplane, the four-row bands bring each of its tile rows
+// in turn, and it writes its entries at the end.  The launch geometry
+// (threads, chunks, shared-memory layout, bands) is computed by
+// ops/sadmap.py::map3_launch_geom, where a CPU test walks every geometry
+// the search admits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "satd.cuh"
 
 namespace {
 
@@ -260,90 +271,368 @@ sadmap_kernel(const uint8_t* __restrict__ stack,
     for (int i = threadIdx.x; i < nb * dn; i += blockDim.x) out_t[i] = out_s[i];
 }
 
-// Stage the tile's reference window (rows of wx_max bytes) and source span
-// ([bs_y, span_max]) in shared memory for the three-stat form; returns the
-// number of blocks in this tile.
-__device__ __forceinline__ int stage_tile(const uint8_t* __restrict__ stack,
-                                          const uint8_t* __restrict__ src,
-                                          const int* __restrict__ afy,
-                                          const int* __restrict__ afx,
-                                          const MapParams& p,
-                                          uint8_t* ref_s, uint8_t* src_s) {
+// ---------------------------------------------------------------------------
+// K1': the three-stat map.  The SATD by linearity of the Hadamard transform,
+// H(S - R) = H(S) - H(R): every 4x4 tile of the source span and every 4x4
+// position of the reference window is transformed once per CTA, and an
+// entry's SATD is a sum over coefficient pairs of those two tables.
+//
+// Coefficients are stored as unsigned 16-bit halves of 32-bit words, each
+// biased by Z (an 8-bit tile's coefficients lie in [-2040, 2040], its DC in
+// [0, 4080], so a biased value lies in [Z - 4080, Z + 4080] and no half can
+// carry into the other).  With u = H + Z,
+//
+//   sum |H(S) - H(R)| over a tile = sum u_S + sum u_R - 2 sum min(u_S, u_R)
+//
+// and sum u over a tile = 16 * (its top-left pixel) + 16 Z (the columns of
+// the 4-point Hadamard sum to (4, 0, 0, 0)).  So an 8x4 partition's halved
+// sum (satd.cuh: two tiles' sums added, then >> 1; the sum is even) is
+//
+//   8 (S00 + S04 + R00 + R04) + 32 Z - sum over its 16 words of
+//                                      (min.lo + min.hi)
+//
+// one VIMNMX.U16x2 and one IDP.2A per two coefficients, the source terms a
+// per-block constant, the reference terms two IDP.4A per partition row 0.
+
+constexpr uint32_t ZB = 16384u;                 // the bias Z
+constexpr uint32_t ZP = ZB | (ZB << 16);        // Z in both halves
+
+__device__ __forceinline__ uint32_t min_u16x2(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+}
+
+// The 4-point Hadamard of one row of four pixels (bytes of w, in order):
+// A = (c0 | c1 << 16), B = (c2 | c3 << 16), each biased by Z, in the order
+// of ops/sad.py::_hadamard4.
+__device__ __forceinline__ void row_pass(uint32_t w, uint32_t& A,
+                                         uint32_t& B) {
+    const uint32_t e = __byte_perm(w, 0u, 0x4240);   // (p0, p2)
+    const uint32_t f = __byte_perm(w, 0u, 0x4341);   // (p1, p3)
+    const uint32_t g = e + f + ZP;                   // (s0, s2)
+    const uint32_t k = e - f + ZP;                   // (s1, s3)
+    const uint32_t pp = __byte_perm(g, k, 0x5410);   // (s0, s1)
+    const uint32_t qq = __byte_perm(g, k, 0x7632);   // (s2, s3)
+    A = pp + qq - ZP;
+    B = pp - qq + ZP;
+}
+
+// The 4-point Hadamard down four rows of biased words, in place.
+__device__ __forceinline__ void col_pass(uint32_t& a, uint32_t& b,
+                                         uint32_t& c, uint32_t& e) {
+    const uint32_t s0 = a + b - ZP, s1 = a - b + ZP;
+    const uint32_t s2 = c + e - ZP, s3 = c - e + ZP;
+    a = s0 + s2 - ZP; b = s1 + s3 - ZP;
+    c = s0 - s2 + ZP; e = s1 - s3 + ZP;
+}
+
+// The 8 words of the transform of the 4x4 tile whose rows are the words
+// w[0..3] (pixels in byte order), stored as two uint4 at dst.
+__device__ __forceinline__ void tile_words(const uint32_t (&w)[4],
+                                           uint4* dst) {
+    uint32_t a[4], b[4];
+#pragma unroll
+    for (int y = 0; y < 4; ++y) row_pass(w[y], a[y], b[y]);
+    col_pass(a[0], a[1], a[2], a[3]);
+    col_pass(b[0], b[1], b[2], b[3]);
+    dst[0] = make_uint4(a[0], a[1], a[2], a[3]);
+    dst[1] = make_uint4(b[0], b[1], b[2], b[3]);
+}
+
+// Four bytes at byte offset x of a word-aligned shared row.
+__device__ __forceinline__ uint32_t word_at(const uint8_t* row, int x) {
+    const uint32_t* w = (const uint32_t*)row + (x >> 2);
+    const int sh = x & 3;
+    return sh ? __funnelshift_r(w[0], w[1], 8 * sh) : w[0];
+}
+
+// The three-stat map's shared-memory layout and work split
+// (ops/sadmap.py::map3_launch_geom).
+struct Map3Geom {
+    int nox, n_chunk;           // columns a thread owns, chunks per grid row
+    int ref_pitch, span_pitch;  // bytes per staged reference / source row
+    int src_off, hs_off, sc_off, hr_off, hr_pitch, box_off;
+    int nxs;                    // 4x4 source tiles per span row
+    int npos;                   // 4x4 reference positions per window row
+    int nbox;                   // block-sized positions per window row
+    int ny, nyp, n_band;        // full-pel grid rows, 4x4 row starts, bands
+};
+
+// One item's work on tile row i of its block: the SAD of the four pixel
+// rows and, per 8x4 partition, the SATD terms of the reference side.  ref
+// points at the item's first reference row (row oy + 4i of the subplane's
+// window) at the word holding byte col0 (which is byte M of it); src at the
+// block's row 4i of the span; hs at the block's first tile of tile row i;
+// hr at the band row t of the item.
+template <int NOX, int M>
+__device__ __forceinline__ void item_tile_row(
+        const uint8_t* __restrict__ ref, int ref_pitch,
+        const uint8_t* __restrict__ src, int span_pitch,
+        const uint4* __restrict__ hs, const uint8_t* __restrict__ hr,
+        int col0, int xmax, int parts, unsigned (&sad)[NOX],
+        int (&sat)[NOX]) {
+    constexpr int NRW = (M + NOX - 1 + 7) / 4 + 1;
+    for (int pj = 0; pj < parts; ++pj) {
+#pragma unroll
+        for (int yy = 0; yy < 4; ++yy) {
+            const uint32_t* rr = (const uint32_t*)(ref + yy * ref_pitch) + 2 * pj;
+            const uint32_t* ss = (const uint32_t*)(src + yy * span_pitch) + 2 * pj;
+            const uint32_t s0 = ss[0], s1 = ss[1];
+            uint32_t r[NRW + 1];
+#pragma unroll
+            for (int q = 0; q < NRW; ++q) r[q] = rr[q];
+            r[NRW] = r[NRW - 1];
+#pragma unroll
+            for (int c = 0; c < NOX; ++c) {
+                const int q = (M + c) >> 2, sh = (M + c) & 3;
+                const uint32_t v0 = sh ? __funnelshift_r(r[q], r[q + 1], 8 * sh)
+                                       : r[q];
+                const uint32_t v1 = sh ? __funnelshift_r(r[q + 1], r[q + 2],
+                                                         8 * sh)
+                                       : r[q + 1];
+                sad[c] = __dp4a(__vabsdiffu4(v0, s0), 0x01010101u, sad[c]);
+                sad[c] = __dp4a(__vabsdiffu4(v1, s1), 0x01010101u, sad[c]);
+                if (yy == 0) {              // + 8 (R00 + R04)
+                    sat[c] = (int)__dp4a(v0, 8u, (unsigned)sat[c]);
+                    sat[c] = (int)__dp4a(v1, 8u, (unsigned)sat[c]);
+                }
+            }
+        }
+        uint4 h[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) h[k] = hs[4 * pj + k];
+#pragma unroll
+        for (int c = 0; c < NOX; ++c) {
+            const int x = min(col0 + c + 8 * pj, xmax);
+            const uint4* g = (const uint4*)(hr + 32 * x);
+            const uint4 g0 = g[0], g1 = g[1], g2 = g[8], g3 = g[9];
+            int acc = sat[c];
+            // - sum (min.lo + min.hi): halves are below 2^15, so the signed
+            // two-way product with bytes (-1, -1) subtracts both
+            acc = __dp2a_lo((int)min_u16x2(h[0].x, g0.x), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[0].y, g0.y), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[0].z, g0.z), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[0].w, g0.w), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[1].x, g1.x), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[1].y, g1.y), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[1].z, g1.z), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[1].w, g1.w), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[2].x, g2.x), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[2].y, g2.y), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[2].z, g2.z), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[2].w, g2.w), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[3].x, g3.x), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[3].y, g3.y), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[3].z, g3.z), 0xffff, acc);
+            acc = __dp2a_lo((int)min_u16x2(h[3].w, g3.w), 0xffff, acc);
+            sat[c] = acc;
+        }
+    }
+}
+
+// At most 288 threads a CTA (a pass of items, or one column strip of the
+// window each in the box sums' and the bands' phases) and three CTAs an SM:
+// ptxas then keeps the body in 72 registers, and one CTA's barriers overlap
+// the others' work (other bounds: experiments/k1p_timing.py).
+constexpr int MAP3_THREADS = 288;
+
+template <int NOX>
+__global__ void __launch_bounds__(MAP3_THREADS, 3)
+sadmap3_kernel(const uint8_t* __restrict__ stack,
+               const uint8_t* __restrict__ src, const int* __restrict__ afy,
+               const int* __restrict__ afx, int* __restrict__ out,
+               MapParams p, Map3Geom g) {
+    extern __shared__ __align__(16) uint8_t smem3[];
     const int tc = blockIdx.x, row = blockIdx.y, job = blockIdx.z;
     const int b0 = tc * p.tile;
     const int nb = min(p.tile, p.nbx - b0);
-    const int span = (nb - 1) * p.pitch_x + p.bs_x;
-    const int wx = span + (p.wx_max - p.span_max);
+    uint8_t* ref_s = smem3;                          // [wy][ref_pitch]
+    uint8_t* src_s = smem3 + g.src_off;              // [bs_y][span_pitch]
+    uint4* hs_s = (uint4*)(smem3 + g.hs_off);        // [bs_y/4][nxs][2]
+    int* sc_s = (int*)(smem3 + g.sc_off);            // [tile]
+    uint8_t* hr_s = smem3 + g.hr_off;                // [BAND][hr_pitch]
+    int* cs_s = (int*)(smem3 + g.hr_off);            // [ny][wx] (first)
+    int* box_s = (int*)(smem3 + g.box_off);          // [ny][nbox]
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int wy = p.wy, wx = p.wx_max;
 
-    const int t = row * p.ntx + tc;
-    const int base_y = afy[job * p.nby * p.ntx + t] + p.min_oy;
-    const int base_x = afx[job * p.nby * p.ntx + t] + p.min_ox;
-
-    const size_t plane = (size_t)p.hp * p.wp;
-    const uint8_t* stack_j = stack + (size_t)job * p.n_sub * plane;
-    const int n_ref = p.n_sub * p.wy * wx;
-    for (int i = threadIdx.x; i < n_ref; i += blockDim.x) {
-        const int x = i % wx;
-        const int y = (i / wx) % p.wy;
-        const int s = i / (wx * p.wy);
-        const int gy = clampi(base_y + y, 0, p.hp - 1);
-        const int gx = clampi(base_x + x, 0, p.wp - 1);
-        ref_s[(s * p.wy + y) * p.wx_max + x] =
-            stack_j[s * plane + (size_t)gy * p.wp + gx];
-    }
+    // ---- the tile's source span, word rows
     const uint8_t* src_j = src + (size_t)job * p.hs * p.ws;
     const int sy0 = p.src_y0 + row * p.pitch_y;
     const int sx0 = p.src_x0 + b0 * p.pitch_x;
-    for (int i = threadIdx.x; i < p.bs_y * span; i += blockDim.x) {
-        const int x = i % span, y = i / span;
-        const int gy = clampi(sy0 + y, 0, p.hs - 1);
-        const int gx = clampi(sx0 + x, 0, p.ws - 1);
-        src_s[y * p.span_max + x] = src_j[(size_t)gy * p.ws + gx];
+    const int spw = g.span_pitch >> 2;
+    for (int i = tid; i < p.bs_y * spw; i += nthr) {
+        const int y = i / spw, cw = i - y * spw;
+        const uint8_t* grow = src_j
+                              + (size_t)clampi(sy0 + y, 0, p.hs - 1) * p.ws;
+        uint32_t v = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            v |= (uint32_t)grow[clampi(sx0 + 4 * cw + e, 0, p.ws - 1)]
+                 << (8 * e);
+        ((uint32_t*)src_s)[i] = v;
     }
     __syncthreads();
-    return nb;
-}
+    // ---- H(S) of every 4x4 tile of the span; each block's source constant
+    const int tys = p.bs_y >> 2;
+    for (int i = tid; i < tys * g.nxs; i += nthr) {
+        const int ty = i / g.nxs, tx = i - ty * g.nxs;
+        uint32_t w[4];
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+            w[y] = ((const uint32_t*)(src_s + (4 * ty + y) * g.span_pitch))[tx];
+        tile_words(w, hs_s + 2 * i);
+    }
+    const int parts = p.bs_x >> 3;
+    for (int b = tid; b < nb; b += nthr) {
+        int acc = 0;
+        for (int ty = 0; ty < tys; ++ty)
+            for (int pj = 0; pj < parts; ++pj) {
+                const uint8_t* s = src_s + 4 * ty * g.span_pitch
+                                   + b * p.pitch_x + 8 * pj;
+                acc += 8 * ((int)s[0] + (int)s[4]) + 32 * (int)ZB;
+            }
+        sc_s[b] = acc;
+    }
 
-// The three-stat form: `group` lanes per (block, offset) pair.
-__global__ void sadmap_stats3_kernel(const uint8_t* __restrict__ stack,
-                                     const uint8_t* __restrict__ src,
-                                     const int* __restrict__ afy,
-                                     const int* __restrict__ afx,
-                                     int* __restrict__ out, MapParams p,
-                                     int group) {
-    extern __shared__ uint8_t smem[];
-    const int tc = blockIdx.x, row = blockIdx.y, job = blockIdx.z;
-    const int b0 = tc * p.tile;
-    uint8_t* ref_s = smem;                               // [n_sub][wy][wx_max]
-    uint8_t* src_s = smem + p.n_sub * p.wy * p.wx_max;   // [bs_y][span_max]
-    const int nb = stage_tile(stack, src, afy, afx, p, ref_s, src_s);
-
-    const int dxn = 2 * p.r_x + 1;
-    const int d = (2 * p.r_y + 1) * dxn;
     const int pelm = (1 << p.logp) - 1;
-    int* out_t = out + ((size_t)job * p.nbx * p.nby
-                        + (size_t)row * p.nbx + b0) * d * 3;
-    const int g_lane = threadIdx.x % group;
-    const int per_pass = blockDim.x / group;
-    const int n_items = nb * d;
-    // every thread runs every pass: the group sums are warp-wide shuffles
-    for (int first = 0; first < n_items; first += per_pass) {
-        const int item = first + threadIdx.x / group;
-        const bool active = item < n_items;
-        const int b = active ? item / d : 0;
-        const int di = active ? item % d : 0;
-        const int dy = di / dxn - p.r_y;
-        const int dx = di % dxn - p.r_x;
-        const int sub = (dx & pelm) | ((dy & pelm) << p.logp);
-        const int oy = (dy >> p.logp) - p.min_oy;
-        const int ox = (dx >> p.logp) - p.min_ox + b * p.pitch_x;
-        const mvt::Stats3 st = mvt::block_stats3(
-            src_s + b * p.pitch_x, p.span_max,
-            ref_s + (sub * p.wy + oy) * p.wx_max + ox, p.wx_max, p.bs_y,
-            p.bs_x, g_lane, group, active);
-        if (active && g_lane == 0) {
-            int* o = out_t + (size_t)item * 3;
-            o[0] = st.sad; o[1] = st.satd; o[2] = st.luma;
+    const int dxn = 2 * p.r_x + 1;
+    const int dn = (2 * p.r_y + 1) * dxn;
+    const size_t plane = (size_t)p.hp * p.wp;
+    const int t_idx = row * p.ntx + tc;
+    const int base_y = afy[job * p.nby * p.ntx + t_idx] + p.min_oy;
+    const int base_x = afx[job * p.nby * p.ntx + t_idx] + p.min_ox;
+    int* out_t = out + ((size_t)job * p.nbx * p.nby + (size_t)row * p.nbx
+                        + b0) * dn * 3;
+    const int rpw = g.ref_pitch >> 2;
+    // items of the largest subplane, so every thread runs every pass
+    const int n_pass_items = nb * ((2 * p.r_y + 1 + pelm) >> p.logp)
+                             * g.n_chunk;
+    for (int s = 0; s < p.n_sub; ++s) {
+        __syncthreads();        // the previous subplane's items are done
+        // ---- the subplane's reference window, one word per thread a step
+        const uint8_t* plane_s = stack + ((size_t)job * p.n_sub + s) * plane;
+        for (int i = tid; i < wy * rpw; i += nthr) {
+            const int y = i / rpw, cw = i - y * rpw;
+            const uint8_t* grow = plane_s
+                + (size_t)clampi(base_y + y, 0, p.hp - 1) * p.wp;
+            uint32_t v = 0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                v |= (uint32_t)grow[clampi(base_x + 4 * cw + e, 0, p.wp - 1)]
+                     << (8 * e);
+            ((uint32_t*)ref_s)[i] = v;
+        }
+        __syncthreads();
+        // ---- box sums of every block-sized position: column sums, then rows
+        for (int x = tid; x < wx; x += nthr) {
+            int acc = 0;
+            for (int y = 0; y < p.bs_y; ++y) acc += ref_s[y * g.ref_pitch + x];
+            cs_s[x] = acc;
+            for (int oy = 1; oy < g.ny; ++oy) {
+                acc += ref_s[(oy + p.bs_y - 1) * g.ref_pitch + x]
+                       - ref_s[(oy - 1) * g.ref_pitch + x];
+                cs_s[oy * wx + x] = acc;
+            }
+        }
+        __syncthreads();
+        for (int i = tid; i < g.ny * g.nbox; i += nthr) {
+            const int oy = i / g.nbox, x = i - oy * g.nbox;
+            const int* c = cs_s + oy * wx + x;
+            int acc = 0;
+            for (int j = 0; j < p.bs_x; ++j) acc += c[j];
+            box_s[i] = acc;
+        }
+
+        const int px = s & pelm, py = s >> p.logp;
+        const int dy0 = parity_first(p.r_y, py, pelm);
+        const int dx0 = parity_first(p.r_x, px, pelm);
+        const int rows_s = parity_count(p.r_y, dy0, p.logp);
+        const int cols_s = parity_count(p.r_x, dx0, p.logp);
+        const int n_items = nb * rows_s * g.n_chunk;
+        for (int first = 0; first < n_pass_items; first += nthr) {
+            const int item = first + tid;
+            const bool active = item < n_items;
+            const int kr = active ? item % rows_s : 0;
+            const int rest = active ? item / rows_s : 0;
+            const int chunk = rest % g.n_chunk, b = rest / g.n_chunk;
+            const int dy = dy0 + (kr << p.logp);
+            const int oy = (dy >> p.logp) - p.min_oy;
+            const int ncol = min(NOX, cols_s - chunk * NOX);
+            const int col0 = b * p.pitch_x + (dx0 >> p.logp) - p.min_ox
+                             + chunk * NOX;
+            unsigned sad[NOX];
+            int sat[NOX];
+#pragma unroll
+            for (int c = 0; c < NOX; ++c) { sad[c] = 0; sat[c] = 0; }
+            for (int band = 0; band < g.n_band; ++band) {
+                __syncthreads();    // the box sums or the last band are read
+                // ---- H(R) of the band's 4x4 positions, a column strip each
+                const int y0 = band * 4;
+                const int nt = min(4, g.nyp - y0);
+                for (int x = tid; x < g.npos; x += nthr) {
+                    uint32_t a[7], bb[7];
+#pragma unroll
+                    for (int y = 0; y < 7; ++y)
+                        if (y < nt + 3)
+                            row_pass(word_at(ref_s + (y0 + y) * g.ref_pitch, x),
+                                     a[y], bb[y]);
+#pragma unroll
+                    for (int t = 0; t < 4; ++t) {
+                        if (t < nt) {
+                            uint32_t a0 = a[t], a1 = a[t + 1], a2 = a[t + 2],
+                                     a3 = a[t + 3];
+                            uint32_t c0 = bb[t], c1 = bb[t + 1],
+                                     c2 = bb[t + 2], c3 = bb[t + 3];
+                            col_pass(a0, a1, a2, a3);
+                            col_pass(c0, c1, c2, c3);
+                            uint4* d = (uint4*)(hr_s + t * g.hr_pitch + 32 * x);
+                            d[0] = make_uint4(a0, a1, a2, a3);
+                            d[1] = make_uint4(c0, c1, c2, c3);
+                        }
+                    }
+                }
+                __syncthreads();
+                // ---- the item's tile row in this band, if it has one
+                const int i = (y0 - oy + 3) >> 2;
+                if (!active || i < 0 || i >= tys || oy + 4 * i >= y0 + 4)
+                    continue;
+                const int t = oy + 4 * i - y0;
+                const uint8_t* rp = ref_s + (oy + 4 * i) * g.ref_pitch
+                                    + 4 * (col0 >> 2);
+                const uint8_t* sp = src_s + 4 * i * g.span_pitch
+                                    + b * p.pitch_x;
+                const uint4* hp = hs_s + 2 * (i * g.nxs + ((b * p.pitch_x) >> 2));
+                const uint8_t* hrp = hr_s + t * g.hr_pitch;
+                const int xmax = g.npos - 5;
+                switch (col0 & 3) {
+                    case 0: item_tile_row<NOX, 0>(rp, g.ref_pitch, sp,
+                                g.span_pitch, hp, hrp, col0, xmax, parts,
+                                sad, sat); break;
+                    case 1: item_tile_row<NOX, 1>(rp, g.ref_pitch, sp,
+                                g.span_pitch, hp, hrp, col0, xmax, parts,
+                                sad, sat); break;
+                    case 2: item_tile_row<NOX, 2>(rp, g.ref_pitch, sp,
+                                g.span_pitch, hp, hrp, col0, xmax, parts,
+                                sad, sat); break;
+                    default: item_tile_row<NOX, 3>(rp, g.ref_pitch, sp,
+                                 g.span_pitch, hp, hrp, col0, xmax, parts,
+                                 sad, sat); break;
+                }
+            }
+            if (active) {
+                const int* bx = box_s + oy * g.nbox + col0;
+                int* o = out_t + ((size_t)b * dn + (dy + p.r_y) * dxn + dx0
+                                  + ((chunk * NOX) << p.logp) + p.r_x) * 3;
+#pragma unroll
+                for (int c = 0; c < NOX; ++c)
+                    if (c < ncol) {
+                        o[3 * (c << p.logp)] = (int)sad[c];
+                        o[3 * (c << p.logp) + 1] = sat[c] + sc_s[b];
+                        o[3 * (c << p.logp) + 2] = bx[c];
+                    }
+            }
         }
     }
 }
@@ -435,28 +724,47 @@ extern "C" int mvt_sad_map(const void* stack, const void* src,
     }
 }
 
-static size_t map_smem(const MapParams& p) {
-    return (size_t)p.n_sub * p.wy * p.wx_max + (size_t)p.bs_y * p.span_max;
-}
-
 extern "C" int mvt_sad_map_stats3(const void* stack, const void* src,
                                   const void* afy, const void* afx, void* out,
                                   int n_jobs, int n_sub, int hp, int wp,
                                   int hs, int ws, int nbx, int nby, int tile,
                                   int pitch_x, int pitch_y, int bs_y,
                                   int bs_x, int src_y0, int src_x0, int r_y,
-                                  int r_x, int logp, void* stream) {
+                                  int r_x, int logp, int threads, int smem,
+                                  int nox, int n_chunk, int ref_pitch,
+                                  int span_pitch, int src_off, int hs_off,
+                                  int sc_off, int hr_off, int hr_pitch,
+                                  int box_off, int nxs, int npos, int nbox,
+                                  int ny, int nyp, int n_band, void* stream) {
     const MapParams p = map_params(n_sub, hp, wp, hs, ws, nbx, nby, tile,
                                    pitch_x, pitch_y, bs_y, bs_x, src_y0,
                                    src_x0, r_y, r_x, logp);
-    const size_t smem = map_smem(p);
-    cudaError_t err = cudaFuncSetAttribute(
-        sadmap_stats3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    Map3Geom g;
+    g.nox = nox; g.n_chunk = n_chunk; g.ref_pitch = ref_pitch;
+    g.span_pitch = span_pitch; g.src_off = src_off; g.hs_off = hs_off;
+    g.sc_off = sc_off; g.hr_off = hr_off; g.hr_pitch = hr_pitch;
+    g.box_off = box_off; g.nxs = nxs; g.npos = npos; g.nbox = nbox;
+    g.ny = ny; g.nyp = nyp; g.n_band = n_band;
+    if (ref_pitch % 4 || span_pitch % 4 || src_off % 16 || hs_off % 16
+        || hr_off % 16 || hr_pitch % 16 || box_off % 4 || pitch_x % 8
+        || bs_x % 8 || bs_y % 4 || threads % 32 || threads > MAP3_THREADS)
+        return (int)cudaErrorInvalidValue;
     dim3 grid(p.ntx, nby, n_jobs);
-    sadmap_stats3_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)stack, (const uint8_t*)src, (const int*)afy,
-        (const int*)afx, (int*)out, p, mvt::stats3_group(bs_y, bs_x));
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (nox) {
+#define MVT_MAP3(N)                                                          \
+        case N: {                                                            \
+            cudaError_t err = cudaFuncSetAttribute(                          \
+                sadmap3_kernel<N>,                                           \
+                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);          \
+            if (err != cudaSuccess) return (int)err;                         \
+            sadmap3_kernel<N><<<grid, threads, smem, st>>>(                  \
+                (const uint8_t*)stack, (const uint8_t*)src, (const int*)afy, \
+                (const int*)afx, (int*)out, p, g);                           \
+            return (int)cudaGetLastError();                                  \
+        }
+        MVT_MAP3(4) MVT_MAP3(5) MVT_MAP3(6) MVT_MAP3(7) MVT_MAP3(8)
+#undef MVT_MAP3
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

@@ -1,9 +1,9 @@
 // The three block statistics of the SATD cost modes (dct 5-10), shared by
-// the three-stat forms of the SAD map and the two probes.
+// the three-stat forms of the two probes (the three-stat SAD map forms them
+// from transform tables of its own, csrc/sadmap.cu::sadmap3_kernel).
 //
 // Replaces the in-kernel stat body of the TPU kernels,
-// mvtools_tpu/ops/probe.py::_eval_offsets / _kernel_satd and the
-// stats="sad_satd_luma" branch of mvtools_tpu/ops/sadmap.py::_sadmap_kernel.
+// mvtools_tpu/ops/probe.py::_eval_offsets / _kernel_satd.
 //
 // For a source block S and a reference block R of bs_y x bs_x 8-bit pixels:
 //

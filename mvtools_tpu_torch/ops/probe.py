@@ -16,13 +16,14 @@ PyTorch version beside it:
   INVALID_SAD and lose every cost comparison.  A plane smaller than the tile
   window goes to probe_sads instead.
 * fetch_blocks_tiled — [J, nblk, K, bs_y, bs_x] int32 reference blocks at pel
-  positions of a block grid, exact for every block; rows and columns
-  outside the plane are clamped one by one.  A stack smaller than the tile
-  window goes to fetch_blocks instead.
-* fetch_blocks — the same, one window per (block, candidate), with the
-  full-pel origin taken into the plane as a whole, the way a window slice
-  takes it (wrap_clamp).  It serves the DCT costs (dct 1-4), whose
-  candidates are DCT-transformed after the fetch.
+  positions of a block grid, exact for every block, the full-pel origin
+  taken into the plane as a whole, the way a window slice takes it
+  (wrap_clamp).  A stack smaller than the tile window goes to fetch_blocks
+  instead.
+* fetch_blocks — the same function for any stack and candidate set.  It
+  serves the DCT costs (dct 1-4), whose candidates are DCT-transformed
+  after the fetch.  The two fetches share one CUDA kernel and differ in
+  their hand-over and launch count only.
 
 Both probes also come in a three-stat form (stats="sad_satd_luma"): every
 entry is the triple (SAD, SATD, sum of the reference block) that the SATD
@@ -463,18 +464,48 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
 def fetch_blocks_tiled_plain(stack, cand_y, cand_x, bs_y: int, bs_x: int,
                              pel: int) -> torch.Tensor:
     """Plain PyTorch version of the tiled block fetch (same contract as the
-    kernel): rows and columns clamped into the plane one by one."""
+    kernel): the full-pel origin is taken into the plane as a whole
+    (wrap_clamp), as fetch_blocks_plain takes it."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
-    return _gather_blocks_plain(stack, cand_y, cand_x, bs_y, bs_x,
-                                pel.bit_length() - 1)
+    return _fetch_window_plain(stack, cand_y, cand_x, bs_y, bs_x, pel)
 
 
-def _fetch_lib(name: str):
-    fn = getattr(cuda_build.load("fetch"), name)
+def _fetch_window_plain(stack, cand_y, cand_x, bs_y: int, bs_x: int,
+                        pel: int) -> torch.Tensor:
+    """The fetches' function: [..., bs_y, bs_x] windows of the subplane of
+    each candidate's parity, the full-pel origin wrapped once and clamped
+    into [0, Hp - bs_y] x [0, Wp - bs_x] (wrap_clamp)."""
+    logp = pel.bit_length() - 1
+    pelm = pel - 1
+    hp, wp = stack.shape[-2:]
+    sub = (cand_x & pelm) | ((cand_y & pelm) << logp)
+    return _gather_at(stack, sub, wrap_clamp(cand_y >> logp, hp, bs_y),
+                      wrap_clamp(cand_x >> logp, wp, bs_x), bs_y, bs_x)
+
+
+# block widths the fetch kernel (csrc/fetch.cu) has a body of its own for
+FETCH_WIDTHS = (4, 8, 16, 32)
+
+
+def fetch_launch_geom(bs_y: int, bs_x: int) -> dict:
+    """Launch geometry of the fetch kernel: `bsx_t`, the template width (0:
+    the generic body), 2**log_t lanes per candidate, the fewest powers of
+    two that cover the block's int4 groups (its pixels in the generic body
+    without int4 stores), at most a warp, so that a warp still writes 512
+    contiguous bytes a step."""
+    units = bs_y * bs_x // 4 if bs_x % 4 == 0 else bs_y * bs_x
+    log_t = 0
+    while (1 << log_t) < units and log_t < 5:
+        log_t += 1
+    return dict(bsx_t=bs_x if bs_x in FETCH_WIDTHS else 0, log_t=log_t)
+
+
+def _fetch_lib():
+    fn = cuda_build.load("fetch").mvt_fetch_blocks
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -490,16 +521,18 @@ def _check_fetch_args(what, stack, cand_y, cand_x, pel):
         raise ValueError(f"{what}: inconsistent shapes")
 
 
-def _launch_fetch(what, c_name, stack, cand_y, cand_x, bs_y, bs_x, pel):
+def _launch_fetch(what, stack, cand_y, cand_x, bs_y, bs_x, pel):
     _check_fetch_args(what, stack, cand_y, cand_x, pel)
     dev = stack.device
     nj, nblk, kk = cand_y.shape
     out = torch.empty((nj, nblk, kk, bs_y, bs_x), dtype=I32, device=dev)
+    g = fetch_launch_geom(bs_y, bs_x)
     with torch.cuda.device(dev):
-        err = _fetch_lib(c_name)(
+        err = _fetch_lib()(
             stack.data_ptr(), cand_y.data_ptr(), cand_x.data_ptr(),
             out.data_ptr(), nj, pel * pel, stack.shape[2], stack.shape[3],
-            nblk, kk, bs_y, bs_x, pel.bit_length() - 1,
+            nblk, kk, bs_y, bs_x, pel.bit_length() - 1, g["bsx_t"],
+            g["log_t"], int(what == "fetch_blocks_tiled"),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, what)
     launches[what] += 1
@@ -516,7 +549,8 @@ def fetch_blocks_tiled(stack, cand_y, cand_x, bs_y: int, bs_x: int,
 
     stack: [J, pel^2, Hp, Wp] uint8; cand_y/cand_x: [J, nblk, K] int32 pel
     positions of the block origin in the stack.  Exact for every block;
-    rows/columns outside the plane read its edge pixels.  A stack under the
+    the full-pel origin is taken into the plane as a whole (wrap_clamp),
+    as the JAX package's CPU path takes it.  A stack under the
     tile window (tile_params of one block, FETCH_TILE blocks wide) or a grid
     that is not whole rows goes to fetch_blocks, as the JAX package hands it
     to its per-block fetch kernel."""
@@ -528,8 +562,8 @@ def fetch_blocks_tiled(stack, cand_y, cand_x, bs_y: int, bs_x: int,
     if not stack.is_cuda:
         return fetch_blocks_tiled_plain(stack, cand_y, cand_x, bs_y, bs_x,
                                         pel)
-    return _launch_fetch("fetch_blocks_tiled", "mvt_fetch_blocks_tiled",
-                         stack, cand_y, cand_x, bs_y, bs_x, pel)
+    return _launch_fetch("fetch_blocks_tiled", stack, cand_y, cand_x, bs_y,
+                         bs_x, pel)
 
 
 # ---------------------------------------------------------------------------
@@ -546,12 +580,7 @@ def fetch_blocks_plain(stack, cand_y, cand_x, bs_y: int,
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
-    logp = pel.bit_length() - 1
-    pelm = pel - 1
-    hp, wp = stack.shape[-2:]
-    sub = (cand_x & pelm) | ((cand_y & pelm) << logp)
-    return _gather_at(stack, sub, wrap_clamp(cand_y >> logp, hp, bs_y),
-                      wrap_clamp(cand_x >> logp, wp, bs_x), bs_y, bs_x)
+    return _fetch_window_plain(stack, cand_y, cand_x, bs_y, bs_x, pel)
 
 
 def fetch_blocks(stack, cand_y, cand_x, bs_y: int, bs_x: int,
@@ -568,5 +597,5 @@ def fetch_blocks(stack, cand_y, cand_x, bs_y: int, bs_x: int,
         raise ValueError("fetch_blocks: the plane is smaller than a block")
     if not stack.is_cuda:
         return fetch_blocks_plain(stack, cand_y, cand_x, bs_y, bs_x, pel)
-    return _launch_fetch("fetch_blocks", "mvt_fetch_blocks", stack, cand_y,
-                         cand_x, bs_y, bs_x, pel)
+    return _launch_fetch("fetch_blocks", stack, cand_y, cand_x, bs_y, bs_x,
+                         pel)

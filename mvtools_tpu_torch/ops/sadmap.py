@@ -12,7 +12,8 @@ trials, hex2 walk, expanding rings) then runs as lookups into the resulting
 
 With stats="sad_satd_luma" every entry is the triple (SAD, SATD, sum of the
 reference block) that the SATD cost modes (dct 5-10) mix: [J, nblk, Dy, Dx, 3],
-a kernel of its own in the same source file.
+a kernel of its own in the same source file (launch geometry:
+map3_launch_geom).
 
 Contract: map entries are bit-identical to probe SADs (or stat triples) for
 the same candidate.  Candidates outside the grid are the caller's to reject (they
@@ -221,12 +222,101 @@ def map_launch_geom(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
 _GEOM_ARGS = ("threads", "smem", "ref_pitch", "src_stride", "src_off",
               "out_off", "nws", "nox", "n_chunk", "n_rows")
 
+# template instantiations of csrc/sadmap.cu::sadmap3_kernel: full-pel
+# columns a thread owns; its threads per CTA (its __launch_bounds__)
+MAP3_NOX = (4, 5, 6, 7, 8)
+MAP3_MAX_THREADS = 288
+# rows of 4x4 reference positions whose transforms a band holds
+MAP3_BAND = 4
+
+
+def map3_launch_geom(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
+                     tile: int, pitch_x: int) -> dict:
+    """Launch geometry of the three-stat map kernel (K1') for one map
+    shape: the work split and the shared-memory layout.
+
+    Per CTA (job, tile) and subplane, an item is one (block, full-pel grid
+    row, chunk of nox full-pel columns) of that subplane's offsets; a
+    thread owns one item a pass (`passes` passes cover a subplane).  Shared
+    memory holds, in this order: the subplane's reference window
+    ([wy, ref_pitch] bytes), the tile's source span ([bs_y, span_pitch]
+    bytes), the Hadamard transforms of the span's 4x4 source tiles
+    ([bs_y/4, nxs] of 32 bytes), the blocks' source constants (tile ints),
+    one band of transformed 4x4 reference positions ([MAP3_BAND,
+    hr_pitch] bytes, 32 a position, rows padded by 16 bytes against bank
+    conflicts; the column sums of the box sums use it first) and the
+    block-sized box sums of the reference window ([ny, nbox] ints)."""
+    if pel not in (1, 2):
+        raise ValueError("map3_launch_geom: pel must be 1 or 2")
+    if pitch_x % 8 or bs_x % 8 or bs_y % 4:
+        raise ValueError("map3_launch_geom: needs pitch % 8 == 0, "
+                         "bs_x % 8 == 0 and bs_y % 4 == 0")
+    logp = pel.bit_length() - 1
+    min_oy, min_ox = (-r_y) >> logp, (-r_x) >> logp
+    ny = (r_y >> logp) - min_oy + 1
+    nx = (r_x >> logp) - min_ox + 1
+    wy = bs_y + ny - 1
+    span = (tile - 1) * pitch_x + bs_x
+    wx = span + nx - 1
+    rmax = max(_parity_count(r_y, q, pel) for q in range(pel))
+    cmax = max(_parity_count(r_x, q, pel) for q in range(pel))
+    n_chunk = -(-cmax // MAP3_NOX[-1])
+    while (n_chunk < -(-cmax // MAP3_NOX[0])
+           and tile * rmax * (n_chunk + 1) <= MAP3_MAX_THREADS):
+        n_chunk += 1
+    nox = max(MAP3_NOX[0], -(-cmax // n_chunk))
+    items = tile * rmax * n_chunk
+    passes = -(-items // MAP3_MAX_THREADS)
+    nyp = wy - 3
+    n_band = -(-nyp // MAP3_BAND)
+    npos = wx - 3
+    # enough threads for a pass of items and, where the cap allows, for one
+    # column strip of the window each (the box sums' and the bands' phases)
+    threads = -(-min(MAP3_MAX_THREADS, max(-(-items // passes), wx)) // 32) * 32
+    nbox = wx - bs_x + 1
+    nxs = span // 4
+    # the last reference byte an item reads: its column start, the block
+    # row and the funnel shift's spill word
+    col_off = max((_parity_first(r_x, q, pel - 1) >> logp) - min_ox
+                  for q in range(pel))
+    col0_max = (tile - 1) * pitch_x + col_off + (n_chunk - 1) * nox
+    last_word = (col0_max >> 2) + (bs_x >> 2) - 2 + (3 + nox - 1 + 7) // 4 + 1
+    ref_pitch = 4 * max(last_word + 1, -(-wx // 4))
+    if (ref_pitch // 4) % 2 == 0:
+        ref_pitch += 4
+    span_pitch = -(-span // 4) * 4
+    if (span_pitch // 4) % 2 == 0:
+        span_pitch += 4
+    hr_pitch = 32 * npos + 16
+
+    def up16(v):
+        return -(-v // 16) * 16
+
+    src_off = up16(wy * ref_pitch)
+    hs_off = up16(src_off + bs_y * span_pitch)
+    sc_off = hs_off + (bs_y // 4) * nxs * 32
+    hr_off = up16(sc_off + 4 * tile)
+    box_off = hr_off + max(MAP3_BAND * hr_pitch, 4 * ny * wx)
+    smem = box_off + 4 * ny * nbox
+    return dict(threads=threads, smem=smem, passes=passes, items=items,
+                nox=nox, n_chunk=n_chunk, ref_pitch=ref_pitch,
+                span_pitch=span_pitch, src_off=src_off, hs_off=hs_off,
+                sc_off=sc_off, hr_off=hr_off, hr_pitch=hr_pitch,
+                box_off=box_off, nxs=nxs, npos=npos, nbox=nbox, ny=ny,
+                nyp=nyp, n_band=n_band, wy=wy, wx=wx)
+
+
+_GEOM3_ARGS = ("threads", "smem", "nox", "n_chunk", "ref_pitch",
+               "span_pitch", "src_off", "hs_off", "sc_off", "hr_off",
+               "hr_pitch", "box_off", "nxs", "npos", "nbox", "ny", "nyp",
+               "n_band")
+
 
 def _lib(stats3: bool):
     lib = cuda_build.load("sadmap")
     fn = lib.mvt_sad_map_stats3 if stats3 else lib.mvt_sad_map
     if not fn.argtypes:
-        n_int = 18 + (0 if stats3 else len(_GEOM_ARGS))
+        n_int = 18 + len(_GEOM3_ARGS if stats3 else _GEOM_ARGS)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -264,7 +354,8 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
         raise ValueError("sad_map: inconsistent shapes")
     name = "sad_map[stats3]" if stats3 else "sad_map"
     if stats3:
-        geom = ()
+        g = map3_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x)
+        geom = tuple(g[k] for k in _GEOM3_ARGS)
     else:
         g = map_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x)
         geom = tuple(g[k] for k in _GEOM_ARGS)

@@ -179,25 +179,22 @@ def test_gather_blocks_clamps_past_the_top_left_edge(pel):
 
 
 def test_fetch_blocks_reads_edge_pixels_outside_the_plane():
-    """The fetches themselves clamp, so no position can fault: the tiled
-    fetch's rows/columns one by one, the per-block fetch (which the tiled
-    one hands a plane this small to) the block's origin as a whole, the way
-    a window slice takes it (a negative start wraps once round the plane
-    first: probe.wrap_clamp)."""
+    """The fetches themselves clamp, so no position can fault: both the
+    tiled fetch and the per-block fetch (which the tiled one hands a plane
+    this small to) take the block's origin as a whole, the way a window
+    slice takes it (a negative start wraps once round the plane first:
+    probe.wrap_clamp), so every block is a window of the plane."""
     stack = torch.arange(2 * 6 * 8, dtype=torch.uint8).reshape(1, 2, 6, 8)[
         :, :1].contiguous()
     cy = torch.tensor([[[-2], [4]]], dtype=torch.int32)
     cx = torch.tensor([[[-3], [6]]], dtype=torch.int32)
     p = stack[0, 0].to(torch.int32)
-    iy = torch.arange(4)
     out = probe_ops.fetch_blocks_tiled_plain(stack, cy, cx, 4, 4, 1)
-    want0 = p[(iy - 2).clamp(0, 5)][:, (iy - 3).clamp(0, 7)]
-    want1 = p[(iy + 4).clamp(0, 5)][:, (iy + 6).clamp(0, 7)]
-    assert torch.equal(out[0, 0, 0], want0)
-    assert torch.equal(out[0, 1, 0], want1)
+    assert torch.equal(out[0, 0, 0], p[2:6, 4:8])     # -2 -> 4, -3 -> 5
+    assert torch.equal(out[0, 1, 0], p[2:6, 4:8])     # 4 -> 2, 6 -> 4
     out = probe_ops.fetch_blocks_tiled(stack, cy, cx, 4, 4, 1, row_len=2,
                                        pitch_x=4)
-    assert torch.equal(out[0, 0, 0], p[2:6, 4:8])     # -2 -> 4, -3 -> 5
+    assert torch.equal(out[0, 0, 0], p[2:6, 4:8])
     assert torch.equal(out[0, 1, 0], p[2:6, 4:8])
 
 

@@ -7,8 +7,8 @@ size), so each reference below is run through the JAX package once per test
 run and cached as an .npz that every test file (and every pytest-xdist
 worker) loads.  A reference is computed by whichever process first takes
 its lock; the others wait for the file.  Under pytest-xdist the first
-fixture to need a reference also starts two background processes that
-compute four of them in turn while the workers run other tests (see
+fixture to need a reference also starts four background processes that
+compute four of them at once, while the workers compute the other two (see
 _prefetch); each exits when the worker that started it does.
 
 * load(): gray, 3 levels, no overlap, radius 1 (the headline path).
@@ -664,13 +664,17 @@ COMPUTE = {
     "torch_port_reference_recalc": _compute_recalc,
     "torch_port_reference_dct6": _compute_dct6,
 }
-# two background processes, the references in the order each computes them.
-# pytest-xdist hands out the test files with the most tests first; the YUV
-# and Recalculate references are needed by the first tests of files handed
-# out at once, so those workers compute them themselves; the rest are needed
-# later (the dct 6 one by the last test of its file) and are made here
-PREFETCH = (("torch_port_reference_dct6", "torch_port_reference_satd"),
-            ("torch_port_reference", "torch_port_reference_dct"))
+# the background processes, the references each computes.  pytest-xdist
+# hands out the test files with the most tests first, and those are the
+# port's: at the start of a run every worker needs a reference.  The YUV and
+# Recalculate references are needed by the first tests of files handed out
+# at once, so those workers compute them themselves; the other four are
+# needed by the first tests of the other four workers' files, so each has a
+# process of its own and all six are made at once (with two chains of two,
+# two workers waited for a second reference, one of them 268 s, before the
+# JAX package's own longest file could start).
+PREFETCH = (("torch_port_reference_satd",), ("torch_port_reference",),
+            ("torch_port_reference_dct6",), ("torch_port_reference_dct",))
 
 
 def _prefetch() -> None:
