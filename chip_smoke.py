@@ -12,11 +12,13 @@ give it (integers: tolerance 0; the tiled probe also with an `active` mask
 that leaves about 30 % of the entries live, the SAD map also at block
 pitches 14 and 6 and at pel 1, its three-stat form also with 8x8 and 32x32
 blocks and at pel 1, the tiled fetch also on the DCT path's map rows, at
-origins outside the plane and with 8x8 blocks), prints the SASS opcode
-counts of the two kernels redesigned last, checks small end-to-end runs on
-the card
-against the same code on CPU tensors, and drives five main paths at full
-width:
+origins outside the plane and with 8x8 blocks; the uint16 forms of K1-K5
+at the deep-bit YUV420 path's shapes on 16-bit and on 10-bit data, with
+blocks of 0 against the pixel maximum), prints the SASS opcode counts of
+every kernel form, checks small end-to-end runs on the card against the
+same code on CPU tensors (at 8 and at 16 bits, degrain_clip and the gray
+degrain_window), and drives six main paths
+at full width:
 
 * the gray headline path (1920x1080 gray, blk 16, pel 2, 3 levels, Degrain1,
   batch 8) through degrain_window: first on a clip with a flashing region,
@@ -27,6 +29,10 @@ width:
   clip: first with a flash over most of the frame, which makes blocks bad
   down to the coarse levels whose planes only the per-block probe kernel can
   serve, then without it (neither probe kernel may launch);
+* the same flagship path at 16 bits (uint16 planes whose low byte carries
+  data too): the uint16 forms of the SAD map, both probes and the tiled
+  fetch must launch on the clip with the flash, neither probe on the clip
+  without it, and no 8-bit kernel on either;
 * the Recalculate path (1920x1080 gray, pel 2, the full 7-level pyramid:
   Analyse blk 16 with the plain-SAD cost -> Recalculate blk 16 overlap 8 with
   the SATD cost dct 5 -> Degrain1 on the refined field), 8 frame pairs of a
@@ -54,16 +60,17 @@ result.  The last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-additionally traces one more full-width run of each of the nine clips with
-torch.profiler and prints where the device time went (busy share, kernels by
-time, and the summed device time of the SAD map and the tiled probe in
-either form and of the two fetches).
+additionally traces one more full-width run of each of the eleven clips
+with torch.profiler and prints where the device time went (busy share,
+kernels by time, and the summed device time of every kernel form).
 
     python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
 
-drives the full-width paths alone (no kernel comparisons, no small runs, no
-kernels line and no "ok" line), with the package of the checkout at DIR if
-given: the way to compare two trees' paths and kernel sums in one call.
+times the 8-bit kernels at the YUV420 and DCT paths' shapes and drives the
+full-width paths (no other kernel comparison, no small runs, no kernels line
+and no "ok" line), with the package of the checkout at DIR if given: the way
+to compare two trees' kernels, paths and kernel sums in one call.  DIR
+must hold a package that has the uint16 kernel forms and Super.take.
 """
 
 import dataclasses
@@ -144,6 +151,13 @@ DCT_BADSAD = 2500
 # tiled fetch's window (the small clips' and the coarse levels') goes to the
 # per-block one
 FETCH_KERNELS = ("fetch_blocks_tiled", "fetch_blocks")
+# the deep-bit YUV420 path: the flagship configuration at 16 bits; its
+# kernel comparisons also at 10 bits, with a region of 0 against the pixel
+# maximum (EXTREME_REGION: y, x, h, w in luma pixels)
+DEEP_BITS = 16
+EXTREME_REGION = (256, 512, 256, 512)
+U16_KERNELS = ("sad_map[u16]", "probe_sads_tiled[u16]", "probe_sads[u16]",
+               "fetch_blocks_tiled[u16]", "fetch_blocks[u16]")
 
 
 def emit(obj):
@@ -195,8 +209,8 @@ def compare(name, got, want):
 
 def level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv):
     """(LevelCtx, padded stacks per plane) of the jobs (src_idx, ref_idx)."""
-    ctx = _level_ctx(sspec, aspec, lv, sups.map(lambda a: a[src_idx]),
-                     sups.map(lambda a: a[ref_idx]))
+    ctx = _level_ctx(sspec, aspec, lv, sups.take(src_idx),
+                     sups.take(ref_idx))
     return ctx, fe.pad_stacks(ctx)
 
 
@@ -214,11 +228,16 @@ def plane_geom(ctx, plane):
 def case_label(ctx, plane, extra=""):
     kind = "chroma" if plane else "luma"
     ov = f" overlap {ctx.overlap[0]}" if ctx.overlap[0] else ""
-    return f"level {ctx.level} {kind}{ov}{extra}"
+    depth = f" {ctx.bits}-bit" if ctx.bits != 8 else ""
+    return f"level {ctx.level} {kind}{ov}{extra}{depth}"
 
 
 def stats_tag(stats):
     return "" if stats == "sad" else " three stats"
+
+
+def bits_tag(sspec):
+    return "" if sspec.bits == 8 else f" {sspec.bits}-bit"
 
 
 def k1_case(ctx, stacks, gen, plane=0, stats="sad", extra="",
@@ -255,15 +274,22 @@ def k1_case(ctx, stacks, gen, plane=0, stats="sad", extra="",
     ms = time_cuda(lambda: sadmap.sad_map(*args), 5)
     n_entries = out.numel() // (1 if stats == "sad" else 3)
     n_ops = n_entries * bsy * bsx * OPS_PER_PIXEL[stats]
-    n_bytes = (stack.numel() + src_plane.numel()
+    n_bytes = ((stack.numel() + src_plane.numel()) * stack.element_size()
                + 4 * (afy.numel() + afx.numel()) + 4 * out.numel())
     b_ms, b_by = bound(n_bytes, n_ops)
     res = dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               min_entry=int(out.min()), max_entry=int(out.max()))
     if stats == "sad":
-        g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile, pit_x)
+        if stack.dtype == torch.uint8:
+            g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile,
+                                       pit_x)
+        else:
+            g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile,
+                                       pit_x, stack.element_size())
         res["launch"] = {k: g[k] for k in ("threads", "smem", "nws", "nox",
-                                           "n_chunk")}
+                                           "n_chunk", "nbc", "n_part")
+                         if k in g}
     else:
         g = sadmap.map3_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile, pit_x)
         res["launch"] = {k: g[k] for k in ("threads", "smem", "passes", "nox",
@@ -326,9 +352,18 @@ def probe_inputs(ctx, stacks, gen, plane, kk, spread=6, far_share=0.05):
 def probe_bound(stack, cy, src_blocks, out, n_valid, d, bsy, bsx,
                 stats="sad"):
     n_ops = n_valid * d * bsy * bsx * OPS_PER_PIXEL[stats]
-    n_bytes = (8 * cy.numel() + src_blocks.numel() + 4 * out.numel()
-               + min(stack.numel(), n_valid * d * bsy * bsx))
+    n_bytes = (8 * cy.numel() + 4 * out.numel()
+               + (src_blocks.numel() + min(stack.numel(),
+                                           n_valid * d * bsy * bsx))
+               * stack.element_size())
     return bound(n_bytes, n_ops)
+
+
+def kernel_name(base, stack, stats="sad"):
+    """The launch count of a kernel's form for this stack and stats."""
+    if stats != "sad":
+        return base + "[stats3]"
+    return base + "[u16]" if stack.dtype == torch.uint16 else base
 
 
 def live_mask(shape, gen, dev, block_share=0.5, entry_share=0.6):
@@ -367,7 +402,7 @@ def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad",
     label += stats_tag(stats) + (" masked" if masked else "")
     counts0 = read_counts()
     out = run()
-    name = "probe_sads_tiled" + ("" if stats == "sad" else "[stats3]")
+    name = kernel_name("probe_sads_tiled", stack, stats)
     if read_counts()[name] != counts0[name] + 1:
         raise AssertionError(f"{name} {label}: the kernel did not launch")
     want, plain_ms = time_plain(lambda: probe.probe_sads_tiled_plain(
@@ -420,7 +455,7 @@ def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad"):
     args = (stack, cy, cx, src_blocks, offsets, bsy, bsx, ctx.pel, stats)
     label = case_label(ctx, plane, f" pel {ctx.pel} K={kk} D={len(offsets)}"
                        + stats_tag(stats))
-    name = "probe_sads" + ("" if stats == "sad" else "[stats3]")
+    name = kernel_name("probe_sads", stack, stats)
     before = probe.launches[name]
     out = probe.probe_sads(*args)
     if probe.launches[name] != before + 1:
@@ -453,12 +488,20 @@ def gather_index(stack, cy, cx, bsy, bsx, pel):
 
 def library_gather_ms(stack, cy, cx, bsy, bsx, pel, want):
     """Milliseconds of one advanced-indexing gather stack[index] on
-    precomputed index tensors (the yardstick PyTorch call: it writes uint8
-    where the kernels write int32); it must give the same blocks."""
+    precomputed index tensors (the yardstick PyTorch call: it writes pixels
+    where the kernels write int32; a uint16 stack is gathered through its
+    int16 view, since PyTorch's CUDA indexing takes no uint16); it must give
+    the same blocks."""
     index = gather_index(stack, cy, cx, bsy, bsx, pel)
-    if not torch.equal(stack[index].to(torch.int32), want):
+    if stack.dtype == torch.uint16:
+        view = stack.view(torch.int16)
+        got = view[index].to(torch.int32) & 0xFFFF
+    else:
+        view = stack
+        got = stack[index].to(torch.int32)
+    if not torch.equal(got, want):
         raise AssertionError("the library gather computes other blocks")
-    return time_cuda(lambda: stack[index], 10)
+    return time_cuda(lambda: view[index], 10)
 
 
 def fetch_bound(stack, cy, out):
@@ -466,7 +509,8 @@ def fetch_bound(stack, cy, out):
     written as int32, and the stack bytes the blocks need, at most the whole
     stack once."""
     n_pix = out.numel()
-    return bound(4 * n_pix + 8 * cy.numel() + min(stack.numel(), n_pix), 0)
+    return bound(4 * n_pix + 8 * cy.numel()
+                 + min(stack.numel(), n_pix) * stack.element_size(), 0)
 
 
 def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH, before_ms=None):
@@ -491,11 +535,12 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH, before_ms=None):
                         generator=gen, device=dev, dtype=torch.int32)
     pad_x, pad_y = (sspec.hpad >> sub) * sspec.pel, (sspec.vpad >> sub) * sspec.pel
     pitch_x = (meta.blk_size_x - meta.overlap_x) >> sub
-    before = probe.launches["fetch_blocks_tiled"]
+    name = kernel_name("fetch_blocks_tiled", stack)
+    before = probe.launches[name]
     out = gather_blocks(stack, pos_x, pos_y, mvx, mvy, bsy, bsx, 1, pad_x,
                         pad_y, sub, sub, pitch_fp=pitch_x)
-    if probe.launches["fetch_blocks_tiled"] != before + 1:
-        raise AssertionError("fetch_blocks_tiled: the kernel did not launch")
+    if probe.launches[name] != before + 1:
+        raise AssertionError(f"{name}: the kernel did not launch")
     # the same positions through the plain version
     lp = 1
     xa = (((pos_x << 1) + mvx) >> sub) + pad_x
@@ -508,14 +553,14 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH, before_ms=None):
         stack, cy, cx, bsy, bsx, sspec.pel))
     kind = "chroma" if plane else "luma"
     ov = f" overlap {meta.overlap_x}" if meta.overlap_x else ""
-    label = f"level 0 {kind} {bsy}x{bsx}{ov}, {nb} frames"
+    label = f"level 0 {kind} {bsy}x{bsx}{ov}, {nb} frames{bits_tag(sspec)}"
     err = compare(f"fetch_blocks_tiled {label}", out.reshape(want.shape),
                   want)
     ms = time_cuda(lambda: probe.fetch_blocks_tiled(
         stack, cy, cx, bsy, bsx, sspec.pel, row_len=meta.blk_x,
         pitch_x=pitch_x), 10)
     lib_ms = library_gather_ms(stack, cy, cx, bsy, bsx, sspec.pel, want)
-    n_bytes = want.numel() * (1 + 4) + 8 * cy.numel()
+    n_bytes = want.numel() * (stack.element_size() + 4) + 8 * cy.numel()
     b_ms, b_by = bound(n_bytes, 0)
     return dict(case=label, shape=list(want.shape), max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -527,12 +572,12 @@ def k3_direct_case(label, stack, cy, cx, bsy, bsx, pel, row_len):
     """fetch_blocks_tiled on given candidates of a block grid whose blocks
     lie bsx full pels apart, against its plain version, with the library
     gather beside it."""
-    before = probe.launches["fetch_blocks_tiled"]
+    name = kernel_name("fetch_blocks_tiled", stack)
+    before = probe.launches[name]
     out = probe.fetch_blocks_tiled(stack, cy, cx, bsy, bsx, pel,
                                    row_len=row_len, pitch_x=bsx)
-    if probe.launches["fetch_blocks_tiled"] != before + 1:
-        raise AssertionError(f"fetch_blocks_tiled {label}: the kernel did "
-                             "not launch")
+    if probe.launches[name] != before + 1:
+        raise AssertionError(f"{name} {label}: the kernel did not launch")
     want, plain_ms = time_plain(lambda: probe.fetch_blocks_tiled_plain(
         stack, cy, cx, bsy, bsx, pel))
     err = compare(f"fetch_blocks_tiled {label}", out, want)
@@ -563,11 +608,11 @@ def k3_blk8_case(gen, dev):
 def k5_case(label, stack, cy, cx, bsy, bsx, pel):
     """fetch_blocks (the per-block fetch) against its plain version, with
     the library gather beside it."""
-    before = probe.launches["fetch_blocks"]
+    name = kernel_name("fetch_blocks", stack)
+    before = probe.launches[name]
     out = probe.fetch_blocks(stack, cy, cx, bsy, bsx, pel)
-    if probe.launches["fetch_blocks"] != before + 1:
-        raise AssertionError(f"fetch_blocks {label}: the kernel did not "
-                             "launch")
+    if probe.launches[name] != before + 1:
+        raise AssertionError(f"{name} {label}: the kernel did not launch")
     want, plain_ms = time_plain(lambda: probe.fetch_blocks_plain(
         stack, cy, cx, bsy, bsx, pel))
     err = compare(f"fetch_blocks {label}", out, want)
@@ -582,8 +627,9 @@ def k5_case(label, stack, cy, cx, bsy, bsx, pel):
 
 def sass_opcodes(source, function):
     """{opcode with its modifiers: count} of the SASS of every
-    instantiation of a kernel function in a built source's library
-    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+    instantiation of a kernel function (a regular expression searched in
+    the mangled name) in a built source's library (cuobjdump -sass), or
+    None where the toolkit has no cuobjdump."""
     exe = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     if not os.path.exists(exe):
         return None
@@ -592,7 +638,7 @@ def sass_opcodes(source, function):
     counts, inside = {}, False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = function in line
+            inside = re.search(function, line) is not None
         elif inside:
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                           r"([A-Z][A-Za-z0-9_.]*)", line)
@@ -638,12 +684,34 @@ def profile_run(label, fn):
 # names them; the three-stat map and the fetches under their names in this
 # tree and in its parent's, so that --package-root reads both
 KERNEL_NAMES = {
-    "sad_map": r"sadmap_kernel[<(]",
-    "probe_sads_tiled": r"probe_kernel[<(]",
+    "sad_map": r"sadmap_kernel<(unsigned char, )?\d",
+    "probe_sads_tiled": r"probe_kernel<(unsigned char, )?\d",
+    "probe_sads": r"probe_block_kernel(<unsigned char>)?\(",
     "sad_map[stats3]": r"sadmap(3|_stats3)_kernel[<(]",
     "probe_sads_tiled[stats3]": r"probe_stats3_kernel[<(]",
-    "fetch_blocks_tiled": r"fetch_tiled_kernel\(|fetch_kernel<-?\d+, 1>",
-    "fetch_blocks": r"fetch_block_kernel\(|fetch_kernel<-?\d+, 0>",
+    "fetch_blocks_tiled": r"fetch_kernel<(unsigned char, )?-?\d+, 1>",
+    "fetch_blocks": r"fetch_kernel<(unsigned char, )?-?\d+, 0>",
+    "sad_map[u16]": r"sadmap_kernel<unsigned short",
+    "probe_sads_tiled[u16]": r"probe_kernel<unsigned short",
+    "probe_sads[u16]": r"probe_block_kernel<unsigned short>",
+    "fetch_blocks_tiled[u16]": r"fetch_kernel<unsigned short, -?\d+, 1>",
+    "fetch_blocks[u16]": r"fetch_kernel<unsigned short, -?\d+, 0>",
+}
+# the mangled names of the kernels whose SASS the sass phase counts, by
+# form; a uint8 form matches its name in this tree (the pixel type its
+# first template argument, "h") and in its parent's (no pixel type), so
+# that --package-root reads both
+SASS_FORMS = {
+    "sad_map": ("sadmap", r"13sadmap_kernelI(h|Li)"),
+    "probe_sads_tiled": ("probe", r"12probe_kernelI(h|Li)"),
+    "probe_sads": ("probe_block", r"18probe_block_kernel(IhE|EPKh)"),
+    "fetch_blocks_tiled/fetch_blocks": ("fetch", r"12fetch_kernelI(h|Li)"),
+    "sad_map[u16]": ("sadmap", r"13sadmap_kernelIt"),
+    "probe_sads_tiled[u16]": ("probe", r"12probe_kernelIt"),
+    "probe_sads[u16]": ("probe_block", r"18probe_block_kernelItE"),
+    "fetch_blocks_tiled/fetch_blocks[u16]": ("fetch",
+                                             r"12fetch_kernelIt"),
+    "sad_map[stats3]": ("sadmap", r"sadmap3_kernel"),
 }
 
 
@@ -724,12 +792,13 @@ def run_windows(phase, windows, sspec, aspec, dcfg, changes_pixels):
     return res
 
 
-def run_yuv_clip(phase, clip, cfgs):
-    """Drive degrain_clip over a full-width YUV420 clip once, with every
-    count set to 0 just before and read just after; check the outputs;
-    print and return the phase's numbers."""
+def run_yuv_clip(phase, clip, cfgs, bits=8):
+    """Drive degrain_clip over a full-width YUV420 clip of `bits` bits once,
+    with every count set to 0 just before and read just after; check the
+    outputs (the input's dtype, on the card, every plane changed); print
+    and return the phase's numbers."""
     scfg, acfg, dcfg, radius = cfgs
-    fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
+    fmt = VideoFormat(W, H, bits, ColorFamily.YUV420)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -743,7 +812,7 @@ def run_yuv_clip(phase, clip, cfgs):
     plain_on_cuda = plain_calls_on_cuda()
     peak = torch.cuda.max_memory_allocated()
     for got, src in zip(out, clip):
-        if got.shape != src.shape or got.dtype != torch.uint8:
+        if got.shape != src.shape or got.dtype != src.dtype:
             raise AssertionError(f"{phase}: output {tuple(got.shape)} "
                                  f"{got.dtype}")
         if got.device.type != "cuda":
@@ -755,7 +824,8 @@ def run_yuv_clip(phase, clip, cfgs):
         raise AssertionError(f"{phase}: {plain_on_cuda} plain-version "
                              "calls on CUDA tensors")
     frames = clip[0].shape[0]
-    res = {"phase": phase, "size": [W, H], "format": "YUV420",
+    res = {"phase": phase, "size": [W, H], "format": "YUV420", "bits": bits,
+           "dtype": str(out[0].dtype).replace("torch.", ""),
            "frames": frames, "radius": radius, "levels": lv_count,
            "analyse_jobs": 2 * radius * frames,
            "blocks_per_job_level0": info["fields_b"].levels[0].x[0].numel(),
@@ -823,6 +893,154 @@ def yuv_kernel_cases(cfgs, gen, dev):
     return k1, k2, k3, k4
 
 
+def with_extremes(clip, bits):
+    """A deep-bit YUV clip with a region that is 0 in the even frames and
+    the pixel maximum in the odd ones (all planes): a job pairing frame i
+    with i +- 1 then sums 0 against 2^bits - 1 over whole blocks, the
+    largest SADs the kernels must hold exactly."""
+    top = (1 << bits) - 1
+    out = []
+    for p, plane in enumerate(clip):
+        sub = 1 if p else 0
+        plane = plane.clone()
+        y, x, h, w = (v >> sub for v in EXTREME_REGION)
+        for i in range(plane.shape[0]):
+            plane[i, y:y + h, x:x + w] = top if i % 2 else 0
+        out.append(plane)
+    return out
+
+
+def deep_kernel_cases(cfgs, gen, dev, bits):
+    """K1-K5 in their uint16 forms at the shapes the deep-bit YUV420 path
+    gives them (K1/K2/K3 at level 0, luma 16x16 pitch 8 and chroma 8x8
+    pitch 4; K4 on the small planes of levels 4 and 5; K5 as the tiled
+    fetch's hand-over at level 5 and at origins past every edge), on a clip
+    of `bits` bits whose samples use the low bits too, with a region of 0
+    against 2^bits - 1.  At 10 bits also K1 with 128x128 blocks, whose tile
+    the launch geometry splits over CTAs."""
+    from mvtools_tpu_torch.ops import pixels
+    scfg, acfg, _, _ = cfgs
+    fmt = VideoFormat(W, H, bits, ColorFamily.YUV420)
+    sspec = scfg.validate(fmt)
+    aspec = dataclasses.replace(acfg, isb=True).validate(sspec)
+    top = (1 << bits) - 1
+    n = KERNEL_JOBS // 2 + 1
+    clip = with_extremes(make_test_clip_yuv(
+        n, W, H, seed=1, flash=YUV_FLASH, noise=YUV_NOISE, pan=YUV_PAN,
+        bits=bits, device=dev), bits)
+    if clip[0].dtype != pixels.dtype_of(bits):
+        raise AssertionError(f"{bits}-bit clip made as {clip[0].dtype}")
+    sups = build_super(clip, sspec)
+    src_idx = torch.arange(KERNEL_JOBS, device=dev) // 2
+    ref_idx = (src_idx + 1 - 2 * (torch.arange(KERNEL_JOBS, device=dev) % 2)
+               ).clamp(0, n - 1)
+    ring = tuple(fe._ring_offsets(1, 1))
+    walk = tuple(fe._HEXP)
+    grid16 = tuple((dx, dy) for dy in range(-2, 2) for dx in range(-2, 2))
+    k1, k2, k3, k4, k5 = [], [], [], [], []
+    ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
+    for plane in (0, 1):
+        k1.append(k1_case(ctx, stacks, gen, plane))
+        offsets = HEXAGON if plane == 0 else grid16
+        label = case_label(ctx, plane, " K=1 D=%d" % len(offsets))
+        k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane))
+        k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane,
+                          masked=True))
+        k3.append(k3_case(sspec, aspec.meta, sups, gen, plane, frames=n))
+    # the largest sums: every source block 0, every reference pixel the
+    # maximum, so every entry is 16 * 16 * (2^bits - 1)
+    def full(t, v):
+        return pixels.narrow(torch.full(t.shape, v, dtype=torch.int32,
+                                        device=dev), t.dtype)
+
+    xctx = ctx._replace(src_planes=tuple(full(p, 0)
+                                         for p in ctx.src_planes))
+    xstacks = tuple(full(t, top) for t in stacks)
+    k1.append(k1_case(xctx, xstacks, gen, extra=" 0 against the maximum"))
+    k2.append(k2_case(xctx, xstacks, gen, HEXAGON, 1,
+                      case_label(ctx, 0, " K=1 D=6 0 against the maximum")))
+    if k1[-1]["max_entry"] != 16 * 16 * top or k1[-1]["min_entry"] != \
+            16 * 16 * top:
+        raise AssertionError(f"sad_map {k1[-1]['case']}: entries "
+                             f"{k1[-1]['min_entry']}..{k1[-1]['max_entry']}"
+                             f", not {16 * 16 * top}")
+    del xctx, xstacks
+    # K5: origins anywhere from 40 pixels before the stack to 40 past its
+    # end, at level 0 (luma)
+    stack, pel = stacks[0], ctx.pel
+    hp, wp = stack.shape[2:]
+    _, cy, _, _, _, _, _ = probe_inputs(ctx, stacks, gen, 0, 1)
+    ey = torch.randint(-40 * pel, (hp + 40) * pel, cy.shape[:2] + (4,),
+                       generator=gen, device=dev, dtype=torch.int32)
+    ex = torch.randint(-40 * pel, (wp + 40) * pel, ey.shape, generator=gen,
+                       device=dev, dtype=torch.int32)
+    ey[:, :, 0] = (hp - 16 + 5) * pel + 1
+    ex[:, :, 1] = (wp - 16 + 7) * pel + 1
+    k5.append(k5_case(f"level 0 origins past every edge K=4 {bits}-bit",
+                      stack, ey, ex, 16, 16, ctx.pel))
+    k3.append(k3_direct_case(f"level 0 origins past every edge K=4 "
+                             f"{bits}-bit", stack, ey, ex, 16, 16, ctx.pel,
+                             ctx.nblk[0]))
+    del ctx, stacks, stack
+    for lv, plane, sets in ((4, 1, ((grid16, 1), (ring, 1), (((0, 0),), 6))),
+                            (5, 0, ((HEXAGON, 1), (walk, 1),
+                                    (((0, 0),), 6), (((0, 0),), 1)))):
+        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
+        for offsets, kk in sets:
+            k4.append(k4_case(ctx, stacks, gen, offsets, kk, plane))
+        if lv == 5:
+            # K5 as the tiled fetch's hand-over: a map row on level 5's
+            # stack, which is under the tiled fetch's window
+            stack = stacks[0]
+            _, cy, cx, _, _, _, _ = probe_inputs(ctx, stacks, gen, 0, 1,
+                                                 spread=4, far_share=0.0)
+            row = torch.arange(-7, 8, device=dev, dtype=torch.int32)
+            rcx = (cx + row).contiguous()
+            rcy = (cy + 3).expand_as(rcx).contiguous()
+            before = read_counts()
+            probe.fetch_blocks_tiled(stack, rcy, rcx, 16, 16, ctx.pel,
+                                     row_len=ctx.nblk[0], pitch_x=8)
+            after = read_counts()
+            if (after["fetch_blocks[u16]"] != before["fetch_blocks[u16]"] + 1
+                    or after["fetch_blocks_tiled[u16]"]
+                    != before["fetch_blocks_tiled[u16]"]):
+                raise AssertionError("fetch_blocks_tiled: the level-5 "
+                                     f"{bits}-bit stack was not handed to "
+                                     "fetch_blocks")
+            k5.append(k5_case(f"level 5 map row K=15 (the tiled fetch's "
+                              f"hand-over) {bits}-bit", stack, rcy, rcx, 16,
+                              16, ctx.pel))
+        del ctx, stacks
+    del sups, clip
+    if bits == 10:
+        k1.append(k1_split_case(gen, dev))
+    torch.cuda.empty_cache()
+    return k1, k2, k3, k4, k5
+
+
+def k1_split_case(gen, dev):
+    """K1 at 10 bits with 128x128 blocks (overlap 60: pitch 68, two blocks
+    a tile) on level 0 of a 1080p gray clip, 4 jobs: the whole tile's
+    staging would pass the card's shared memory, so the launch geometry
+    gives each of the tile's blocks a CTA of its own."""
+    fmt = VideoFormat(W, H, 10, ColorFamily.GRAY)
+    clip = make_test_clip_yuv(5, W, H, seed=4, noise=YUV_NOISE, pan=YUV_PAN,
+                              bits=10, device=dev)[0]
+    sspec = SuperConfig(pel=2, levels=1, chroma=False).validate(fmt)
+    aspec = AnalyseConfig(blksize=128, overlap=60, levels=1,
+                          chroma=False).validate(sspec)
+    sups = build_super([clip], sspec)
+    ctx, stacks = level_inputs(sspec, aspec, sups,
+                               torch.tensor([1, 1, 3, 3], device=dev),
+                               torch.tensor([2, 0, 4, 2], device=dev), 0)
+    case = k1_case(ctx, stacks, gen, extra=" 128x128")
+    if case["launch"]["nbc"] >= fe._map_tile(ctx):
+        raise AssertionError(f"sad_map {case['case']}: the tile was not "
+                             f"split {case['launch']}")
+    del ctx, stacks, sups, clip
+    return case
+
+
 def small_end_to_end_yuv(cfgs, dev):
     """degrain_clip at 256x192 YUV420, the slice's configuration, on the
     card against the same code on CPU tensors."""
@@ -864,6 +1082,87 @@ def small_end_to_end_yuv(cfgs, dev):
           "frames": SMALL_YUV_T, "radius": radius,
           "levels": len(info_gpu["fields_b"].levels),
           "bit_equal_to_cpu": True, "launches": counts})
+
+
+def small_end_to_end_yuv16(cfgs, dev):
+    """degrain_clip at 256x192 YUV420, 16 bits (the slice's configuration),
+    on the card against the same code on CPU tensors; the uint16 forms of
+    the map, both probes and the per-block fetch must launch, and no uint8
+    kernel."""
+    scfg, acfg, dcfg, radius = cfgs
+    fmt = VideoFormat(SMALL_W, SMALL_H, DEEP_BITS, ColorFamily.YUV420)
+    small = make_test_clip_yuv(SMALL_YUV_T, SMALL_W, SMALL_H, seed=2,
+                               flash=SMALL_YUV_FLASH, noise=YUV_NOISE,
+                               bits=DEEP_BITS, device="cpu")
+    reset_counts()
+    info_gpu, info_cpu = {}, {}
+    out_gpu = degrain_clip([p.to(dev) for p in small], fmt, scfg, acfg, dcfg,
+                           radius, info=info_gpu)
+    counts = read_counts()
+    if plain_calls_on_cuda():
+        raise AssertionError("small end-to-end yuv16: a plain version ran "
+                             "on CUDA tensors")
+    out_cpu = degrain_clip(small, fmt, scfg, acfg, dcfg, radius,
+                           info=info_cpu)
+    for name in ("fields_b", "fields_f"):
+        for lv, (lg, lc) in enumerate(zip(info_gpu[name].levels,
+                                          info_cpu[name].levels)):
+            for key in ("x", "y", "sad"):
+                if not torch.equal(getattr(lg, key).cpu(), getattr(lc, key)):
+                    raise AssertionError(
+                        f"small end-to-end yuv16: {name} level {lv} {key} "
+                        "differs between the card and the CPU")
+    for p, (a, b) in enumerate(zip(out_gpu, out_cpu)):
+        if a.dtype != torch.uint16 or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"small end-to-end yuv16: plane {p} differs "
+                                 "between the card and the CPU")
+        if torch.equal(b, small[p]):
+            raise AssertionError(f"small end-to-end yuv16: plane {p} came "
+                                 "out as it went in")
+    # at this size every level-0 stack is under the tiled fetch's window,
+    # so Degrain's fetches go to the per-block one
+    needed = ("sad_map[u16]", "probe_sads_tiled[u16]", "probe_sads[u16]",
+              "fetch_blocks[u16]")
+    if min(counts[k] for k in needed) < 1:
+        raise AssertionError(f"small end-to-end yuv16: a uint16 kernel "
+                             f"never launched {counts}")
+    u8 = {k: v for k, v in counts.items() if v and k not in U16_KERNELS}
+    if u8:
+        raise AssertionError(f"small end-to-end yuv16: an 8-bit kernel ran "
+                             f"{u8}")
+    # the gray headline entry point on the luma of the same clip
+    g_sspec, g_aspec, g_dcfg = headline_specs(SMALL_W, SMALL_H,
+                                              bits=DEEP_BITS)
+    reset_counts()
+    win_gpu = degrain_window(small[0].to(dev), g_sspec, g_aspec, g_dcfg,
+                             RADIUS)
+    win_counts = read_counts()
+    if plain_calls_on_cuda():
+        raise AssertionError("small end-to-end yuv16: a plain version ran "
+                             "on CUDA tensors in degrain_window")
+    win_cpu = degrain_window(small[0], g_sspec, g_aspec, g_dcfg, RADIUS)
+    inner = small[0][RADIUS:SMALL_YUV_T - RADIUS]
+    if (win_gpu.dtype != torch.uint16 or not torch.equal(win_gpu.cpu(),
+                                                         win_cpu)
+            or torch.equal(win_cpu, inner)):
+        raise AssertionError("small end-to-end yuv16: degrain_window's "
+                             "16-bit gray output differs between the card "
+                             "and the CPU, or came out as it went in")
+    # the flash sends the search through its rescue: a probe must launch
+    u16 = {k: v for k, v in win_counts.items() if v and k in U16_KERNELS}
+    if (not u16.get("sad_map[u16]")
+            or not any(k.startswith("probe") for k in u16)
+            or not any(k.startswith("fetch") for k in u16)
+            or len(u16) < sum(1 for v in win_counts.values() if v)):
+        raise AssertionError(f"small end-to-end yuv16: degrain_window "
+                             f"missed a uint16 kernel or ran an 8-bit one "
+                             f"{win_counts}")
+    emit({"phase": "small_end_to_end_yuv16", "size": [SMALL_W, SMALL_H],
+          "bits": DEEP_BITS, "frames": SMALL_YUV_T, "radius": radius,
+          "levels": len(info_gpu["fields_b"].levels),
+          "bit_equal_to_cpu": True, "launches": counts,
+          "gray_window_bit_equal_to_cpu": True,
+          "gray_window_launches": win_counts})
 
 
 def chain_specs(width, height, dct_analyse, dct_recalculate=5,
@@ -910,7 +1209,7 @@ def satd_chain(clip, specs, info):
 
     t0 = mark()
     sups = build_super([clip], sspec)
-    sup_s, sup_r = sups.map(lambda a: a[src_t]), sups.map(lambda a: a[ref_t])
+    sup_s, sup_r = sups.take(src_t), sups.take(ref_t)
     t1 = mark()
     mvb = analyse_batch(sup_s, sup_r, aspec)
     t2 = mark()
@@ -1342,6 +1641,84 @@ def kernels_vs_plain(dev):
             "probe_sads[stats3]": s4[0], "fetch_blocks": k5_cases[0]}
 
 
+def deep_kernels_vs_plain(cfgs, dev):
+    """The uint16 forms of K1-K5 against their plain versions on the card
+    (tolerance 0) at the deep-bit YUV420 path's shapes, on 16-bit and on
+    10-bit data; prints the phase and returns the 16-bit cases that the
+    kernels line reports."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    by_bits = {bits: deep_kernel_cases(cfgs, gen, dev, bits)
+               for bits in (DEEP_BITS, 10)}
+    names = ("sad_map[u16]", "probe_sads_tiled[u16]",
+             "fetch_blocks_tiled[u16]", "probe_sads[u16]",
+             "fetch_blocks[u16]")
+    emit({"phase": "kernels_vs_plain_u16", "tolerance": 0,
+          **{name: by_bits[DEEP_BITS][i] + by_bits[10][i]
+             for i, name in enumerate(names)}})
+    k1, k2, k3, k4, k5 = by_bits[DEEP_BITS]
+    return {"sad_map[u16]": k1[0], "probe_sads_tiled[u16]": k2[0],
+            "fetch_blocks_tiled[u16]": k3[0], "probe_sads[u16]": k4[0],
+            "fetch_blocks[u16]": k5[-1]}
+
+
+def u8_kernel_times(cfgs, dev):
+    """The 8-bit kernels at the YUV420 and DCT paths' shapes (K1-K5),
+    against their plain versions, for --paths-only: with --package-root the
+    other tree's kernels, so that one call times both trees in turns."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    k1, k2, k3, k4 = yuv_kernel_cases(cfgs, gen, dev)
+    k5, k3_dct = dct_kernel_cases(gen, dev)
+    emit({"phase": "u8_kernel_times",
+          **{name: [{k: c[k] for k in ("case", "ms", "bound_ms", "plain_ms")}
+                    for c in cases]
+             for name, cases in (("sad_map", k1), ("probe_sads_tiled", k2),
+                                 ("fetch_blocks_tiled", k3 + k3_dct),
+                                 ("probe_sads", k4), ("fetch_blocks", k5))}})
+
+
+def run_yuv16_paths(cfgs, dev, profile):
+    """The flagship YUV420 path at 16 bits and full width through
+    degrain_clip: first with the flash (K1, K2, K4 and K3 in their uint16
+    forms must launch), then without it (neither probe kernel may); no
+    8-bit kernel may launch on either."""
+    fmt = VideoFormat(W, H, DEEP_BITS, ColorFamily.YUV420)
+    flash_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, flash=YUV_FLASH,
+                                    noise=YUV_NOISE, pan=YUV_PAN,
+                                    bits=DEEP_BITS, device=dev)
+    degrain_clip(flash_clip, fmt, *cfgs)                      # warm-up
+    res = run_yuv_clip("yuv16_main_path", flash_clip, cfgs, DEEP_BITS)
+    c = res["launches"]
+    needed = ("sad_map[u16]", "probe_sads_tiled[u16]", "probe_sads[u16]",
+              "fetch_blocks_tiled[u16]")
+    if min(c[k] for k in needed) < 1:
+        raise AssertionError(f"yuv16 main path: a kernel never launched {c}")
+    calm_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, noise=YUV_NOISE,
+                                   pan=YUV_PAN, bits=DEEP_BITS, device=dev)
+    calm = run_yuv_clip("yuv16_main_path_calm", calm_clip, cfgs, DEEP_BITS)
+    cc = calm["launches"]
+    if cc["probe_sads_tiled[u16]"] or cc["probe_sads[u16]"]:
+        raise AssertionError(f"yuv16 main path without the flash: the "
+                             f"rescue ran {cc}")
+    if cc["sad_map[u16]"] < 1 or cc["fetch_blocks_tiled[u16]"] < 1:
+        raise AssertionError(f"yuv16 main path without the flash: a kernel "
+                             f"never launched {cc}")
+    for phase, counts in (("yuv16_main_path", c),
+                          ("yuv16_main_path_calm", cc)):
+        u8 = {k: v for k, v in counts.items() if v and k not in U16_KERNELS}
+        if u8:
+            raise AssertionError(f"{phase}: an 8-bit kernel ran {u8}")
+    if profile:
+        profile_run("yuv16_main_path",
+                    lambda: degrain_clip(flash_clip, fmt, *cfgs))
+        profile_run("yuv16_main_path_calm",
+                    lambda: degrain_clip(calm_clip, fmt, *cfgs))
+    del flash_clip, calm_clip
+    torch.cuda.empty_cache()
+    return res, calm
+
+
 def small_end_to_end(dev):
     """The gray headline path at 256x192 (degrain_window) on the card
     against the same code on CPU tensors."""
@@ -1394,11 +1771,11 @@ def main():
     emit({"phase": "build", "seconds": build_s,
           "sources": [f"mvtools_tpu_torch/csrc/{n}.cu"
                       for n in cuda_build.SOURCES]})
-    if not paths_only:
-        # the instructions of the two kernels this tree redesigned
-        emit({"phase": "sass", "sadmap3_kernel": sass_opcodes(
-            "sadmap", "sadmap3_kernel"), "fetch_kernel": sass_opcodes(
-            "fetch", "fetch_kernel")})
+    # the instructions of each kernel form (with --package-root, of the
+    # other tree's build)
+    emit({"phase": "sass", **{form: sass_opcodes(source, pattern)
+                              for form, (source, pattern)
+                              in SASS_FORMS.items()}})
 
     # ---- kernels against their plain versions -----------------------------
     sspec, aspec, dcfg = headline_specs(W, H)
@@ -1406,12 +1783,16 @@ def main():
     gray_kernels = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled")
     if not paths_only:
         shown = kernels_vs_plain(dev)
+        shown.update(deep_kernels_vs_plain(cfgs, dev))
         dct_vs_cpu(dev)
         # ---- small end-to-end: card against the same code on the CPU ------
         small_end_to_end(dev)
         small_end_to_end_yuv(cfgs, dev)
+        small_end_to_end_yuv16(cfgs, dev)
         small_end_to_end_satd(dev)
         small_end_to_end_dct(dev)
+    else:
+        u8_kernel_times(cfgs, dev)
 
     # ---- gray main path at full width ---------------------------------------
     n_windows = 2
@@ -1472,6 +1853,9 @@ def main():
 
     del flash_clip, calm_clip
     torch.cuda.empty_cache()
+
+    # ---- the YUV420 path at 16 bits, full width ---------------------------
+    yuv16, yuv16_calm = run_yuv16_paths(cfgs, dev, profile)
 
     # ---- Recalculate path at full width -------------------------------------
     recalc_specs = chain_specs(W, H, 0)
@@ -1554,7 +1938,9 @@ def main():
     # ---- the kernels line --------------------------------------------------
     by_path = {"main_path": gray_counts, "yuv_main_path": counts,
                "recalc_main_path": rc, "satd_analyse_path": sc,
-               "dct_analyse_path": dct["launches"]}
+               "dct_analyse_path": dct["launches"],
+               "yuv16_main_path": yuv16["launches"],
+               "yuv16_main_path_calm": yuv16_calm["launches"]}
 
     def entry(name, source, replaces, case, path="yuv_main_path"):
         return dict(name=name, route="cuda", source=source,
@@ -1587,7 +1973,27 @@ def main():
               "satd_analyse_path"),
         entry("fetch_blocks", "mvtools_tpu_torch/csrc/fetch.cu",
               "mvtools_tpu/ops/probe.py:899", shown["fetch_blocks"],
-              "dct_analyse_path")]})
+              "dct_analyse_path"),
+        entry("sad_map[u16]", "mvtools_tpu_torch/csrc/sadmap.cu",
+              "mvtools_tpu/ops/sadmap.py:145", shown["sad_map[u16]"],
+              "yuv16_main_path"),
+        entry("probe_sads_tiled[u16]", "mvtools_tpu_torch/csrc/probe.cu",
+              "mvtools_tpu/ops/probe.py:632", shown["probe_sads_tiled[u16]"],
+              "yuv16_main_path"),
+        entry("fetch_blocks_tiled[u16]", "mvtools_tpu_torch/csrc/fetch.cu",
+              "mvtools_tpu/ops/probe.py:970",
+              shown["fetch_blocks_tiled[u16]"], "yuv16_main_path"),
+        entry("probe_sads[u16]", "mvtools_tpu_torch/csrc/probe_block.cu",
+              "mvtools_tpu/ops/probe.py:317", shown["probe_sads[u16]"],
+              "yuv16_main_path"),
+        # K5's uint16 form is the tiled fetch's hand-over for stacks under
+        # its window: at 1080p every level-0 stack Degrain reads is wider,
+        # so it is off the full-width 16-bit path (0 launches there, as the
+        # JAX package's path at 1080p never reaches its _fetch_kernel); it
+        # launches in small_end_to_end_yuv16, whose line shows the count
+        entry("fetch_blocks[u16]", "mvtools_tpu_torch/csrc/fetch.cu",
+              "mvtools_tpu/ops/probe.py:899", shown["fetch_blocks[u16]"],
+              "yuv16_main_path")]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi.splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,11 +15,15 @@ lockstep Analyse -> Recalculate -> Degrain for 8-bit GRAY and YUV clips (pel
 and EXHAUSTIVE), with the plain-SAD cost (dct 0), the DCT costs (dct 1-4)
 and the SATD costs (dct 5-10), and the entry points analyse / analyse_batch,
 recalculate, degrain.degrain, models.denoise.degrain_window and
-models.denoise.degrain_clip.  Not ported: the other searches (UMH, ONETIME,
-NSTEP, LOGARITHMIC, HORIZONTAL, VERTICAL), trymany, divide, engine="exact",
-pel 4, 16-bit clips, fields.  Each raises NotImplementedError.
+models.denoise.degrain_clip; and Super -> batched lockstep Analyse (dct 0)
+-> Degrain for clips of 9 to 16 bits (uint16 pixels) whose block SADs stay
+under 2^24 (16-bit: blocks up to 16x16).  Not ported: the other searches
+(UMH, ONETIME, NSTEP, LOGARITHMIC, HORIZONTAL, VERTICAL), trymany, divide,
+engine="exact", pel 4, fields; at 9 to 16 bits Recalculate, dct 1-10 and
+larger blocks.  Each raises NotImplementedError.
 
-Precision: the pipeline is integer (pixels uint8, block math int32, costs
+Precision: the pipeline is integer (pixels uint8 or uint16, block math
+int32, costs
 int64) with three float64 islands (lambda adaptation, degrain weights, the
 DCT of the dct 1-4 costs), kept in float64 on the device.
 """

@@ -14,16 +14,18 @@ badcount feedback (PlaneOfBlocks.cpp:942-945) is per-block instead of
 globally accumulated.
 
 Every tensor carries an explicit leading job axis [J, ...]; analyse() is
-the J = 1 case of analyse_batch().  Pixels are uint8, block math int32,
-costs int64.
+the J = 1 case of analyse_batch().  Pixels are uint8 (uint16 for clips of
+9 to 16 bits), block math int32, costs int64.
 
 Float islands: the lambda adaptation uses C doubles (pobFetchPredictors
 PlaneOfBlocks.cpp:461-462), reproduced here in float64 on the device.
 
 Ported: luma and chroma, overlapped block grids, the plain-SAD cost (dct 0),
-the DCT costs (dct 1-4) and the SATD costs (dct 5-10), pel 1/2, 8-bit,
-searches HEX2 and EXHAUSTIVE, no trymany/divide/field_shift, every level on
-the dense map.  Anything else raises NotImplementedError.
+the DCT costs (dct 1-4) and the SATD costs (dct 5-10), pel 1/2, 8-bit, and
+9- to 16-bit clips with dct 0 while a block's SAD stays under 2^24 (16-bit:
+blocks up to 16x16), searches HEX2 and EXHAUSTIVE, no
+trymany/divide/field_shift, every level on the dense map.  Anything else
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from .core.config import AnalyseSpec
 from .core.types import MVField, MVPlaneField, SearchType
 from .field_engine import mix_dct_cost, mix_dct_cost_sums, mix_satd_cost
 from .ops import dct as dct_ops
+from .ops import pixels
 from .ops import sad as sad_ops
 from .ops.pad import edge_pad
 from .super import Super
@@ -93,6 +96,9 @@ class DenseEvaluator:
     dctmode 5-10 the SATD mix: the transform is taken per block on block
     views of the shifted region, the reference sums come from the same box
     sums.
+
+    The differences run in int16 for 8-bit pixels and in int32 for deeper
+    ones, whose differences int16 cannot hold.
     """
 
     def __init__(self, ctx: LevelCtx, pad: int, dctmode: int = 0,
@@ -117,8 +123,9 @@ class DenseEvaluator:
         # luma block-grid region and padded ref stack
         self.hr = (nby - 1) * (bsy - ovy) + bsy
         self.wr = (nbx - 1) * (bsx - ovx) + bsx
-        self.src_region = ctx.src_planes[0][
-            :, vpad:vpad + self.hr, hpad:hpad + self.wr].to(torch.int16)
+        self._work = torch.int16 if ctx.bits == 8 else torch.int32
+        self.src_region = self._diffable(ctx.src_planes[0][
+            :, vpad:vpad + self.hr, hpad:hpad + self.wr])
         self.ref_pad = edge_pad(ctx.ref_stacks[0], pad, pad, pad, pad)
         self.base_y = vpad + pad
         self.base_x = hpad + pad
@@ -127,13 +134,19 @@ class DenseEvaluator:
             self.hr_c = (nby - 1) * ((bsy - ovy) >> logy) + bcy
             self.wr_c = (nbx - 1) * ((bsx - ovx) >> logx) + bcx
             self.src_regions_c = tuple(
-                ctx.src_planes[p][:, vpad_c:vpad_c + self.hr_c,
-                                  hpad_c:hpad_c + self.wr_c].to(torch.int16)
+                self._diffable(ctx.src_planes[p][
+                    :, vpad_c:vpad_c + self.hr_c, hpad_c:hpad_c + self.wr_c])
                 for p in (1, 2))
             self.ref_pads_c = tuple(edge_pad(ctx.ref_stacks[p], pc, pc, pc, pc)
                                     for p in (1, 2))
             self.base_y_c = vpad_c + pc
             self.base_x_c = hpad_c + pc
+
+    def _diffable(self, pix):
+        """Pixels in the dtype the differences run in."""
+        if self._work == torch.int16:
+            return pix.to(torch.int16)
+        return pixels.widen(pix)
 
     @staticmethod
     def _block_sums(diff, bs, ov, nb):
@@ -179,14 +192,13 @@ class DenseEvaluator:
         sx = min(max(sx, 0), wp - wr)
         return ref_pad[:, idx, sy:sy + hr, sx:sx + wr]
 
-    @staticmethod
-    def _shifted_sads(src_region, ref_pad, idx, sy, sx, bs, ov, nb):
+    def _shifted_sads(self, src_region, ref_pad, idx, sy, sx, bs, ov, nb):
         """[J, nblk] int64 SADs of the block grid of src_region [J, hr, wr]
         against subplane idx of ref_pad at region origin (sy, sx)."""
-        region = DenseEvaluator._shifted_region(ref_pad, idx, sy, sx,
-                                                *src_region.shape[-2:])
-        diff = (src_region - region.to(torch.int16)).abs_()
-        return DenseEvaluator._block_sums(diff, bs, ov, nb)
+        region = self._shifted_region(ref_pad, idx, sy, sx,
+                                      *src_region.shape[-2:])
+        diff = (src_region - self._diffable(region)).abs_()
+        return self._block_sums(diff, bs, ov, nb)
 
     def luma_sads(self, vx: int, vy: int) -> torch.Tensor:
         """[J, nblk] int64 luma cost at the uniform pel-units displacement
@@ -703,6 +715,9 @@ def _unported_costs(spec: AnalyseSpec):
         (1 <= spec.dct <= 4 and (m.bits_per_sample != 8 or m.pel == 4),
          f"dct={spec.dct} with {m.bits_per_sample}-bit input at pel={m.pel} "
          "(the DCT costs dct 1-4 are ported for 8-bit input at pel 1 and 2)"),
+        (spec.dct >= 5 and m.bits_per_sample != 8,
+         f"dct={spec.dct} with {m.bits_per_sample}-bit input (the SATD "
+         "costs dct 5-10 are ported for 8-bit input)"),
         (spec.dct >= 5 and not sad_ops.satd_supported(m.blk_size_x,
                                                       m.blk_size_y),
          f"dct={spec.dct} with {m.blk_size_x}x{m.blk_size_y} blocks (no SATD "
@@ -713,7 +728,6 @@ def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
     m = spec.meta
     unported = _unported_costs(spec) + [
         (sspec.pel == 4, "pel=4"),
-        (sspec.bits != 8, "16-bit clips"),
         (spec.trymany, "trymany=True"),
         (spec.divide != 0, "divide != 0"),
         (field_shift != 0, "field_shift != 0"),

@@ -33,8 +33,9 @@ def require_device(device) -> torch.device:
 
 
 def clip_from_numpy(planes: Sequence[np.ndarray], device="cuda"):
-    """[Y] or [Y, U, V] numpy planes ([T, H, W] uint8 each) -> the list of
-    tensors on `device` that build_super and degrain_clip take."""
+    """[Y] or [Y, U, V] numpy planes ([T, H, W] each, uint8, or uint16 for
+    a clip of 9 to 16 bits) -> the list of tensors on `device` that
+    build_super and degrain_clip take, of the same dtype."""
     dev = require_device(device)
     return [torch.from_numpy(np.ascontiguousarray(p)).to(dev) for p in planes]
 

@@ -34,13 +34,19 @@
 // candidate, so a block inside the plane pays nothing for it.  The launch
 // geometry (template width, lanes per candidate) is computed by
 // ops/probe.py::fetch_launch_geom.
+//
+// A uint16 stack (9- to 16-bit clips) takes a second instantiation of the
+// same body: four pixels are two 32-bit words, each read aligned or as two
+// aligned words and a 16-bit funnel shift; the output stays int32.  0.141
+// ms at the YUV luma shape [7, 32026, 1, 16, 16] (the 8-bit form: 0.12;
+// H100 80GB HBM3, 700 W), 1.37x its byte bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// Four pixels starting at p, as one little-endian word.
+// Four 8-bit pixels starting at p, as one little-endian word.
 __device__ __forceinline__ uint32_t load4(const uint8_t* p) {
     const unsigned a = (unsigned)((uintptr_t)p & 3);
     const uint32_t* w = reinterpret_cast<const uint32_t*>(p - a);
@@ -49,9 +55,31 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* p) {
     return a ? __funnelshift_r(w0, __ldg(w + 1), 8 * a) : w0;
 }
 
-// One candidate's block: T = 1 << log_t lanes, lane `lane` of them.
-template <int BSX>
-__device__ __forceinline__ void fetch_one(const uint8_t* __restrict__ stack,
+// Two 16-bit pixels starting at p (2-byte aligned), as one word.
+__device__ __forceinline__ uint32_t load2(const uint16_t* p) {
+    const unsigned a = (unsigned)((uintptr_t)p & 2);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(
+        reinterpret_cast<const uint8_t*>(p) - a);
+    const uint32_t w0 = __ldg(w);
+    return a ? __funnelshift_r(w0, __ldg(w + 1), 16) : w0;
+}
+
+// Four pixels starting at p, widened to int32.
+__device__ __forceinline__ int4 load4px(const uint8_t* p) {
+    const uint32_t w = load4(p);
+    return make_int4((int)(w & 255u), (int)((w >> 8) & 255u),
+                     (int)((w >> 16) & 255u), (int)(w >> 24));
+}
+
+__device__ __forceinline__ int4 load4px(const uint16_t* p) {
+    const uint32_t lo = load2(p), hi = load2(p + 2);
+    return make_int4((int)(lo & 0xffffu), (int)(lo >> 16),
+                     (int)(hi & 0xffffu), (int)(hi >> 16));
+}
+
+// One candidate's block: 1 << log_t lanes (t of them), lane `lane` of them.
+template <typename T, int BSX>
+__device__ __forceinline__ void fetch_one(const T* __restrict__ stack,
                                           int cy, int cx, int* out, int job,
                                           int n_sub, int hp, int wp, int bs_y,
                                           int bs_x, int logp, int lane,
@@ -63,8 +91,8 @@ __device__ __forceinline__ void fetch_one(const uint8_t* __restrict__ stack,
     fx += fx < 0 ? wp : 0;
     fy = fy < 0 ? 0 : (fy > hp - bs_y ? hp - bs_y : fy);
     fx = fx < 0 ? 0 : (fx > wp - bs_x ? wp - bs_x : fx);
-    const uint8_t* src = stack + ((size_t)job * n_sub + sub) * hp * wp
-                         + fy * wp + fx;
+    const T* src = stack + ((size_t)job * n_sub + sub) * hp * wp
+                   + fy * wp + fx;
     if (BSX > 0) {
         constexpr int GPR = BSX / 4;            // int4 groups per row
         constexpr int LOG_GPR = GPR == 1 ? 0 : GPR == 2 ? 1 : GPR == 4 ? 2 : 3;
@@ -72,9 +100,7 @@ __device__ __forceinline__ void fetch_one(const uint8_t* __restrict__ stack,
         const int n_groups = bs_y * GPR;
         for (int g = lane; g < n_groups; g += t) {
             const int r = g >> LOG_GPR, q = g & (GPR - 1);
-            const uint32_t w = load4(src + r * wp + 4 * q);
-            dst[g] = make_int4((int)(w & 255u), (int)((w >> 8) & 255u),
-                               (int)((w >> 16) & 255u), (int)(w >> 24));
+            dst[g] = load4px(src + r * wp + 4 * q);
         }
     } else if ((bs_x & 3) == 0) {
         const int gpr = bs_x >> 2;
@@ -82,9 +108,7 @@ __device__ __forceinline__ void fetch_one(const uint8_t* __restrict__ stack,
         const int n_groups = bs_y * gpr;
         for (int g = lane; g < n_groups; g += t) {
             const int r = g / gpr;
-            const uint32_t w = load4(src + r * wp + 4 * (g - r * gpr));
-            dst[g] = make_int4((int)(w & 255u), (int)((w >> 8) & 255u),
-                               (int)((w >> 16) & 255u), (int)(w >> 24));
+            dst[g] = load4px(src + r * wp + 4 * (g - r * gpr));
         }
     } else {
         const int npix = bs_y * bs_x;
@@ -95,33 +119,35 @@ __device__ __forceinline__ void fetch_one(const uint8_t* __restrict__ stack,
     }
 }
 
-// BSX: the block width as a template constant (4, 8, 16, 32), or 0 for any
-// other width.  T = 1 << log_t lanes per candidate.  TILED (1 for K3, 0 for
-// K5) changes nothing in the body: it names the two fetches apart in a
+// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).  BSX:
+// the block width as a template constant (4, 8, 16, 32), or 0 for any other
+// width.  1 << log_t lanes per candidate.  TILED (1 for K3, 0 for K5)
+// changes nothing in the body: it names the two fetches apart in a
 // profiler's trace.
-template <int BSX, int TILED>
+template <typename T, int BSX, int TILED>
 __global__ void __launch_bounds__(256)
-fetch_kernel(const uint8_t* __restrict__ stack, const int* __restrict__ cand_y,
+fetch_kernel(const T* __restrict__ stack, const int* __restrict__ cand_y,
              const int* __restrict__ cand_x, int* __restrict__ out,
              int per_job, int n_sub, int hp, int wp, int bs_y, int bs_x,
              int logp, int log_t) {
     const int cl = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> log_t);
     if (cl >= per_job) return;
     const size_t c = (size_t)blockIdx.y * per_job + cl;
-    fetch_one<BSX>(stack, cand_y[c], cand_x[c], out + c * (size_t)(bs_y * bs_x),
-                   blockIdx.y, n_sub, hp, wp, bs_y, bs_x, logp,
-                   threadIdx.x & ((1 << log_t) - 1), 1 << log_t);
+    fetch_one<T, BSX>(stack, cand_y[c], cand_x[c],
+                      out + c * (size_t)(bs_y * bs_x), blockIdx.y, n_sub, hp,
+                      wp, bs_y, bs_x, logp, threadIdx.x & ((1 << log_t) - 1),
+                      1 << log_t);
 }
 
 }  // namespace
 
-template <int TILED>
+template <typename T, int TILED>
 static void launch_fetch(dim3 grid, int threads, cudaStream_t st, int bsx_t,
-                         const uint8_t* s, const int* y, const int* x, int* o,
+                         const T* s, const int* y, const int* x, int* o,
                          int pj, int n_sub, int hp, int wp, int bs_y,
                          int bs_x, int logp, int log_t) {
 #define MVT_FETCH(W)                                                         \
-    fetch_kernel<W, TILED><<<grid, threads, 0, st>>>(                        \
+    fetch_kernel<T, W, TILED><<<grid, threads, 0, st>>>(                     \
         s, y, x, o, pj, n_sub, hp, wp, bs_y, bs_x, logp, log_t)
     switch (bsx_t) {
         case 4: MVT_FETCH(4); break;
@@ -133,13 +159,29 @@ static void launch_fetch(dim3 grid, int threads, cudaStream_t st, int bsx_t,
 #undef MVT_FETCH
 }
 
+template <typename T>
+static void launch_fetch_tiled(int tiled, dim3 grid, int threads,
+                               cudaStream_t st, int bsx_t, const void* stack,
+                               const int* y, const int* x, int* o, int pj,
+                               int n_sub, int hp, int wp, int bs_y, int bs_x,
+                               int logp, int log_t) {
+    const T* s = (const T*)stack;
+    if (tiled)
+        launch_fetch<T, 1>(grid, threads, st, bsx_t, s, y, x, o, pj, n_sub,
+                           hp, wp, bs_y, bs_x, logp, log_t);
+    else
+        launch_fetch<T, 0>(grid, threads, st, bsx_t, s, y, x, o, pj, n_sub,
+                           hp, wp, bs_y, bs_x, logp, log_t);
+}
+
 // bsx_t, log_t: the launch geometry of ops/probe.py::fetch_launch_geom;
-// tiled: 1 for the tiled fetch (K3), 0 for the per-block fetch (K5).
+// tiled: 1 for the tiled fetch (K3), 0 for the per-block fetch (K5);
+// u16: 1 for a uint16 stack, 0 for uint8.
 extern "C" int mvt_fetch_blocks(const void* stack, const void* cand_y,
                                 const void* cand_x, void* out, int n_jobs,
                                 int n_sub, int hp, int wp, int nblk, int k,
                                 int bs_y, int bs_x, int logp, int bsx_t,
-                                int log_t, int tiled, void* stream) {
+                                int log_t, int tiled, int u16, void* stream) {
     const long long per_job = (long long)nblk * k;
     if (n_jobs == 0 || per_job == 0 || bs_y * bs_x == 0) return 0;
     if (per_job > (1LL << 26) || n_jobs > 65535 || log_t < 0 || log_t > 5
@@ -149,16 +191,17 @@ extern "C" int mvt_fetch_blocks(const void* stack, const void* cand_y,
     const long long lanes = per_job << log_t;
     dim3 grid((unsigned)((lanes + threads - 1) / threads), (unsigned)n_jobs);
     cudaStream_t st = (cudaStream_t)stream;
-    const uint8_t* s = (const uint8_t*)stack;
     const int* y = (const int*)cand_y;
     const int* x = (const int*)cand_x;
     int* o = (int*)out;
     const int pj = (int)per_job;
-    if (tiled)
-        launch_fetch<1>(grid, threads, st, bsx_t, s, y, x, o, pj, n_sub, hp,
-                        wp, bs_y, bs_x, logp, log_t);
+    if (u16)
+        launch_fetch_tiled<uint16_t>(tiled, grid, threads, st, bsx_t, stack,
+                                     y, x, o, pj, n_sub, hp, wp, bs_y, bs_x,
+                                     logp, log_t);
     else
-        launch_fetch<0>(grid, threads, st, bsx_t, s, y, x, o, pj, n_sub, hp,
-                        wp, bs_y, bs_x, logp, log_t);
+        launch_fetch_tiled<uint8_t>(tiled, grid, threads, st, bsx_t, stack, y,
+                                    x, o, pj, n_sub, hp, wp, bs_y, bs_x, logp,
+                                    log_t);
     return (int)cudaGetLastError();
 }

@@ -58,7 +58,16 @@
 // loads of the validity rule, before any pixel.  Staging the offset set's
 // window in shared memory once per warp timed slower (PERF.md).
 // nvcc -Xptxas -v (sm_90a): 32-74 registers a thread over the
-// instantiations (probe_kernel<2, false>: 40), no spills.
+// instantiations (probe_kernel<uint8_t, 2, false> and <uint16_t, 4, false>:
+// 40), no spills.
+//
+// The same body serves uint16 stacks (9- to 16-bit clips): the pixel type is
+// a template parameter, a word holds two pixels (pixels.cuh: the SAD of a
+// word is max.u16x2 - min.u16x2 and one IDP.2A), so a 16x16 block is 128
+// words, four a lane, and an 8x8 chroma block 32 words, one a lane; the
+// funnel shift of ref_word steps by 16 bits (a 16-bit pixel's address is
+// even).  0.585 ms at [12, 32026, 1, 6] (the 8-bit form: 0.44; H100 80GB
+// HBM3, 700 W).
 //
 // The three-stat form writes the triple (SAD, SATD, sum of the reference
 // block) per entry, out[job, block, k, d, 0..2] (satd.cuh says what the SATD
@@ -72,9 +81,12 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "pixels.cuh"
 #include "satd.cuh"
 
 namespace {
+
+using mvt::PixWord;
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -140,17 +152,21 @@ __device__ __forceinline__ uint32_t ref_word(const uint8_t* a, int last) {
     return __funnelshift_r(lo, hi, (unsigned)(ai & 3) * 8u);
 }
 
-// WPL: source words a lane holds in registers (1, 2, 4, 8, 16), or 0 for
-// the generic body.  MASKED: the block width is not a multiple of 4 (only a
-// 2-wide chroma block), so a row's last word is cut by a byte mask.
-template <int WPL, bool MASKED>
+// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).  WPL:
+// source words a lane holds in registers (1, 2, 4, 8, 16), or 0 for the
+// generic body.  MASKED: the block width is not a multiple of the pixels a
+// word holds (only a 2-wide 8-bit chroma block), so a row's last word is cut
+// by a mask.
+template <typename T, int WPL, bool MASKED>
 __global__ void __launch_bounds__(256)
-probe_kernel(const uint8_t* __restrict__ stack,
+probe_kernel(const T* __restrict__ stack,
              const int* __restrict__ cand_y, const int* __restrict__ cand_x,
-             const uint8_t* __restrict__ src,
+             const T* __restrict__ src,
              const int* __restrict__ offs,  // [D, 2] (dx, dy)
              const uint8_t* __restrict__ active, int* __restrict__ out,
              ProbeParams p) {
+    constexpr int PPW = PixWord<T>::PPW, SH = PixWord<T>::SH;
+    constexpr int PB = (int)sizeof(T);        // bytes a pixel
     const int lane = threadIdx.x & 31;
     const unsigned w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
     if (w >= p.n_warps) return;                // uniform over the warp
@@ -187,9 +203,10 @@ probe_kernel(const uint8_t* __restrict__ stack,
     const int g = lane & (p.g - 1);            // lane inside its offset slot
     const int slot = lane / p.g;
     const int n_slots = 32 / p.g;
-    const uint8_t* s = src + (size_t)jb * p.bs_y * p.bs_x;
+    const T* s = src + (size_t)jb * p.bs_y * p.bs_x;
 
-    // the source block in registers, each word's plane offset fixed once
+    // the source block in registers, each word's plane offset (in bytes)
+    // fixed once
     constexpr int NR = WPL > 0 ? WPL : 1;
     uint32_t sw[NR];
     int soff[NR];
@@ -200,16 +217,16 @@ probe_kernel(const uint8_t* __restrict__ stack,
 #pragma unroll
         for (int i = 0; i < NR; ++i) {
             const int wi = g + i * p.g;
-            const int row = wi / p.wpr, c4 = 4 * (wi - row * p.wpr);
-            soff[i] = row * p.wp + c4;
+            const int row = wi / p.wpr, c4 = PPW * (wi - row * p.wpr);
+            soff[i] = (row * p.wp + c4) * PB;
             if (MASKED) {
-                const int nb = min(4, p.bs_x - c4);
+                const int nb = min(PPW, p.bs_x - c4);
                 uint32_t v = 0;
                 for (int e = 0; e < nb; ++e)
-                    v |= (uint32_t)s[row * p.bs_x + c4 + e] << (8 * e);
+                    v |= (uint32_t)s[row * p.bs_x + c4 + e] << (SH * e);
                 sw[i] = v;
-                smask[i] = nb == 4 ? FULL : (1u << (8 * nb)) - 1u;
-                slast[i] = nb - 1;
+                smask[i] = nb == PPW ? FULL : (1u << (SH * nb)) - 1u;
+                slast[i] = nb * PB - 1;
             } else {
                 sw[i] = *(const uint32_t*)(s + row * p.bs_x + c4);
                 smask[i] = FULL;
@@ -225,7 +242,7 @@ probe_kernel(const uint8_t* __restrict__ stack,
 
     const int pelm = (1 << p.logp) - 1;
     const int plane = p.hp * p.wp;
-    const uint8_t* stack_j = stack + (size_t)job * p.n_sub * plane;
+    const T* stack_j = stack + (size_t)job * p.n_sub * plane;
     for (int d0 = 0; d0 < p.d; d0 += n_slots) {
         const int d = d0 + slot;
         bool on;
@@ -245,23 +262,25 @@ probe_kernel(const uint8_t* __restrict__ stack,
         if (on) {
             const int px = cx + dx, py = cy + dy;
             const int sub = (px & pelm) | ((py & pelm) << p.logp);
-            const uint8_t* r = stack_j + (sub * plane + (py >> p.logp) * p.wp
-                                          + (px >> p.logp));
+            const T* r = stack_j + (sub * plane + (py >> p.logp) * p.wp
+                                    + (px >> p.logp));
+            const uint8_t* rb = (const uint8_t*)r;
             if (WPL > 0) {
 #pragma unroll
                 for (int i = 0; i < NR; ++i) {
-                    uint32_t v = ref_word(r + soff[i], slast[i]);
+                    uint32_t v = ref_word(rb + soff[i], slast[i]);
                     if (MASKED) v &= smask[i];
-                    acc = __dp4a(__vabsdiffu4(v, sw[i]), 0x01010101u, acc);
+                    acc = PixWord<T>::sad(v, sw[i], acc);
                 }
             } else {
                 int row = row0, col = col0;
                 for (int wi = lane; wi < p.nw; wi += 32) {
                     const uint32_t sv = *(const uint32_t*)(
-                        s + row * p.bs_x + 4 * col);
-                    acc = __dp4a(__vabsdiffu4(
-                                     ref_word(r + row * p.wp + 4 * col, 3),
-                                     sv), 0x01010101u, acc);
+                        s + row * p.bs_x + PPW * col);
+                    acc = PixWord<T>::sad(
+                        ref_word((const uint8_t*)(r + row * p.wp + PPW * col),
+                                 3),
+                        sv, acc);
                     col += step_c;
                     row += step_r;
                     if (col >= p.wpr) {
@@ -326,18 +345,20 @@ __global__ void probe_stats3_kernel(const uint8_t* __restrict__ stack,
 
 }  // namespace
 
+// ppw: pixels a 32-bit word holds (4 for uint8, 2 for uint16).
 static ProbeParams probe_params(int n_jobs, int n_sub, int hp, int wp,
                                 int nblk, int row_len, int k, int d, int tile,
                                 int bs_y, int bs_x, int logp, int min_dy,
                                 int min_dx, int wy, int cxs, int wy_total,
-                                int wx_total, int center_y, int center_x) {
+                                int wx_total, int center_y, int center_x,
+                                int ppw) {
     ProbeParams p;
     p.n_sub = n_sub; p.hp = hp; p.wp = wp; p.nblk = nblk;
     p.row_len = row_len; p.k = k; p.d = d; p.tile = tile; p.bs_y = bs_y;
     p.bs_x = bs_x; p.logp = logp; p.min_dy = min_dy; p.min_dx = min_dx;
     p.wy = wy; p.cxs = cxs; p.wy_total = wy_total; p.wx_total = wx_total;
     p.center_y = center_y; p.center_x = center_x;
-    p.wpr = (bs_x + 3) / 4;
+    p.wpr = (bs_x + ppw - 1) / ppw;
     p.nw = bs_y * p.wpr;
     p.g = 32;
     p.total = (long long)n_jobs * nblk * k;
@@ -347,37 +368,17 @@ static ProbeParams probe_params(int n_jobs, int n_sub, int hp, int wp,
 
 static bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-extern "C" int mvt_probe_sads_tiled(
-        const void* stack, const void* cand_y, const void* cand_x,
-        const void* src, const void* offs, const void* active, void* out,
-        int n_jobs, int n_sub, int hp, int wp, int nblk, int row_len, int k,
-        int d, int tile, int bs_y, int bs_x, int logp, int min_dy, int min_dx,
-        int wy, int cxs, int wy_total, int wx_total, int center_y,
-        int center_x, void* stream) {
-    ProbeParams p = probe_params(
-        n_jobs, n_sub, hp, wp, nblk, row_len, k, d, tile, bs_y, bs_x, logp,
-        min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x);
-    if (p.total == 0 || d == 0) return 0;
-    // the body's index arithmetic is 32-bit
-    if (p.total > INT_MAX || (long long)n_sub * hp * wp > INT_MAX)
-        return (int)cudaErrorInvalidValue;
-    const bool masked = bs_x % 4 != 0;
-    int wpl = 0;                     // 0: the generic body
-    if (p.nw <= 32 && pow2(p.nw)) {
-        p.g = p.nw;
-        wpl = 1;
-    } else if (p.nw % 32 == 0 && pow2(p.nw / 32) && p.nw / 32 <= 16) {
-        wpl = p.nw / 32;
-    }
-    if (masked && wpl != 1) return (int)cudaErrorInvalidValue;
-    const int warps = 8;
-    const unsigned blocks = (unsigned)((p.total + warps - 1) / warps);
-    cudaStream_t st = (cudaStream_t)stream;
-    const uint8_t* a = (const uint8_t*)active;
+template <typename T>
+static void launch_probe(int wpl, bool masked, unsigned blocks, int threads,
+                         cudaStream_t st, const void* stack,
+                         const void* cand_y, const void* cand_x,
+                         const void* src, const void* offs,
+                         const uint8_t* active, void* out,
+                         const ProbeParams& p) {
 #define MVT_PROBE(W, M)                                                     \
-    probe_kernel<W, M><<<blocks, warps * 32, 0, st>>>(                      \
-        (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,      \
-        (const uint8_t*)src, (const int*)offs, a, (int*)out, p)
+    probe_kernel<T, W, M><<<blocks, threads, 0, st>>>(                      \
+        (const T*)stack, (const int*)cand_y, (const int*)cand_x,            \
+        (const T*)src, (const int*)offs, active, (int*)out, p)
     switch (wpl) {
         case 1:
             if (masked) MVT_PROBE(1, true);
@@ -390,6 +391,45 @@ extern "C" int mvt_probe_sads_tiled(
         default: MVT_PROBE(0, false); break;
     }
 #undef MVT_PROBE
+}
+
+// u16: 1 for uint16 stack and source blocks, 0 for uint8.
+extern "C" int mvt_probe_sads_tiled(
+        const void* stack, const void* cand_y, const void* cand_x,
+        const void* src, const void* offs, const void* active, void* out,
+        int n_jobs, int n_sub, int hp, int wp, int nblk, int row_len, int k,
+        int d, int tile, int bs_y, int bs_x, int logp, int min_dy, int min_dx,
+        int wy, int cxs, int wy_total, int wx_total, int center_y,
+        int center_x, int u16, void* stream) {
+    const int ppw = u16 ? 2 : 4;
+    ProbeParams p = probe_params(
+        n_jobs, n_sub, hp, wp, nblk, row_len, k, d, tile, bs_y, bs_x, logp,
+        min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x,
+        ppw);
+    if (p.total == 0 || d == 0) return 0;
+    // the body's index arithmetic is 32-bit (byte offsets within a job)
+    if (p.total > INT_MAX
+        || (long long)n_sub * hp * wp * (u16 ? 2 : 1) > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    const bool masked = bs_x % ppw != 0;
+    int wpl = 0;                     // 0: the generic body
+    if (p.nw <= 32 && pow2(p.nw)) {
+        p.g = p.nw;
+        wpl = 1;
+    } else if (p.nw % 32 == 0 && pow2(p.nw / 32) && p.nw / 32 <= 16) {
+        wpl = p.nw / 32;
+    }
+    if (masked && wpl != 1) return (int)cudaErrorInvalidValue;
+    const int warps = 8;
+    const unsigned blocks = (unsigned)((p.total + warps - 1) / warps);
+    cudaStream_t st = (cudaStream_t)stream;
+    const uint8_t* a = (const uint8_t*)active;
+    if (u16)
+        launch_probe<uint16_t>(wpl, masked, blocks, warps * 32, st, stack,
+                               cand_y, cand_x, src, offs, a, out, p);
+    else
+        launch_probe<uint8_t>(wpl, masked, blocks, warps * 32, st, stack,
+                              cand_y, cand_x, src, offs, a, out, p);
     return (int)cudaGetLastError();
 }
 
@@ -399,10 +439,12 @@ extern "C" int mvt_probe_sads_tiled_stats3(
         int n_jobs, int n_sub, int hp, int wp, int nblk, int row_len, int k,
         int d, int tile, int bs_y, int bs_x, int logp, int min_dy, int min_dx,
         int wy, int cxs, int wy_total, int wx_total, int center_y,
-        int center_x, void* stream) {
+        int center_x, int u16, void* stream) {
+    // the three stats are defined for 8-bit stacks only
+    if (u16) return (int)cudaErrorInvalidValue;
     const ProbeParams p = probe_params(
         n_jobs, n_sub, hp, wp, nblk, row_len, k, d, tile, bs_y, bs_x, logp,
-        min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x);
+        min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x, 4);
     if (p.total == 0 || d == 0) return 0;
     const int group = mvt::stats3_group(bs_y, bs_x);
     const int threads = 128;

@@ -42,6 +42,10 @@
 // is), with the same rule for a window that leaves the stack.  A group of
 // lanes owns one (job, block, candidate, offset) and splits the block's 8x4
 // partitions.
+//
+// The SAD form serves uint16 stacks (9- to 16-bit clips) too: the pixel type
+// is a template parameter and nothing else changes (a lane's sum stays in 32
+// bits); the three-stat form is defined for 8-bit stacks only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,10 +73,12 @@ __device__ __forceinline__ int window_start(int start, int size, int n) {
     return clampi(start < 0 ? start + size : start, 0, size - n);
 }
 
-__global__ void probe_block_kernel(const uint8_t* __restrict__ stack,
+// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).
+template <typename T>
+__global__ void probe_block_kernel(const T* __restrict__ stack,
                                    const int* __restrict__ cand_y,
                                    const int* __restrict__ cand_x,
-                                   const uint8_t* __restrict__ src,
+                                   const T* __restrict__ src,
                                    const int* __restrict__ offs,  // [D, 2]
                                    int* __restrict__ out,
                                    BlockProbeParams p) {
@@ -91,16 +97,16 @@ __global__ void probe_block_kernel(const uint8_t* __restrict__ stack,
 
     const int pelm = (1 << p.logp) - 1;
     const size_t plane = (size_t)p.hp * p.wp;
-    const uint8_t* stack_j = stack + (size_t)job * p.n_sub * plane;
+    const T* stack_j = stack + (size_t)job * p.n_sub * plane;
     const int npix = p.bs_y * p.bs_x;
-    const uint8_t* s = src + (size_t)jb * npix;
+    const T* s = src + (size_t)jb * npix;
     int* o = out + (size_t)w * p.d;
     for (int d = 0; d < p.d; ++d) {
         const int ax = cx + offs[2 * d], ay = cy + offs[2 * d + 1];
         const int sub = (ax & pelm) | ((ay & pelm) << p.logp);
         const int oy = (ay >> p.logp) + shift_y;
         const int ox = (ax >> p.logp) + shift_x;
-        const uint8_t* r = stack_j + sub * plane + (size_t)oy * p.wp + ox;
+        const T* r = stack_j + sub * plane + (size_t)oy * p.wp + ox;
         int acc = 0;
         for (int i = lane; i < npix; i += 32) {
             const int y = i / p.bs_x, x = i % p.bs_x;
@@ -152,11 +158,12 @@ __global__ void probe_block_stats3_kernel(
 
 }  // namespace
 
+// u16: 1 for uint16 stack and source blocks, 0 for uint8.
 extern "C" int mvt_probe_sads(
         const void* stack, const void* cand_y, const void* cand_x,
         const void* src, const void* offs, void* out, int n_jobs, int n_sub,
         int hp, int wp, int nblk, int k, int d, int bs_y, int bs_x, int logp,
-        int min_dy, int min_dx, int wy, int wx, void* stream) {
+        int min_dy, int min_dx, int wy, int wx, int u16, void* stream) {
     BlockProbeParams p;
     p.n_sub = n_sub; p.hp = hp; p.wp = wp; p.nblk = nblk; p.k = k; p.d = d;
     p.bs_y = bs_y; p.bs_x = bs_x; p.logp = logp; p.min_dy = min_dy;
@@ -165,10 +172,16 @@ extern "C" int mvt_probe_sads(
     if (p.total == 0 || d == 0) return 0;
     const int warps = 4;
     const long long blocks = (p.total + warps - 1) / warps;
-    probe_block_kernel<<<(unsigned)blocks, warps * 32, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,
-        (const uint8_t*)src, (const int*)offs, (int*)out, p);
+    if (u16)
+        probe_block_kernel<uint16_t><<<(unsigned)blocks, warps * 32, 0,
+                                       (cudaStream_t)stream>>>(
+            (const uint16_t*)stack, (const int*)cand_y, (const int*)cand_x,
+            (const uint16_t*)src, (const int*)offs, (int*)out, p);
+    else
+        probe_block_kernel<uint8_t><<<(unsigned)blocks, warps * 32, 0,
+                                      (cudaStream_t)stream>>>(
+            (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,
+            (const uint8_t*)src, (const int*)offs, (int*)out, p);
     return (int)cudaGetLastError();
 }
 
@@ -176,7 +189,9 @@ extern "C" int mvt_probe_sads_stats3(
         const void* stack, const void* cand_y, const void* cand_x,
         const void* src, const void* offs, void* out, int n_jobs, int n_sub,
         int hp, int wp, int nblk, int k, int d, int bs_y, int bs_x, int logp,
-        int min_dy, int min_dx, int wy, int wx, void* stream) {
+        int min_dy, int min_dx, int wy, int wx, int u16, void* stream) {
+    // the three stats are defined for 8-bit stacks only
+    if (u16) return (int)cudaErrorInvalidValue;
     BlockProbeParams p;
     p.n_sub = n_sub; p.hp = hp; p.wp = wp; p.nblk = nblk; p.k = k; p.d = d;
     p.bs_y = bs_y; p.bs_x = bs_x; p.logp = logp; p.min_dy = min_dy;

@@ -49,9 +49,23 @@
 // The launch geometry (threads, shared-memory layout and size, template
 // choice) is computed by ops/sadmap.py::map_launch_geom, where a CPU test
 // holds it to the card's limits for every geometry the search admits.
-// nvcc -Xptxas -v (sm_90a): 32-59 registers a thread over the twelve
-// instantiations (sadmap_kernel<4, 9>: 40), no spills.
+// nvcc -Xptxas -v (sm_90a): 32-59 registers a thread over the 24
+// instantiations, twelve per pixel type (sadmap_kernel<uint8_t, 4, 9> and
+// <uint16_t, 8, 9>: 40), no spills.
 //
+// The same body serves uint16 stacks (9- to 16-bit clips): the pixel type is
+// a template parameter, a 32-bit word then holds two pixels (pixels.cuh:
+// the SAD of a word is max.u16x2 - min.u16x2 and one IDP.2A), the funnel
+// shift steps by 16 bits and the column alignment M takes two values.  The
+// staged window and source rows take twice the bytes (about 104 KB a CTA at
+// the YUV level-0 luma shape, against 70 KB at 8 bits); where a shape would
+// pass the card's shared memory (10-bit clips with the largest blocks), the
+// geometry gives a CTA fewer blocks of its tile (nbc), each CTA staging the
+// window of its own blocks round the tile's anchor.  Every 8-bit shape fits
+// whole, and the 8-bit instantiation leaves the split out: with it, that
+// instantiation took 60 registers instead of 40 and ran up to 18 % slower.
+// The uint16 form at the YUV level-0 luma shape: 3.28 ms (H100 80GB HBM3,
+// 700 W), 3.9x its operations bound (four instructions for two pixels).
 // The three-stat form (K1', sadmap3_kernel) writes, for the same grid, the
 // triple (SAD, SATD, sum of the reference block) per entry:
 // out[job, block, dy + r_y, dx + r_x, 0..2] (satd.cuh says what the SATD
@@ -76,7 +90,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pixels.cuh"
+
 namespace {
+
+using mvt::PixWord;
 
 struct MapParams {
     int n_sub, hp, wp;          // stack [J, n_sub, hp, wp]
@@ -100,6 +118,7 @@ struct MapGeom {
     int wpr;                    // source words per block row
     int n_rows;                 // (subplane, full-pel row) pairs per block
     int n_chunk;                // column chunks of NOX per grid row
+    int nbc, n_part;            // blocks per CTA, CTAs per tile
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -117,15 +136,16 @@ __device__ __forceinline__ int parity_count(int r, int d0, int logp) {
 }
 
 // One item of the plain map: NOX accumulators over the block's rows.  ref
-// points at the word holding the item's first reference byte (at byte M of
+// points at the word holding the item's first reference pixel (pixel M of
 // it), src at the block's first staged source word.
-template <int NWS, int NOX, int M>
+template <typename T, int NWS, int NOX, int M>
 __device__ __forceinline__ void map_rows(const uint32_t* __restrict__ ref,
                                          int ref_pitch_w,
                                          const uint32_t* __restrict__ src,
                                          int wpr, int bs_y, uint32_t lastmask,
                                          unsigned (&acc)[NOX]) {
-    constexpr int NRW = (M + NOX - 1 + 4 * NWS - 1) / 4 + 1;
+    constexpr int PPW = PixWord<T>::PPW;
+    constexpr int NRW = (M + NOX - 1 + PPW * NWS - 1) / PPW + 1;
     for (int y = 0; y < bs_y; ++y) {
         const uint32_t* rr = ref + y * ref_pitch_w;
         const uint32_t* ss = src + y * wpr;
@@ -135,82 +155,91 @@ __device__ __forceinline__ void map_rows(const uint32_t* __restrict__ ref,
             for (int k = 0; k < NWS; ++k) s[k] = ss[wc + k];
 #pragma unroll
             for (int q = 0; q < NRW; ++q) r[q] = rr[wc + q];
-            // a width that is not a multiple of 4 (NWS 1 only): the row's
-            // last word keeps its leading bytes
+            // a width that is not a multiple of PPW (NWS 1 only): the
+            // row's last word keeps its leading pixels
             const uint32_t msk = (NWS == 1 && wc == wpr - 1) ? lastmask
                                                               : 0xffffffffu;
 #pragma unroll
             for (int i = 0; i < NOX; ++i) {
 #pragma unroll
                 for (int k = 0; k < NWS; ++k) {
-                    const int o = M + i + 4 * k;
-                    const int q = o >> 2, sh = o & 3;
+                    const int o = M + i + PPW * k;
+                    const int q = o / PPW, sh = o % PPW;
                     uint32_t v = sh ? __funnelshift_r(
                                           r[q], r[q + 1 < NRW ? q + 1 : q],
-                                          8 * sh)
+                                          PixWord<T>::SH * sh)
                                     : r[q];
                     if (NWS == 1) v &= msk;
-                    acc[i] = __dp4a(__vabsdiffu4(v, s[k]), 0x01010101u,
-                                    acc[i]);
+                    acc[i] = PixWord<T>::sad(v, s[k], acc[i]);
                 }
             }
         }
     }
 }
 
-template <int NWS, int NOX>
+// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).
+template <typename T, int NWS, int NOX>
 __global__ void __launch_bounds__(512)
-sadmap_kernel(const uint8_t* __restrict__ stack,
-              const uint8_t* __restrict__ src, const int* __restrict__ afy,
-              const int* __restrict__ afx, int* __restrict__ out, MapParams p,
-              MapGeom g) {
+sadmap_kernel(const T* __restrict__ stack, const T* __restrict__ src,
+              const int* __restrict__ afy, const int* __restrict__ afx,
+              int* __restrict__ out, MapParams p, MapGeom g) {
+    constexpr int PPW = PixWord<T>::PPW, SH = PixWord<T>::SH;
+    // only the uint16 form splits a tile over CTAs (MapGeom::n_part)
+    constexpr bool SPLIT = sizeof(T) > 1;
     extern __shared__ __align__(16) uint8_t smem16[];
-    const int tc = blockIdx.x, row = blockIdx.y, job = blockIdx.z;
-    const int b0 = tc * p.tile;
-    const int nb = min(p.tile, p.nbx - b0);
+    // this CTA's blocks: part `part` of tile tc (nbc blocks each)
+    const int tc = SPLIT ? blockIdx.x / g.n_part : blockIdx.x;
+    const int part = SPLIT ? blockIdx.x - tc * g.n_part : 0;
+    const int row = blockIdx.y, job = blockIdx.z;
+    const int b0 = tc * p.tile + (SPLIT ? part * g.nbc : 0);
+    const int nb = SPLIT ? min(min(g.nbc, p.tile - part * g.nbc),
+                               p.nbx - b0)
+                         : min(p.tile, p.nbx - b0);
+    if (SPLIT && nb <= 0) return;                  // uniform over the CTA
     uint8_t* ref_s = smem16;                       // [n_sub * wy][ref_pitch]
     uint8_t* src_s = smem16 + g.src_off;           // [nb][src_stride]
     int* out_s = (int*)(smem16 + g.out_off);       // [nb][Dy][Dx]
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
 
-    // ---- stage the reference window, one 32-bit word per lane
+    // ---- stage the reference window of this CTA's blocks, one 32-bit word
+    // per lane
     const int t = row * p.ntx + tc;
     const int base_y = afy[job * p.nby * p.ntx + t] + p.min_oy;
-    const int base_x = afx[job * p.nby * p.ntx + t] + p.min_ox;
+    const int base_x = afx[job * p.nby * p.ntx + t] + p.min_ox
+                       + (SPLIT ? part * g.nbc * p.pitch_x : 0);
     const size_t plane = (size_t)p.hp * p.wp;
-    const uint8_t* stack_j = stack + (size_t)job * p.n_sub * plane;
+    const T* stack_j = stack + (size_t)job * p.n_sub * plane;
     const int wpitch = g.ref_pitch >> 2;
     for (int rr = warp; rr < p.n_sub * p.wy; rr += nwarps) {
         const int s = rr / p.wy, y = rr - s * p.wy;
-        const uint8_t* grow = stack_j + s * plane
-                              + (size_t)clampi(base_y + y, 0, p.hp - 1) * p.wp;
+        const T* grow = stack_j + s * plane
+                        + (size_t)clampi(base_y + y, 0, p.hp - 1) * p.wp;
         uint32_t* srow = (uint32_t*)(ref_s + rr * g.ref_pitch);
         for (int cw = lane; cw < wpitch; cw += 32) {
-            const int x = base_x + 4 * cw;
+            const int x = base_x + PPW * cw;
             uint32_t v = 0;
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-                v |= (uint32_t)grow[clampi(x + e, 0, p.wp - 1)] << (8 * e);
+            for (int e = 0; e < PPW; ++e)
+                v |= (uint32_t)grow[clampi(x + e, 0, p.wp - 1)] << (SH * e);
             srow[cw] = v;
         }
     }
     // ---- stage each block's source rows, word-aligned
-    const uint8_t* src_j = src + (size_t)job * p.hs * p.ws;
+    const T* src_j = src + (size_t)job * p.hs * p.ws;
     const int sy0 = p.src_y0 + row * p.pitch_y;
     const int sx0 = p.src_x0 + b0 * p.pitch_x;
     const int n_sw = nb * p.bs_y * g.wpr;
     for (int i = threadIdx.x; i < n_sw; i += blockDim.x) {
         const int by = i / g.wpr, cw = i - by * g.wpr;
         const int b = by / p.bs_y, y = by - b * p.bs_y;
-        const uint8_t* grow = src_j
-                              + (size_t)clampi(sy0 + y, 0, p.hs - 1) * p.ws;
-        const int x0 = sx0 + b * p.pitch_x + 4 * cw;
+        const T* grow = src_j + (size_t)clampi(sy0 + y, 0, p.hs - 1) * p.ws;
+        const int x0 = sx0 + b * p.pitch_x + PPW * cw;
         uint32_t v = 0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-            if (4 * cw + e < p.bs_x)
-                v |= (uint32_t)grow[clampi(x0 + e, 0, p.ws - 1)] << (8 * e);
+        for (int e = 0; e < PPW; ++e)
+            if (PPW * cw + e < p.bs_x)
+                v |= (uint32_t)grow[clampi(x0 + e, 0, p.ws - 1)] << (SH * e);
         *(uint32_t*)(src_s + b * g.src_stride + 4 * (y * g.wpr + cw)) = v;
     }
     __syncthreads();
@@ -221,8 +250,9 @@ sadmap_kernel(const uint8_t* __restrict__ stack,
     const int dn = (2 * p.r_y + 1) * dxn;
     const int per0 = parity_count(p.r_y, parity_first(p.r_y, 0, pelm), p.logp)
                      << p.logp;                    // rows of dy parity 0
-    const uint32_t lastmask = (p.bs_x & 3)
-                              ? (1u << (8 * (p.bs_x & 3))) - 1u : 0xffffffffu;
+    const uint32_t lastmask = (p.bs_x & (PPW - 1))
+                              ? (1u << (SH * (p.bs_x & (PPW - 1)))) - 1u
+                              : 0xffffffffu;
     const int n_items = nb * g.n_rows * g.n_chunk;
     for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
         const int b = item % nb;
@@ -242,20 +272,29 @@ sadmap_kernel(const uint8_t* __restrict__ stack,
                          - p.min_ox;
         const uint32_t* ref = (const uint32_t*)(
             ref_s + (sub * p.wy + (dy >> p.logp) - p.min_oy) * g.ref_pitch)
-            + (col0 >> 2);
+            + (col0 >> PixWord<T>::LOG_PPW);
         const uint32_t* sw = (const uint32_t*)(src_s + b * g.src_stride);
         unsigned acc[NOX];
 #pragma unroll
         for (int i = 0; i < NOX; ++i) acc[i] = 0;
-        switch (col0 & 3) {
-            case 0: map_rows<NWS, NOX, 0>(ref, wpitch, sw, g.wpr, p.bs_y,
-                                          lastmask, acc); break;
-            case 1: map_rows<NWS, NOX, 1>(ref, wpitch, sw, g.wpr, p.bs_y,
-                                          lastmask, acc); break;
-            case 2: map_rows<NWS, NOX, 2>(ref, wpitch, sw, g.wpr, p.bs_y,
-                                          lastmask, acc); break;
-            default: map_rows<NWS, NOX, 3>(ref, wpitch, sw, g.wpr, p.bs_y,
-                                           lastmask, acc); break;
+        if constexpr (PPW == 4) {
+            switch (col0 & 3) {
+                case 0: map_rows<T, NWS, NOX, 0>(ref, wpitch, sw, g.wpr,
+                                                 p.bs_y, lastmask, acc); break;
+                case 1: map_rows<T, NWS, NOX, 1>(ref, wpitch, sw, g.wpr,
+                                                 p.bs_y, lastmask, acc); break;
+                case 2: map_rows<T, NWS, NOX, 2>(ref, wpitch, sw, g.wpr,
+                                                 p.bs_y, lastmask, acc); break;
+                default: map_rows<T, NWS, NOX, 3>(ref, wpitch, sw, g.wpr,
+                                                  p.bs_y, lastmask, acc);
+                         break;
+            }
+        } else if (col0 & 1) {
+            map_rows<T, NWS, NOX, 1>(ref, wpitch, sw, g.wpr, p.bs_y, lastmask,
+                                     acc);
+        } else {
+            map_rows<T, NWS, NOX, 0>(ref, wpitch, sw, g.wpr, p.bs_y, lastmask,
+                                     acc);
         }
         int* o = out_s + b * dn + (dy + p.r_y) * dxn
                  + dx0 + ((chunk * NOX) << p.logp) + p.r_x;
@@ -658,38 +697,58 @@ static MapParams map_params(int n_sub, int hp, int wp, int hs, int ws,
     return p;
 }
 
-template <int NWS, int NOX>
+template <typename T, int NWS, int NOX>
 static int launch_map(dim3 grid, int threads, int smem, cudaStream_t st,
                       const void* stack, const void* src, const void* afy,
                       const void* afx, void* out, const MapParams& p,
                       const MapGeom& g) {
     cudaError_t err = cudaFuncSetAttribute(
-        sadmap_kernel<NWS, NOX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        sadmap_kernel<T, NWS, NOX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    sadmap_kernel<NWS, NOX><<<grid, threads, smem, st>>>(
-        (const uint8_t*)stack, (const uint8_t*)src, (const int*)afy,
-        (const int*)afx, (int*)out, p, g);
+    sadmap_kernel<T, NWS, NOX><<<grid, threads, smem, st>>>(
+        (const T*)stack, (const T*)src, (const int*)afy, (const int*)afx,
+        (int*)out, p, g);
     return (int)cudaGetLastError();
 }
 
-template <int NWS>
+template <typename T, int NWS>
 static int launch_map_nox(int nox, dim3 grid, int threads, int smem,
                           cudaStream_t st, const void* stack, const void* src,
                           const void* afy, const void* afx, void* out,
                           const MapParams& p, const MapGeom& g) {
     switch (nox) {
-        case 6: return launch_map<NWS, 6>(grid, threads, smem, st, stack, src,
-                                          afy, afx, out, p, g);
-        case 9: return launch_map<NWS, 9>(grid, threads, smem, st, stack, src,
-                                          afy, afx, out, p, g);
-        case 16: return launch_map<NWS, 16>(grid, threads, smem, st, stack,
-                                            src, afy, afx, out, p, g);
+        case 6: return launch_map<T, NWS, 6>(grid, threads, smem, st, stack,
+                                             src, afy, afx, out, p, g);
+        case 9: return launch_map<T, NWS, 9>(grid, threads, smem, st, stack,
+                                             src, afy, afx, out, p, g);
+        case 16: return launch_map<T, NWS, 16>(grid, threads, smem, st,
+                                               stack, src, afy, afx, out, p,
+                                               g);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
-// threads .. n_chunk: the launch geometry of ops/sadmap.py::map_launch_geom.
+template <typename T>
+static int launch_map_nws(int nws, int nox, dim3 grid, int threads, int smem,
+                          cudaStream_t st, const void* stack, const void* src,
+                          const void* afy, const void* afx, void* out,
+                          const MapParams& p, const MapGeom& g) {
+    switch (nws) {
+        case 1: return launch_map_nox<T, 1>(nox, grid, threads, smem, st,
+                                            stack, src, afy, afx, out, p, g);
+        case 2: return launch_map_nox<T, 2>(nox, grid, threads, smem, st,
+                                            stack, src, afy, afx, out, p, g);
+        case 4: return launch_map_nox<T, 4>(nox, grid, threads, smem, st,
+                                            stack, src, afy, afx, out, p, g);
+        case 8: return launch_map_nox<T, 8>(nox, grid, threads, smem, st,
+                                            stack, src, afy, afx, out, p, g);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// threads .. n_part: the launch geometry of ops/sadmap.py::map_launch_geom;
+// u16: 1 for uint16 stack and source planes, 0 for uint8.
 extern "C" int mvt_sad_map(const void* stack, const void* src,
                            const void* afy, const void* afx, void* out,
                            int n_jobs, int n_sub, int hp, int wp, int hs,
@@ -698,30 +757,27 @@ extern "C" int mvt_sad_map(const void* stack, const void* src,
                            int src_x0, int r_y, int r_x, int logp,
                            int threads, int smem, int ref_pitch,
                            int src_stride, int src_off, int out_off, int nws,
-                           int nox, int n_chunk, int n_rows, void* stream) {
+                           int nox, int n_chunk, int n_rows, int nbc,
+                           int n_part, int u16, void* stream) {
     const MapParams p = map_params(n_sub, hp, wp, hs, ws, nbx, nby, tile,
                                    pitch_x, pitch_y, bs_y, bs_x, src_y0,
                                    src_x0, r_y, r_x, logp);
+    const int ppw = u16 ? 2 : 4;
     MapGeom g;
     g.ref_pitch = ref_pitch; g.src_stride = src_stride; g.src_off = src_off;
-    g.out_off = out_off; g.wpr = (bs_x + 3) / 4; g.n_rows = n_rows;
-    g.n_chunk = n_chunk;
+    g.out_off = out_off; g.wpr = (bs_x + ppw - 1) / ppw; g.n_rows = n_rows;
+    g.n_chunk = n_chunk; g.nbc = nbc; g.n_part = n_part;
     if (ref_pitch % 4 || src_stride % 4 || src_off % 4 || out_off % 4
-        || g.wpr % nws)
+        || g.wpr % nws || nbc < 1 || n_part < 1 || nbc * n_part < tile
+        || (!u16 && n_part != 1))
         return (int)cudaErrorInvalidValue;
-    dim3 grid(p.ntx, nby, n_jobs);
+    dim3 grid(p.ntx * n_part, nby, n_jobs);
     cudaStream_t st = (cudaStream_t)stream;
-    switch (nws) {
-        case 1: return launch_map_nox<1>(nox, grid, threads, smem, st, stack,
-                                         src, afy, afx, out, p, g);
-        case 2: return launch_map_nox<2>(nox, grid, threads, smem, st, stack,
-                                         src, afy, afx, out, p, g);
-        case 4: return launch_map_nox<4>(nox, grid, threads, smem, st, stack,
-                                         src, afy, afx, out, p, g);
-        case 8: return launch_map_nox<8>(nox, grid, threads, smem, st, stack,
-                                         src, afy, afx, out, p, g);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    if (u16)
+        return launch_map_nws<uint16_t>(nws, nox, grid, threads, smem, st,
+                                        stack, src, afy, afx, out, p, g);
+    return launch_map_nws<uint8_t>(nws, nox, grid, threads, smem, st, stack,
+                                   src, afy, afx, out, p, g);
 }
 
 extern "C" int mvt_sad_map_stats3(const void* stack, const void* src,

@@ -9,7 +9,10 @@ plane level (Degrain_C MVDegrains.h:31-53), and overlapped blending is the
 phase-decomposed overlap-add of ops/overlap.py.  Bit-exact against the
 reference's scalar path.  Frames may carry an explicit leading batch axis.
 
-Ported: 8-bit, luma and chroma planes, with and without overlap.
+Ported: 8-bit and 9- to 16-bit clips (uint16 pixels, every step in int32
+as in the JAX package: the weighted sum reaches 65 535 * 256 + 128 and the
+overlap accumulator 65 535 * 32 per pixel at 16 bits, both far inside int32),
+luma and chroma planes, with and without overlap.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from .core.thscd import is_usable, scale_thscd
 from .core.types import AnalysisMeta, MVField, check_vectors_similarity
 from .ops import overlap as overlap_ops
+from .ops import pixels
 from .ops import probe as probe_ops
 from .ops.pad import edge_pad
 from .super import Super
@@ -71,9 +75,9 @@ def gather_blocks(plane_stack: torch.Tensor, block_x, block_y, mv_x, mv_y,
                   pitch_fp: int) -> torch.Tensor:
     """Fetch one [bsy, bsx] int32 patch per block from a pel-subplane stack.
 
-    plane_stack: [B, pel^2, PH, PW] uint8; block_x/y: [nby, nbx] unpadded
-    LUMA pixel position of each block; mv_x/mv_y: [B, nby, nbx] in pel
-    units; sub_x/sub_y: log2 subsampling of a chroma plane.
+    plane_stack: [B, pel^2, PH, PW] uint8 or uint16; block_x/y: [nby, nbx]
+    unpadded LUMA pixel position of each block; mv_x/mv_y: [B, nby, nbx] in
+    pel units; sub_x/sub_y: log2 subsampling of a chroma plane.
     Matches useBlock's mvpGetPointer addressing (MVDegrains.h:192-206):
     blx = (block_pos << log_pel) + mv, shifted arithmetically for chroma.
     The subplane comes from the
@@ -140,8 +144,6 @@ def degrain(src_planes: Sequence[torch.Tensor], super_refs: Sequence[Super],
     if tuple(src_planes[0].shape[-2:]) != (meta.height, meta.width):
         raise ValueError(
             f"{filter_name}: wrong source or super clip frame size.")
-    if meta.bits_per_sample != 8:
-        raise NotImplementedError(f"{filter_name}: 16-bit clips are not ported")
     sspec = super_refs[0].spec
     nplanes = len(src_planes)
     if nplanes > super_refs[0].num_planes:
@@ -209,7 +211,7 @@ def degrain(src_planes: Sequence[torch.Tensor], super_refs: Sequence[Super],
         p_wb, p_hb = width_b >> sub_x, height_b >> sub_y
         hpad_p = sspec.hpad >> sub_x
         vpad_p = sspec.vpad >> sub_y
-        src32 = src.to(I32)
+        src32 = pixels.widen(src)
 
         # per-ref weights + reference blocks
         wrefs = []
@@ -257,6 +259,6 @@ def degrain(src_planes: Sequence[torch.Tensor], super_refs: Sequence[Super],
         if limits[plane] < pixel_max:
             out = torch.minimum(torch.maximum(out, src32 - limits[plane]),
                                 src32 + limits[plane])
-        out = out.to(src.dtype)
+        out = pixels.narrow(out, src.dtype)
         out_planes.append(out if batched else out[0])
     return out_planes

@@ -193,13 +193,14 @@ class FieldProber:
     def __init__(self, ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds, pnew,
                  stacks=None, dctmode: int = 0, src_luma=None,
                  dctweight16=None, dct_src=None):
-        """src_blocks: per color plane [J, nblk, bs_y, bs_x] uint8 (luma, or
-        luma, U, V with ctx.chroma); stacks: the padded stacks of
-        pad_stacks(ctx), made here when not given.  dctmode 1-4 makes the
-        luma cost the DCT mix of the source blocks' requantised DCT dct_src
-        [J, nblk, bs_y, bs_x] int32, dctmode 5-10 the SATD mix; both read
-        src_luma [J, nblk] int64 (the source blocks' sums) and dctweight16
-        [J] (cost_keywords makes all four); chroma stays plain SAD."""
+        """src_blocks: per color plane [J, nblk, bs_y, bs_x] pixels, uint8
+        or uint16 (luma, or luma, U, V with ctx.chroma); stacks: the padded
+        stacks of pad_stacks(ctx), made here when not given.  dctmode 1-4
+        makes the luma cost the DCT mix of the source blocks' requantised
+        DCT dct_src [J, nblk, bs_y, bs_x] int32, dctmode 5-10 the SATD mix;
+        both read src_luma [J, nblk] int64 (the source blocks' sums) and
+        dctweight16 [J] (cost_keywords makes all four); chroma stays plain
+        SAD."""
         self.dctmode = dctmode
         self.src_luma = src_luma
         self.dctweight16 = dctweight16
@@ -519,15 +520,19 @@ def _chroma_map_geom(ctx, r: int):
 
 
 def map_supported(ctx, r: int, dctmode: int = 0) -> bool:
-    """Static predicate: MapProber usable on this level's geometry (8-bit,
-    pel <= 2, windows fit the padded stacks, chroma pitch integral; the
-    SATD modes 5-10 additionally need the stat map's alignment: pitch and
+    """Static predicate: MapProber usable on this level's geometry (pel <=
+    2, windows fit the padded stacks, chroma pitch integral; deep bits
+    while a block's SAD stays under 2^24, as the JAX package rules off the
+    TPU: 8-bit every block size, 16-bit up to 16x16; the SATD modes 5-10
+    additionally need 8-bit data and the stat map's alignment: pitch and
     block width multiples of 8, block height of 4; the DCT modes 1-4 build
-    their map from fetched blocks and need nothing more)."""
+    their map from fetched blocks and need 8-bit data)."""
     bsx, bsy = ctx.blk_size
     if not 0 <= dctmode <= 10:
         return False
-    if ctx.bits != 8 or ctx.pel > 2:
+    if ((1 << ctx.bits) - 1) * bsx * bsy >= (1 << 24) or ctx.pel > 2:
+        return False
+    if dctmode and ctx.bits != 8:
         return False
     pitch = bsx - ctx.overlap[0]
     if dctmode >= 5 and (pitch % 8 or bsx % 8 or bsy % 4

@@ -33,8 +33,9 @@ def degrain_window(window: torch.Tensor, sspec: SuperSpec,
                    radius: int = 1, info: Optional[dict] = None):
     """Denoise the inner frames of a window of luma frames.
 
-    window: [B + 2*radius, H, W] uint8, on the device the work should run
-    on -> [B, H, W] denoised frames B = window frames minus the `radius`
+    window: [B + 2*radius, H, W] uint8 (uint16 for a clip of 9 to 16 bits,
+    with specs of that depth), on the device the work should run on ->
+    [B, H, W] denoised frames B = window frames minus the `radius`
     frames of context on either side.
 
     One program serves the whole window: the supers of all frames are built
@@ -67,8 +68,8 @@ def degrain_window(window: torch.Tensor, sspec: SuperSpec,
             ref_idx += [c + k, c - k]
     src_t = torch.tensor(src_idx, device=dev)
     ref_t = torch.tensor(ref_idx, device=dev)
-    sup_ref = sups.map(lambda a: a[ref_t])
-    mvb = analyse_batch(sups.map(lambda a: a[src_t]), sup_ref, aspec)
+    sup_ref = sups.take(ref_t)
+    mvb = analyse_batch(sups.take(src_t), sup_ref, aspec)
     t2 = mark()
     j_per = 2 * radius
 
@@ -117,9 +118,8 @@ _MAX_JOBS = 48
 
 
 def _analyse_jobs(sups, src_t, ref_t, aspec) -> MVField:
-    parts = [analyse_batch(sups.map(lambda a: a[src_t[j:j + _MAX_JOBS]]),
-                           sups.map(lambda a: a[ref_t[j:j + _MAX_JOBS]]),
-                           aspec)
+    parts = [analyse_batch(sups.take(src_t[j:j + _MAX_JOBS]),
+                           sups.take(ref_t[j:j + _MAX_JOBS]), aspec)
              for j in range(0, src_t.shape[0], _MAX_JOBS)]
     return MVField(
         tuple(MVPlaneField(*(torch.cat([getattr(p.levels[lv], key)
@@ -137,8 +137,9 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
                  info: Optional[dict] = None) -> List[torch.Tensor]:
     """Denoise a whole clip with temporal radius N.
 
-    clip_planes: [T, H, W] uint8 per color plane ([Y] or [Y, U, V]), on the
-    device the work should run on -> the denoised planes, same shapes.
+    clip_planes: [T, H, W] per color plane ([Y] or [Y, U, V]), uint8, or
+    uint16 for a clip of 9 to 16 bits (`fmt.bits`), on the device the work
+    should run on -> the denoised planes, same shapes and dtype.
 
     Each frame's super is built once; the (frame, delta) pairs of one
     direction are one analyse_batch call (job (k-1)*T + t pairs frame t
@@ -196,8 +197,7 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
     sups_r, mvs, valid = [], [], []
     for k in range(radius):
         sl = slice(k * total, (k + 1) * total)
-        sups_r += [sups.map(lambda a: a[nxt[sl]]),
-                   sups.map(lambda a: a[prv[sl]])]
+        sups_r += [sups.take(nxt[sl]), sups.take(prv[sl])]
         mvs += [delta(mvs_b, k), delta(mvs_f, k)]
         valid += [next_ok[:, k], prev_ok[:, k]]
     out = degrain(clip_planes, sups_r, mvs, aspec_b.meta, dcfg, valid=valid)
@@ -211,11 +211,11 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
 
 
 def headline_specs(width: int = 1920, height: int = 1080, blksize: int = 16,
-                   levels: int = 3):
+                   levels: int = 3, bits: int = 8):
     """(SuperSpec, AnalyseSpec, DegrainConfig) of the headline pipeline:
-    gray 8-bit, pel 2, `levels` pyramid levels, truemotion search, thsad
-    400."""
-    fmt = VideoFormat(width, height, 8, ColorFamily.GRAY)
+    gray, 8-bit unless `bits` says otherwise, pel 2, `levels` pyramid
+    levels, truemotion search, thsad 400."""
+    fmt = VideoFormat(width, height, bits, ColorFamily.GRAY)
     sspec = SuperConfig(pel=2, levels=levels, chroma=False).validate(fmt)
     acfg = AnalyseConfig(blksize=blksize, levels=levels, truemotion=True,
                          chroma=False)
@@ -255,7 +255,7 @@ def make_test_clip_yuv(frames: int, width: int = 1920, height: int = 1080,
                        flash: Optional[Tuple[int, int, int, int]] = None,
                        noise: int = 0, pan: Tuple[int, int] = (2, 3),
                        clean: Optional[Tuple[int, int, int, int]] = None,
-                       device="cuda") -> List[torch.Tensor]:
+                       bits: int = 8, device="cuda") -> List[torch.Tensor]:
     """[Y, U, V] planes ([frames, H, W], [frames, H/2, W/2] x 2, uint8) of a
     YUV420 test clip: per plane one uniform-noise image panned by `pan` =
     (down, right) luma pixels per frame (mod 16; chroma moves half as far).
@@ -273,9 +273,15 @@ def make_test_clip_yuv(frames: int, width: int = 1920, height: int = 1080,
     a compensated neighbour is then close to the frame but not equal to it,
     and degrain has something to average.  clean = (y, x, h, w) in luma
     pixels keeps a region free of that noise: there a true vector matches
-    exactly, which leaves Recalculate blocks under its threshold."""
+    exactly, which leaves Recalculate blocks under its threshold.
+
+    bits = 9..16 makes a uint16 clip of that depth: each sample v of the
+    8-bit clip becomes (v << (bits - 8)) | r, r a fresh uniform value of
+    the low bits (from a generator of its own), so the low bits carry data
+    too."""
     dev = require_device(device)
     rng = np.random.default_rng(seed)
+    low = np.random.default_rng((seed, bits))
     planes = []
     for sub in (0, 1, 1):
         pw, ph = width >> sub, height >> sub
@@ -294,6 +300,9 @@ def make_test_clip_yuv(frames: int, width: int = 1920, height: int = 1080,
                     y, x, h, w = (v >> sub for v in clean)
                     grain[y:y + h, x:x + w] = 0
                 out[i] = np.clip(out[i].astype(np.int64) + grain, 0, 255)
+        if bits > 8:
+            out = ((out.astype(np.uint16) << (bits - 8))
+                   | low.integers(0, 1 << (bits - 8), out.shape, np.uint16))
         planes.append(torch.from_numpy(out).to(dev))
     return planes
 

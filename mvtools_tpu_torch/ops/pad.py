@@ -3,7 +3,8 @@
 Equivalent of the reference's PadReferenceFrame (MVFrame.cpp:1264-1318):
 corners take the nearest corner pixel, edges replicate the nearest edge
 pixel.  Written as clamped-index gathers because
-`F.pad(mode="replicate")` does not take integer tensors.
+`F.pad(mode="replicate")` does not take integer tensors; uint16 pixels are
+gathered through their int16 view (ops/pixels.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import torch
 def edge_pad(t: torch.Tensor, top: int, bottom: int, left: int,
              right: int) -> torch.Tensor:
     """Edge-replicate the last two axes of `t` by the given amounts."""
+    if t.dtype == torch.uint16:
+        return edge_pad(t.view(torch.int16), top, bottom, left,
+                        right).view(torch.uint16)
     h, w = t.shape[-2], t.shape[-1]
     if top or bottom:
         iy = torch.arange(-top, h + bottom, device=t.device).clamp_(0, h - 1)

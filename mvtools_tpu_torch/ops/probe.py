@@ -31,6 +31,10 @@ cost modes (dct 5-10) mix, output [..., 3].  It is a kernel of its own in
 the same source file, defined for 8-bit stacks and the block sizes the SATD
 exists for.
 
+Stacks and source blocks are uint8, or uint16 for clips of 9 to 16 bits;
+each kernel has a form for either, chosen by the stack's dtype, and counts
+the launches of its uint16 form under its name with "[u16]" appended.
+
 A wrapper launches its kernel when the tensors are on a CUDA device and
 uses the plain version only for CPU tensors.
 
@@ -47,7 +51,7 @@ import functools
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, pixels
 from . import sad as sad_ops
 from .pad import edge_pad
 
@@ -65,10 +69,13 @@ INVALID_SAD = 2147483647   # int32 max
 
 STATS = ("sad", "sad_satd_luma")
 
-# one count per kernel; the three-stat forms are kernels of their own
+# one count per kernel; the three-stat and the uint16 forms are kernels of
+# their own
 launches = {"probe_sads": 0, "probe_sads_tiled": 0, "fetch_blocks_tiled": 0,
             "fetch_blocks": 0, "probe_sads[stats3]": 0,
-            "probe_sads_tiled[stats3]": 0}
+            "probe_sads_tiled[stats3]": 0, "probe_sads[u16]": 0,
+            "probe_sads_tiled[u16]": 0, "fetch_blocks_tiled[u16]": 0,
+            "fetch_blocks[u16]": 0}
 plain_calls_on_cuda = 0    # plain versions run on CUDA tensors (comparisons)
 
 
@@ -137,7 +144,10 @@ def _offsets_tensor(offsets: tuple, device) -> torch.Tensor:
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device=None):
-    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+    """Raise unless t is a contiguous ndim-d tensor of `dtype` (or of one
+    of a tuple of dtypes) on `device` (if given)."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes or t.ndim != ndim or not t.is_contiguous():
         raise ValueError(
             f"{name}: need a contiguous {ndim}-d {dtype} tensor, got "
             f"{tuple(t.shape)} {t.dtype} contiguous={t.is_contiguous()}")
@@ -190,7 +200,7 @@ def _gather_at(stack, sub, fy, fx, bs_y: int, bs_x: int):
           + torch.arange(bs_x, device=dev)[None, :]).clamp(0, wp - 1)
     job = torch.arange(nj, device=dev).reshape((nj,) + (1,) * (gy.ndim - 1))
     flat = ((job * n_sub + sub[..., None, None]) * hp + gy) * wp + gx
-    return stack.reshape(-1)[flat].to(I32)
+    return pixels.widen(pixels.gather(stack.reshape(-1), flat))
 
 
 def _gather_blocks_plain(stack, pos_y, pos_x, bs_y: int, bs_x: int, logp: int):
@@ -224,7 +234,7 @@ def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     wb_x = (cand_x + min_dx) >> logp
     shift_y = wrap_clamp(wb_y, hp, wy) - wb_y
     shift_x = wrap_clamp(wb_x, wp, wx) - wb_x
-    src = src_blocks.to(I32)[:, :, None]                    # [J, nblk, 1, ..]
+    src = pixels.widen(src_blocks)[:, :, None]              # [J, nblk, 1, ..]
     cols = []
     for dx, dy in offsets:
         ay = cand_y + dy
@@ -240,25 +250,33 @@ def _probe_block_lib(stats3: bool):
     lib = cuda_build.load("probe_block")
     fn = lib.mvt_probe_sads_stats3 if stats3 else lib.mvt_probe_sads
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _launch_name(name: str, stack) -> str:
+    """The launch count of a kernel's form for this stack's dtype (the
+    three-stat forms take uint8 stacks only)."""
+    return name + "[u16]" if stack.dtype == torch.uint16 else name
+
+
 def _check_probe_args(what, stack, cand_y, cand_x, src_blocks, bs_y, bs_x,
                       pel, stats3=False):
-    if stack.dtype != torch.uint8:
-        raise NotImplementedError(f"{what}: only 8-bit stacks are ported")
+    if stack.dtype not in pixels.PIXEL_DTYPES:
+        raise NotImplementedError(
+            f"{what}: only 8-bit (uint8) and 9- to 16-bit (uint16) stacks "
+            f"are ported, got {stack.dtype}")
     if stats3 and not sad_ops.satd_supported(bs_x, bs_y):
         raise ValueError(f"{what}: no SATD for block size {bs_x}x{bs_y}")
     if pel not in (1, 2, 4):
         raise ValueError(f"{what}: pel must be 1, 2 or 4")
     dev = stack.device
-    _check(stack, "stack", torch.uint8, 4)
+    _check(stack, "stack", pixels.PIXEL_DTYPES, 4)
     _check(cand_y, "cand_y", I32, 3, dev)
     _check(cand_x, "cand_x", I32, 3, dev)
-    _check(src_blocks, "src_blocks", torch.uint8, 4, dev)
+    _check(src_blocks, "src_blocks", stack.dtype, 4, dev)
     nj, nblk, _ = cand_y.shape
     if (cand_x.shape != cand_y.shape or stack.shape[0] != nj
             or stack.shape[1] != pel * pel
@@ -272,11 +290,11 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     stats="sad_satd_luma" [J, nblk, K, D, 3] triples (SAD, SATD, sum of the
     reference block).
 
-    stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
-    [J, nblk, K] int32 candidate pel positions (see module doc);
-    src_blocks: [J, nblk, bs_y, bs_x] uint8; offsets: static [(dx, dy), ...]
-    pel offsets evaluated per candidate.  The kernel serves every call on
-    CUDA tensors, however few the blocks."""
+    stack: [J, pel^2, Hp, Wp] uint8 or uint16 pad_stack output;
+    cand_y/cand_x: [J, nblk, K] int32 candidate pel positions (see module
+    doc); src_blocks: [J, nblk, bs_y, bs_x] of the stack's dtype; offsets:
+    static [(dx, dy), ...] pel offsets evaluated per candidate.  The kernel
+    serves every call on CUDA tensors, however few the blocks."""
     offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
     stats3 = _check_stats("probe_sads", stats, stack)
     _check_probe_args("probe_sads", stack, cand_y, cand_x, src_blocks, bs_y,
@@ -292,6 +310,7 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     nj, nblk, kk = cand_y.shape
     offs = _offsets_tensor(offsets, dev)
     name = "probe_sads[stats3]" if stats3 else "probe_sads"
+    name = _launch_name(name, stack)
     out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
                       dtype=I32, device=dev)
     with torch.cuda.device(dev):
@@ -300,7 +319,8 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
             src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
             nj, pel * pel, stack.shape[2], stack.shape[3], nblk, kk,
             len(offsets), bs_y, bs_x, pel.bit_length() - 1, min_dy, min_dx,
-            wy, wx, torch.cuda.current_stream().cuda_stream)
+            wy, wx, int(stack.dtype == torch.uint16),
+            torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, name)
     launches[name] += 1
     return out
@@ -348,7 +368,7 @@ def probe_sads_tiled_plain(stack, cand_y, cand_x, src_blocks, offsets,
     rel_x = wb_x - ax[..., None]
     valid = ((rel_y >= 0) & (rel_y + wy <= wy_total) & (rel_x >= 0)
              & ((rel_x & ~127) + cxs <= wx_total)).reshape(nj, nblk, kk)
-    src = src_blocks.to(I32)[:, :, None]                    # [J, nblk, 1, ..]
+    src = pixels.widen(src_blocks)[:, :, None]              # [J, nblk, 1, ..]
     cols = []
     for dx, dy in offsets:
         ref = _gather_blocks_plain(stack, cand_y + dy, cand_x + dx, bs_y,
@@ -384,7 +404,7 @@ def _probe_lib(stats3: bool):
     lib = cuda_build.load("probe")
     fn = lib.mvt_probe_sads_tiled_stats3 if stats3 else lib.mvt_probe_sads_tiled
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 21 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -400,10 +420,11 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     reference block), an off-tile candidate reporting INVALID_SAD in all
     three.
 
-    stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
-    [J, nblk, K] int32 candidate pel positions (see module doc);
-    src_blocks: [J, nblk, bs_y, bs_x] uint8; offsets: static [(dx, dy), ...]
-    pel offsets evaluated per candidate; active: optional bool tensor that
+    stack: [J, pel^2, Hp, Wp] uint8 or uint16 pad_stack output;
+    cand_y/cand_x: [J, nblk, K] int32 candidate pel positions (see module
+    doc); src_blocks: [J, nblk, bs_y, bs_x] of the stack's dtype; offsets:
+    static [(dx, dy), ...] pel offsets evaluated per candidate; active:
+    optional bool tensor that
     broadcasts to [J, nblk, K, D] (None: all): an inactive entry reads
     nothing and reports INVALID_SAD (in all three).  Block rows are treated
     as edge-padded to a multiple of `tile` (the kernel clamps member indices
@@ -441,6 +462,7 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     if src_blocks.data_ptr() % 4:
         src_blocks = src_blocks.clone()     # the kernel reads 32-bit words
     name = "probe_sads_tiled[stats3]" if stats3 else "probe_sads_tiled"
+    name = _launch_name(name, stack)
     out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
                       dtype=I32, device=dev)
     with torch.cuda.device(dev):
@@ -451,6 +473,7 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
             nj, pel * pel, stack.shape[2], stack.shape[3], nblk, row_len,
             kk, len(offsets), tile, bs_y, bs_x, pel.bit_length() - 1,
             min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x,
+            int(stack.dtype == torch.uint16),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, name)
     launches[name] += 1
@@ -505,7 +528,7 @@ def fetch_launch_geom(bs_y: int, bs_x: int) -> dict:
 def _fetch_lib():
     fn = cuda_build.load("fetch").mvt_fetch_blocks
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -513,7 +536,7 @@ def _fetch_lib():
 
 def _check_fetch_args(what, stack, cand_y, cand_x, pel):
     dev = stack.device
-    _check(stack, "stack", torch.uint8, 4)
+    _check(stack, "stack", pixels.PIXEL_DTYPES, 4)
     _check(cand_y, "cand_y", I32, 3, dev)
     _check(cand_x, "cand_x", I32, 3, dev)
     if (cand_x.shape != cand_y.shape or stack.shape[0] != cand_y.shape[0]
@@ -533,9 +556,11 @@ def _launch_fetch(what, stack, cand_y, cand_x, bs_y, bs_x, pel):
             out.data_ptr(), nj, pel * pel, stack.shape[2], stack.shape[3],
             nblk, kk, bs_y, bs_x, pel.bit_length() - 1, g["bsx_t"],
             g["log_t"], int(what == "fetch_blocks_tiled"),
+            int(stack.dtype == torch.uint16),
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, what)
-    launches[what] += 1
+    name = _launch_name(what, stack)
+    cuda_build.check_launch(err, name)
+    launches[name] += 1
     return out
 
 
@@ -547,10 +572,10 @@ def fetch_blocks_tiled(stack, cand_y, cand_x, bs_y: int, bs_x: int,
     """[J, nblk, K, bs_y, bs_x] int32 reference blocks over a
     [nrows, row_len] block grid whose blocks lie pitch_x full pels apart.
 
-    stack: [J, pel^2, Hp, Wp] uint8; cand_y/cand_x: [J, nblk, K] int32 pel
-    positions of the block origin in the stack.  Exact for every block;
-    the full-pel origin is taken into the plane as a whole (wrap_clamp),
-    as the JAX package's CPU path takes it.  A stack under the
+    stack: [J, pel^2, Hp, Wp] uint8 or uint16; cand_y/cand_x: [J, nblk, K]
+    int32 pel positions of the block origin in the stack.  Exact for every
+    block; the full-pel origin is taken into the plane as a whole
+    (wrap_clamp), as the JAX package's CPU path takes it.  A stack under the
     tile window (tile_params of one block, FETCH_TILE blocks wide) or a grid
     that is not whole rows goes to fetch_blocks, as the JAX package hands it
     to its per-block fetch kernel."""
@@ -588,11 +613,12 @@ def fetch_blocks(stack, cand_y, cand_x, bs_y: int, bs_x: int,
     """[J, nblk, K, bs_y, bs_x] int32 reference blocks, one per
     (job, block, candidate).
 
-    stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; cand_y/cand_x:
-    [J, nblk, K] int32 candidate pel positions of the block origin (see
-    module doc).  Subplane (cx & (pel-1)) | ((cy & (pel-1)) << logp); the
-    full-pel origin is taken into the plane as a whole (wrap_clamp).  The
-    kernel serves every call on CUDA tensors, however few the blocks."""
+    stack: [J, pel^2, Hp, Wp] uint8 or uint16 pad_stack output;
+    cand_y/cand_x: [J, nblk, K] int32 candidate pel positions of the block
+    origin (see module doc).  Subplane (cx & (pel-1)) | ((cy & (pel-1)) <<
+    logp); the full-pel origin is taken into the plane as a whole
+    (wrap_clamp).  The kernel serves every call on CUDA tensors, however
+    few the blocks."""
     if stack.shape[-2] < bs_y or stack.shape[-1] < bs_x:
         raise ValueError("fetch_blocks: the plane is smaller than a block")
     if not stack.is_cuda:

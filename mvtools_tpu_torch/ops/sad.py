@@ -1,19 +1,22 @@
 """Block cost helpers: SAD and block luma sum over the trailing two axes
 (reference: sad_c SADFunctions.cpp:354-367, luma_c Luma.cpp:14-25).
-Inputs are widened to int32 first: uint8 arithmetic wraps in torch."""
+Inputs are widened to int32 first: uint8 arithmetic wraps in torch, and
+uint16 has none (ops/pixels.py)."""
 
 from __future__ import annotations
 
 import torch
 
+from .pixels import widen
+
 
 def sad(src: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    d = src.to(torch.int32) - ref.to(torch.int32)
+    d = widen(src) - widen(ref)
     return d.abs().sum(dim=(-2, -1))
 
 
 def luma(src: torch.Tensor) -> torch.Tensor:
-    return src.to(torch.int32).sum(dim=(-2, -1))
+    return widen(src).sum(dim=(-2, -1))
 
 
 def _hadamard4(d: torch.Tensor, dim: int) -> torch.Tensor:
@@ -39,7 +42,7 @@ def satd(src: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     8x4 partitions, each partition being two 4x4 transforms whose absolute
     sums are added BEFORE the >> 1."""
     bh, bw = src.shape[-2:]
-    d = src.to(torch.int32) - ref.to(torch.int32)
+    d = widen(src) - widen(ref)
     if bh == 4 and bw == 4:
         return _hadamard_abs_sum_4x4(d) >> 1
     if bh % 4 or bw % 8:

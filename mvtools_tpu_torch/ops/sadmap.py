@@ -13,7 +13,9 @@ trials, hex2 walk, expanding rings) then runs as lookups into the resulting
 With stats="sad_satd_luma" every entry is the triple (SAD, SATD, sum of the
 reference block) that the SATD cost modes (dct 5-10) mix: [J, nblk, Dy, Dx, 3],
 a kernel of its own in the same source file (launch geometry:
-map3_launch_geom).
+map3_launch_geom), defined for 8-bit data only.  The SAD form takes uint8
+and uint16 (9- to 16-bit) stacks, a kernel instantiation for each, and
+counts the launches of the uint16 one as "sad_map[u16]".
 
 Contract: map entries are bit-identical to probe SADs (or stat triples) for
 the same candidate.  Candidates outside the grid are the caller's to reject (they
@@ -32,13 +34,13 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, pixels
 from . import probe as probe_ops
 
 I32 = torch.int32
 INVALID_SAD = probe_ops.INVALID_SAD
 
-launches = {"sad_map": 0, "sad_map[stats3]": 0}
+launches = {"sad_map": 0, "sad_map[stats3]": 0, "sad_map[u16]": 0}
 plain_calls_on_cuda = 0
 
 
@@ -110,7 +112,8 @@ def sad_map_plain(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
           + torch.arange(bs_y, device=dev)[None, :]).clamp(0, hs - 1)
     sx = (src_x0 + bx[:, None] * pitch_x
           + torch.arange(bs_x, device=dev)[None, :]).clamp(0, ws - 1)
-    src = src_plane[:, sy[:, None, :, None], sx[None, :, None, :]].to(I32)
+    src = pixels.widen(pixels.gather(
+        src_plane, (slice(None), sy[:, None, :, None], sx[None, :, None, :])))
     # per-block full-pel reference origin at offset (0, 0)
     t_of = bx // tile
     afy = anchor_fy.reshape(nj, nby, ntx)[:, :, t_of]              # [J,nby,nbx]
@@ -127,8 +130,10 @@ def sad_map_plain(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
         for dx in range(-r_x, r_x + 1):
             sub = (dx & pelm) | ((dy & pelm) << logp)
             gx = (afx[..., None, None] + (dx >> logp) + xx).clamp(0, wp - 1)
-            ref = flat_stack[((job * n_sub + sub) * hp + gy) * wp + gx]
-            cols.append(probe_ops._block_costs(ref.to(I32), src, stats3))
+            ref = pixels.gather(flat_stack,
+                                ((job * n_sub + sub) * hp + gy) * wp + gx)
+            cols.append(probe_ops._block_costs(pixels.widen(ref), src,
+                                               stats3))
         rows.append(torch.stack(cols, dim=3))
     out = torch.stack(rows, dim=3)                 # [J, nby, nbx, Dy, Dx(, 3)]
     return out.reshape((nj, nby * nbx) + out.shape[3:]).to(I32)
@@ -172,55 +177,72 @@ def _parity_count(r: int, q: int, pel: int) -> int:
 
 
 def map_launch_geom(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
-                    tile: int, pitch_x: int) -> dict:
-    """Launch geometry of the plain map kernel for one map shape: the
-    template choice, the work split and the shared-memory layout.
+                    tile: int, pitch_x: int, pix_bytes: int = 1) -> dict:
+    """Launch geometry of the plain map kernel for one map shape and pixel
+    size (1: uint8, 2: uint16): the template choice, the work split and the
+    shared-memory layout.
 
-    A thread owns one (block, subplane, full-pel row) and `nox` full-pel
+    A CTA serves `nbc` consecutive blocks of one tile (the whole tile
+    unless its staging would pass SMEM_LIMIT; then the tile's blocks are
+    split over n_part CTAs, each staging the window of its own blocks round
+    the tile's anchor: the uint16 form's way with 10-bit 128x128 blocks;
+    every 8-bit shape fits whole, and the 8-bit form takes no split).  A
+    thread owns one (block, subplane, full-pel row) and `nox` full-pel
     columns of that grid row (n_chunk chunks cover the row); the CTA stages
     the [pel^2, wy, ref_pitch] reference window, each block's source rows
-    ([tile, src_stride] bytes, word-aligned) and the tile's int32 results.
+    ([nbc, src_stride] bytes, word-aligned) and the blocks' int32 results.
+    A 32-bit word holds 4 // pix_bytes pixels.
     ref_pitch covers the last word any thread reads (its column start, the
-    block row's words and the funnel shift's spill); the two strides are odd
-    word counts, so the threads of a warp, which differ in their block, hit
-    different shared-memory banks."""
+    block row's words and the funnel shift's spill); the two strides are
+    odd word counts, so the threads of a warp, which differ in their block,
+    hit different shared-memory banks."""
     if pel not in (1, 2):
         raise ValueError("map_launch_geom: pel must be 1 or 2")
+    if pix_bytes not in (1, 2):
+        raise ValueError("map_launch_geom: pixels are 1 or 2 bytes")
     logp = pel.bit_length() - 1
-    wpr = -(-bs_x // 4)
+    ppw = 4 // pix_bytes
+    wpr = -(-bs_x // ppw)
     nws = next(n for n in reversed(MAP_NWS) if wpr % n == 0)
-    if bs_x % 4:
+    if bs_x % ppw:
         nws = 1
     nox_max = max(_parity_count(r_x, q, pel) for q in range(pel))
     nox = next((n for n in MAP_NOX if n >= nox_max), MAP_NOX[-1])
     n_chunk = -(-nox_max // nox)
     n_rows = pel * sum(_parity_count(r_y, q, pel) for q in range(pel))
-    items = tile * n_rows * n_chunk
-    passes = -(-items // MAP_MAX_THREADS)
-    threads = -(-(-(-items // passes)) // 32) * 32
     min_oy, min_ox = (-r_y) >> logp, (-r_x) >> logp
     wy = bs_y + (r_y >> logp) - min_oy
     col_off = max((_parity_first(r_x, q, pel - 1) >> logp) - min_ox
                   for q in range(pel))
-    last = ((tile - 1) * pitch_x + col_off + (n_chunk - 1) * nox
-            + 4 * wpr + nox + 2)
-    ref_pitch = -(-last // 4) * 4
-    if (ref_pitch // 4) % 2 == 0:
-        ref_pitch += 4
     src_stride = bs_y * wpr * 4
     if (src_stride // 4) % 2 == 0:
         src_stride += 4
-    src_off = pel * pel * wy * ref_pitch
-    out_off = src_off + tile * src_stride
-    smem = out_off + tile * (2 * r_y + 1) * (2 * r_x + 1) * 4
+    for nbc in range(tile, 0, -1):
+        col0_max = (nbc - 1) * pitch_x + col_off + (n_chunk - 1) * nox
+        last = (pix_bytes * (col0_max + nox) + 4 * wpr
+                + (2 if pix_bytes == 1 else 0))
+        ref_pitch = -(-last // 4) * 4
+        if (ref_pitch // 4) % 2 == 0:
+            ref_pitch += 4
+        src_off = pel * pel * wy * ref_pitch
+        out_off = src_off + nbc * src_stride
+        smem = out_off + nbc * (2 * r_y + 1) * (2 * r_x + 1) * 4
+        if smem <= SMEM_LIMIT:
+            break
+    if pix_bytes == 1 and nbc < tile:
+        raise ValueError("map_launch_geom: an 8-bit map whose tile does "
+                         "not fit a CTA")
+    items = nbc * n_rows * n_chunk
+    passes = -(-items // MAP_MAX_THREADS)
+    threads = -(-(-(-items // passes)) // 32) * 32
     return dict(threads=threads, smem=smem, ref_pitch=ref_pitch,
                 src_stride=src_stride, src_off=src_off, out_off=out_off,
                 nws=nws, nox=nox, n_chunk=n_chunk, n_rows=n_rows, wy=wy,
-                items=items)
+                items=items, nbc=nbc, n_part=-(-tile // nbc))
 
 
 _GEOM_ARGS = ("threads", "smem", "ref_pitch", "src_stride", "src_off",
-              "out_off", "nws", "nox", "n_chunk", "n_rows")
+              "out_off", "nws", "nox", "n_chunk", "n_rows", "nbc", "n_part")
 
 # template instantiations of csrc/sadmap.cu::sadmap3_kernel: full-pel
 # columns a thread owns; its threads per CTA (its __launch_bounds__)
@@ -316,7 +338,7 @@ def _lib(stats3: bool):
     lib = cuda_build.load("sadmap")
     fn = lib.mvt_sad_map_stats3 if stats3 else lib.mvt_sad_map
     if not fn.argtypes:
-        n_int = 18 + len(_GEOM3_ARGS if stats3 else _GEOM_ARGS)
+        n_int = 18 + (len(_GEOM3_ARGS) if stats3 else len(_GEOM_ARGS) + 1)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -331,8 +353,9 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
     stats="sad_satd_luma" [J, nby*nbx, 2*r_y+1, 2*r_x+1, 3] triples (SAD,
     SATD, sum of the reference block).
 
-    stack: [J, pel^2, Hp, Wp] uint8 pad_stack output; src_plane:
-    [J, Hs, Ws] uint8 source plane, block (row, col) at
+    stack: [J, pel^2, Hp, Wp] uint8 or uint16 pad_stack output (the
+    three-stat form: uint8); src_plane: [J, Hs, Ws] source plane of the
+    stack's dtype, block (row, col) at
     (src_y0 + row*pitch_y, src_x0 + col*pitch_x); anchor_fy/fx:
     [J, nby*ceil(nbx/tile)] int32 full-pel stack positions of each tile's
     first block at offset (0, 0), pre-clamped to anchor_bounds."""
@@ -342,8 +365,8 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
                              r_x, bs_y, bs_x, pel, tile, pitch_x, pitch_y,
                              nbx, nby, src_y0, src_x0, stats)
     dev = stack.device
-    probe_ops._check(stack, "stack", torch.uint8, 4)
-    probe_ops._check(src_plane, "src_plane", torch.uint8, 3, dev)
+    probe_ops._check(stack, "stack", pixels.PIXEL_DTYPES, 4)
+    probe_ops._check(src_plane, "src_plane", stack.dtype, 3, dev)
     probe_ops._check(anchor_fy, "anchor_fy", I32, 2, dev)
     probe_ops._check(anchor_fx, "anchor_fx", I32, 2, dev)
     nj = stack.shape[0]
@@ -352,13 +375,16 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
             or tuple(anchor_fy.shape) != (nj, ntile)
             or tuple(anchor_fx.shape) != (nj, ntile)):
         raise ValueError("sad_map: inconsistent shapes")
-    name = "sad_map[stats3]" if stats3 else "sad_map"
+    u16 = stack.dtype == torch.uint16
     if stats3:
+        name = "sad_map[stats3]"
         g = map3_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x)
         geom = tuple(g[k] for k in _GEOM3_ARGS)
     else:
-        g = map_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x)
-        geom = tuple(g[k] for k in _GEOM_ARGS)
+        name = "sad_map[u16]" if u16 else "sad_map"
+        g = map_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x,
+                            2 if u16 else 1)
+        geom = tuple(g[k] for k in _GEOM_ARGS) + (int(u16),)
     out = torch.empty((nj, nby * nbx, 2 * r_y + 1, 2 * r_x + 1)
                       + ((3,) if stats3 else ()), dtype=I32, device=dev)
     with torch.cuda.device(dev):

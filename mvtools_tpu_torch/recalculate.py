@@ -145,7 +145,7 @@ def _check_ported(spec: AnalyseSpec, cfg: RecalculateConfig, sspec,
         raise ValueError(f"recalculate: unknown engine {engine!r}")
     unported = _unported_costs(spec) + [
         (sspec.pel == 4, "pel=4"),
-        (sspec.bits != 8, "16-bit clips"),
+        (sspec.bits != 8, f"{sspec.bits}-bit clips"),
         (spec.divide != 0 or cfg.divide != 0, "divide != 0"),
         (spec.fields or cfg.fields, "fields=True"),
         (field_shift != 0, "field_shift != 0"),

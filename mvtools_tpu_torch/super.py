@@ -25,7 +25,7 @@ import torch
 from .core import geometry
 from .core.config import SuperConfig, SuperSpec
 from .core.types import ColorFamily, VideoFormat
-from .ops import interp, reduce as reduce_ops
+from .ops import interp, pixels, reduce as reduce_ops
 from .ops.pad import pad_replicate
 
 
@@ -34,7 +34,7 @@ class Super:
 
     planes: tuple (one entry per color plane) of tuples of per-level tensors.
     Level 0 tensors have shape [(F,) pel*pel, PH, PW]; level k>0 tensors
-    [(F,) PH, PW].  dtype uint8.
+    [(F,) PH, PW].  dtype uint8, or uint16 for clips of 9 to 16 bits.
     """
 
     def __init__(self, planes: Tuple[Tuple[torch.Tensor, ...], ...],
@@ -51,6 +51,10 @@ class Super:
         out of a batch, gather jobs, move devices)."""
         return Super(tuple(tuple(fn(lv) for lv in p) for p in self.planes),
                      self.spec)
+
+    def take(self, idx: torch.Tensor) -> "Super":
+        """The frames `idx` (a 1-D index tensor) of a batch, as a batch."""
+        return self.map(lambda a: pixels.gather(a, idx))
 
     def level_plane(self, plane: int, level: int) -> torch.Tensor:
         return self.planes[plane][level]
@@ -78,14 +82,15 @@ def build_super_plane(plane: torch.Tensor, spec: SuperSpec,
                       plane_idx: int) -> Tuple[torch.Tensor, ...]:
     """Build all pyramid levels for one color plane.
 
-    plane: [..., H, W] uint8 source plane(s); leading axes are a batch.
+    plane: [..., H, W] uint8 or uint16 source plane(s); leading axes are a
+    batch.
     """
     geos = _plane_geometries(spec, plane_idx)
     dtype = plane.dtype
     out: List[torch.Tensor] = []
 
     # Level 0: replicate-padded source.
-    lv0 = plane.to(torch.int32)
+    lv0 = pixels.widen(plane)
     lv0_padded = pad_replicate(lv0, geos[0].hpad, geos[0].vpad)
 
     # Reduce chain.  The source region for level0->1 is the unpadded plane
@@ -106,9 +111,10 @@ def build_super_plane(plane: torch.Tensor, spec: SuperSpec,
     # Level 0 sub-pel planes.
     subplanes = interp.refine_subplanes(lv0_padded, spec.pel, spec.sharp,
                                         spec.bits)
-    out.append(torch.stack([p.to(dtype) for p in subplanes], dim=-3))
+    out.append(torch.stack([pixels.narrow(p, dtype) for p in subplanes],
+                           dim=-3))
     for lv in range(1, spec.levels):
-        out.append(padded[lv].to(dtype))
+        out.append(pixels.narrow(padded[lv], dtype))
     return tuple(out)
 
 
@@ -117,7 +123,9 @@ def build_super(frame_planes: Sequence[torch.Tensor], cfg_or_spec,
     """Build a Super pyramid from a frame's planes.
 
     frame_planes: [Y] or [Y, U, V] tensors, [H, W] or frame-batched
-    [F, H, W], uint8; the pyramid is built on the device the planes live on.
+    [F, H, W], uint8, or uint16 for clips of 9 to 16 bits (without `fmt`
+    a uint16 clip is taken as 16-bit; a 10-bit clip passes its
+    VideoFormat); the pyramid is built on the device the planes live on.
     cfg_or_spec: a SuperConfig (resolved against `fmt`) or a SuperSpec.
     """
     if isinstance(cfg_or_spec, SuperConfig):
@@ -136,8 +144,10 @@ def build_super(frame_planes: Sequence[torch.Tensor], cfg_or_spec,
         spec = cfg_or_spec.validate(fmt)
     else:
         spec = cfg_or_spec
-    if spec.bits != 8 or frame_planes[0].dtype != torch.uint8:
-        raise NotImplementedError("16-bit clips: only 8-bit is ported")
+    if frame_planes[0].dtype != pixels.dtype_of(spec.bits):
+        raise ValueError(f"Super: {spec.bits}-bit clips take "
+                         f"{pixels.dtype_of(spec.bits)} planes, got "
+                         f"{frame_planes[0].dtype}")
     if tuple(frame_planes[0].shape[-2:]) != (spec.height, spec.width):
         raise ValueError("Super: frame size does not match the spec.")
     if len(frame_planes) < spec.num_planes:

@@ -172,7 +172,7 @@ def _spec(**kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(bits=16), "16-bit"),
+    (dict(bits=16, dct=5), "16-bit"),
     (dict(dct=1, pel=4), "dct"),
     (dict(pel=4), "pel=4"),
     (dict(trymany=True), "trymany"),

@@ -128,16 +128,10 @@ def test_usability_gate_matches_jax(ref):
 
 
 def test_degrain_unported_options_raise(ref):
-    import dataclasses
     sspec, aspec, sups, mvb = _jax_state(ref)
     src = torch.from_numpy(ref["frames"][1])
     refs = [sups.map(lambda a: a[2]), sups.map(lambda a: a[0])]
-    deep = dataclasses.replace(aspec.meta, bits_per_sample=16)
-    mvs = [_job(mvb, 0), _job(mvb, 1)]
-    for m in mvs:
-        m.meta = deep
-    with pytest.raises(NotImplementedError, match="16-bit"):
-        degrain([src], refs, mvs, deep, DegrainConfig())
+    # (16-bit clips are ported: tests/test_torch_deep_slice.py)
     # chroma planes need super clips that carry them
     with pytest.raises(ValueError, match="chroma"):
         degrain([src, src, src], refs, [_job(mvb, 0), _job(mvb, 1)],

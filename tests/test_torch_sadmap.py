@@ -83,10 +83,10 @@ def test_grid_offsets_match_jax():
         jax_probe.ALIGN_SLACK_Y, jax_probe.ALIGN_SLACK_X)
 
 
-def _admitted_map_shapes(family):
+def _admitted_map_shapes(family, bits=8):
     """Every (r_y, r_x, bs_y, bs_x, pel, tile, pitch_x) of a plain SAD map
-    (luma and chroma) that MapProber builds at 8-bit for a 1080p clip of
-    `family`: every valid block size, overlap, pel 1 and 2, every level
+    (luma and chroma) that MapProber builds at `bits` bits for a 1080p clip
+    of `family`: every valid block size, overlap, pel 1 and 2, every level
     that map_supported admits."""
     from mvtools_tpu_torch import AnalyseConfig, SuperConfig
     from mvtools_tpu_torch import field_engine as fe
@@ -94,7 +94,7 @@ def _admitted_map_shapes(family):
     from mvtools_tpu_torch.core.config import _VALID_BLOCK_SIZES
     from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
     chroma = family != "GRAY"
-    fmt = VideoFormat(1920, 1080, 8, ColorFamily[family])
+    fmt = VideoFormat(1920, 1080, bits, ColorFamily[family])
     shapes = set()
     for (bw, bh), pel in itertools.product(sorted(_VALID_BLOCK_SIZES), (1, 2)):
         sspec = SuperConfig(pel=pel, levels=0, chroma=chroma).validate(fmt)
@@ -119,14 +119,16 @@ def _admitted_map_shapes(family):
     return sorted(shapes)
 
 
-def _map_items(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x, g):
+def _map_items(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x, g, ppw=4):
     """The plain map kernel's items (csrc/sadmap.cu::sadmap_kernel) of a
-    full tile, as arrays: the last reference word, the last staged row and
-    the output entries each item writes."""
+    full CTA (g["nbc"] blocks of a tile, the whole tile unless the geometry
+    splits it; ppw pixels a word), as arrays: the last reference word, the
+    last staged row and the output entries each item writes."""
     logp, pelm = pel.bit_length() - 1, pel - 1
-    wpr, nox, nws = -(-bs_x // 4), g["nox"], g["nws"]
-    item = np.arange(tile * g["n_rows"] * g["n_chunk"])
-    b, rest = item % tile, item // tile
+    wpr, nox, nws = -(-bs_x // ppw), g["nox"], g["nws"]
+    nbc = g.get("nbc", tile)
+    item = np.arange(nbc * g["n_rows"] * g["n_chunk"])
+    b, rest = item % nbc, item // nbc
     chunk, rid = rest % g["n_chunk"], rest // g["n_chunk"]
 
     def first(r, q):
@@ -144,8 +146,8 @@ def _map_items(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x, g):
     ncol = np.minimum(nox, count(r_x, dx0) - chunk * nox)
     min_oy, min_ox = (-r_y) >> logp, (-r_x) >> logp
     col0 = b * pitch_x + (dx0 >> logp) + chunk * nox - min_ox
-    nrw = ((col0 & 3) + nox - 1 + 4 * nws - 1) // 4 + 1
-    last_word = (col0 >> 2) + wpr - nws + nrw - 1
+    nrw = (col0 % ppw + nox - 1 + ppw * nws - 1) // ppw + 1
+    last_word = col0 // ppw + wpr - nws + nrw - 1
     sub = px | (py << logp)
     last_row = sub * g["wy"] + (dy >> logp) - min_oy + bs_y - 1
     entries = [(bb, (d + r_y) * (2 * r_x + 1) + x0 + (i << logp))
@@ -179,3 +181,43 @@ def test_map_launch_geom_fits_the_card(family):
         assert len(set(entries)) == tile * d, (shape, g)
         assert g["src_off"] >= pel * pel * g["wy"] * g["ref_pitch"]
         assert g["out_off"] >= g["src_off"] + tile * bs_y * -(-bs_x // 4) * 4
+
+
+@pytest.mark.parametrize("bits", [10, 16])
+@pytest.mark.parametrize("family", ["GRAY", "YUV420", "YUV422", "YUV444"])
+def test_map_launch_geom_fits_the_card_at_deep_bits(family, bits):
+    """The same for the uint16 form (two pixels a word) over every map
+    shape the search admits at 10 and 16 bits (16-bit: blocks up to 16x16;
+    10-bit: every size): where a whole tile's staging would pass 227 KB
+    (10-bit 128x128 blocks) a CTA takes fewer of its blocks, and its items
+    still read only staged words and rows and write each entry of its
+    blocks once."""
+    shapes = _admitted_map_shapes(family, bits)
+    assert len(shapes) > 20
+    assert all(bs_y * bs_x <= 256 for _, _, bs_y, bs_x, *_ in shapes) == (
+        bits == 16)
+    split = 0
+    for shape in shapes:
+        r_y, r_x, bs_y, bs_x, pel, tile, pitch_x = shape
+        g = sadmap.map_launch_geom(*shape, 2)
+        assert g["smem"] <= sadmap.SMEM_LIMIT, (shape, g)
+        assert g["threads"] % 32 == 0, (shape, g)
+        assert 32 <= g["threads"] <= sadmap.MAP_MAX_THREADS, (shape, g)
+        assert g["nws"] in sadmap.MAP_NWS and g["nox"] in sadmap.MAP_NOX
+        assert -(-bs_x // 2) % g["nws"] == 0
+        assert 1 <= g["nbc"] <= tile and g["nbc"] * g["n_part"] >= tile
+        if g["nbc"] < tile:
+            split += 1
+            # the split is taken only where one more block does not fit
+            assert sadmap.map_launch_geom(*shape[:5], g["nbc"] + 1,
+                                          pitch_x, 2)["nbc"] == g["nbc"]
+        last_word, last_row, entries = _map_items(*shape, g, ppw=2)
+        assert last_word.max() < g["ref_pitch"] // 4, (shape, g)
+        assert last_row.max() < pel * pel * g["wy"], (shape, g)
+        d = (2 * r_y + 1) * (2 * r_x + 1)
+        assert len(entries) == g["nbc"] * d, (shape, g)
+        assert len(set(entries)) == g["nbc"] * d, (shape, g)
+        assert g["src_off"] >= pel * pel * g["wy"] * g["ref_pitch"]
+        assert g["out_off"] >= g["src_off"] + g["nbc"] * bs_y * -(
+            -bs_x // 2) * 4
+    assert (split > 0) == (bits == 10)

@@ -222,11 +222,13 @@ def test_stats_guards_raise_value_errors():
 
 def test_stats_forms_count_launches_of_their_own():
     """The three-stat forms are kernels of their own: their launches are
-    counted apart from the plain forms', and on the CPU nothing counts."""
+    counted apart from the plain forms' (and from the uint16 forms'), and
+    on the CPU nothing counts."""
     for key in ("probe_sads", "probe_sads_tiled", "probe_sads[stats3]",
                 "probe_sads_tiled[stats3]"):
         assert key in probe_ops.launches
-    assert set(sadmap.launches) == {"sad_map", "sad_map[stats3]"}
+    assert set(sadmap.launches) == {"sad_map", "sad_map[stats3]",
+                                    "sad_map[u16]"}
     stack, cy, cx, src = (torch.from_numpy(a)
                           for a in _block_probe_inputs(7, 1, 8, 1))
     before = dict(probe_ops.launches), probe_ops.plain_calls_on_cuda

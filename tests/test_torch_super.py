@@ -83,8 +83,11 @@ def test_super_roundtrips_through_convert(ref):
     (dict(), (64, 48, 16, ColorFamily.GRAY), "16-bit"),
 ])
 def test_super_unported_options_raise(cfg, fmt, what):
+    """Options outside the slice raise NotImplementedError; a deep-bit spec
+    (ported) given uint8 planes raises ValueError naming the depth."""
     spec = SuperConfig(**cfg).validate(VideoFormat(*fmt))
-    with pytest.raises(NotImplementedError, match=what):
+    exc = ValueError if fmt[2] > 8 else NotImplementedError
+    with pytest.raises(exc, match=what):
         build_super([torch.zeros((48, 64), dtype=torch.uint8)], spec)
 
 

@@ -353,7 +353,7 @@ def _tiny_clip(bits=8):
     (dict(spatial="space"), "mesh"),
     (dict(acfg=AnalyseConfig(fields=True, tff=True)), "fields"),
     (dict(scfg=SuperConfig(pel=4)), "pel"),
-    (dict(bits=16), "16-bit"),
+    (dict(bits=16, acfg=AnalyseConfig(dct=5)), "16-bit"),
     (dict(acfg=AnalyseConfig(dct=1), scfg=SuperConfig(pel=4)), "dct"),
     (dict(acfg=AnalyseConfig(trymany=True)), "trymany"),
 ], ids=["exact", "mesh", "spatial", "fields", "pel4", "16bit", "dct",

@@ -44,6 +44,14 @@ _prefetch); each exits when the worker that started it does.
   exhaustive search) and once with chroma (YUV420, dct 5).
 * load_dct6(): Analyse with dct 6 on a pair whose brightness changes (two
   levels at 128x96), so that the SATD mix's per-job weight is not 0.
+* load_deep(): the YUV420 slice at 16 bits: load_yuv's clip with each
+  sample v as (v << 8) | r, r a fresh seeded byte (so the low byte carries
+  data), radius 1 (about half of load_yuv's JAX time), the same pyramid and
+  search; the rescue runs, and on the levels narrower than the tiled
+  probe's window through the per-block probe.  Degrain takes thsad 2000 and
+  thscd1 10000: every valid pair holds the flash frame, which at the
+  default thscd1 makes each a scene change (weight 0); with these the
+  blocks outside the flash are averaged in all three planes.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -654,6 +662,93 @@ def _compute_dct6() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The YUV420 slice at 16 bits: radius 1
+
+DEEP_BITS, DEEP_RADIUS, DEEP_SEED = 16, 1, 17
+DEEP_DEGRAIN = dict(thsad=2000, thscd1=10000)
+
+
+def make_deep_frames():
+    """[Y, U, V] uint16 planes: make_yuv_frames' clip with each sample v as
+    (v << 8) | r, r a fresh byte from DEEP_SEED."""
+    rng = np.random.default_rng(DEEP_SEED)
+    return [(p.astype(np.uint16) << 8)
+            | rng.integers(0, 256, p.shape, np.uint16)
+            for p in make_yuv_frames()]
+
+
+def _compute_deep() -> dict:
+    """Supers per frame, one analyse_batch call holding the jobs of both
+    directions, degrain per frame with the clip-edge validity: the
+    composition the JAX package's degrain_clip stages."""
+    import jax
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    from mvtools_tpu.analyse import batch_supported
+    from mvtools_tpu.core.config import AnalyseConfig, SuperConfig
+    from mvtools_tpu.core.types import ColorFamily, VideoFormat
+    from mvtools_tpu.degrain import DegrainConfig, degrain
+
+    tm = jax.tree_util.tree_map
+    planes = make_deep_frames()
+    total, radius = YUV_FRAMES, DEEP_RADIUS
+    fmt = VideoFormat(YUV_W, YUV_H, DEEP_BITS, ColorFamily.YUV420)
+    sspec = SuperConfig(pel=2, levels=0, chroma=True).validate(fmt)
+    aspec = dataclasses.replace(
+        AnalyseConfig(blksize=YUV_BLK, levels=0, overlap=YUV_OVERLAP,
+                      truemotion=True, chroma=True),
+        isb=True).validate(sspec)
+    assert aspec.meta.lv_count == YUV_LEVELS
+    assert batch_supported(aspec, sspec)
+    sups = [mvt.build_super([jnp.asarray(p[i]) for p in planes], sspec)
+            for i in range(total)]
+    src, ref = yuv_job_indices(total, radius)
+    ss = tm(lambda *a: jnp.stack(a), *[sups[i] for i in src])
+    rs = tm(lambda *a: jnp.stack(a), *[sups[i] for i in ref])
+    mvb = mvt.analyse_batch(ss, rs, aspec)
+    out = {"y": planes[0], "u": planes[1], "v": planes[2]}
+    for p in range(3):
+        for lv in range(sspec.levels):
+            out[f"super{p}_{lv}"] = np.stack(
+                [np.asarray(s.planes[p][lv]) for s in sups])
+    for lv in range(YUV_LEVELS):
+        for k in ("x", "y", "sad"):
+            out[f"mv_{k}{lv}"] = np.asarray(getattr(mvb.levels[lv], k))
+    deg = [[], [], []]
+    nj = total * radius
+    for i in range(total):
+        sups_r, mvs, valid = [], [], []
+        for k in range(radius):
+            sups_r += [sups[min(i + k + 1, total - 1)],
+                       sups[max(i - k - 1, 0)]]
+            mvs += [tm(lambda a, j=k * total + i: a[j], mvb),
+                    tm(lambda a, j=nj + k * total + i: a[j], mvb)]
+            valid += [jnp.asarray(i + k + 1 <= total - 1),
+                      jnp.asarray(i - k - 1 >= 0)]
+        res = degrain([jnp.asarray(p[i]) for p in planes], sups_r, mvs,
+                      aspec.meta, DegrainConfig(**DEEP_DEGRAIN), valid=valid)
+        for p in range(3):
+            deg[p].append(np.asarray(res[p]))
+    for p in range(3):
+        out[f"degrain{p}"] = np.stack(deg[p])
+
+    def plain(d):
+        return {k: (plain(v) if isinstance(v, dict) else
+                    int(v) if isinstance(v, (int, np.integer)) and
+                    not isinstance(v, bool) else v) for k, v in d.items()}
+
+    out["sspec_json"] = np.array(json.dumps(plain(dataclasses.asdict(sspec))))
+    out["aspec_json"] = np.array(json.dumps(plain(dataclasses.asdict(aspec))))
+    return out
+
+
+def load_deep(tmp_path_factory) -> dict:
+    """The 16-bit YUV420 reference arrays, computed at most once per test
+    run."""
+    return _load(tmp_path_factory, "torch_port_reference_deep")
+
+
+# ---------------------------------------------------------------------------
 # Computing the references ahead of the tests that need them
 
 COMPUTE = {
@@ -663,6 +758,7 @@ COMPUTE = {
     "torch_port_reference_dct": _compute_dct,
     "torch_port_reference_recalc": _compute_recalc,
     "torch_port_reference_dct6": _compute_dct6,
+    "torch_port_reference_deep": _compute_deep,
 }
 # the background processes, the references each computes.  pytest-xdist
 # hands out the test files with the most tests first, and those are the
