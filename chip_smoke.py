@@ -14,8 +14,10 @@ pitches 14 and 6 and at pel 1, its three-stat form also with 8x8 and 32x32
 blocks and at pel 1, the tiled fetch also on the DCT path's map rows, at
 origins outside the plane and with 8x8 blocks; the uint16 forms of K1-K5
 at the deep-bit YUV420 path's shapes on 16-bit and on 10-bit data, with
-blocks of 0 against the pixel maximum), prints the SASS opcode counts of
-every kernel form, checks small end-to-end runs on the card against the
+blocks of 0 against the pixel maximum; the three-stat tiled probe also on
+blocks of 0 against 255 and with 8x8, 32x32 and 64x64 blocks; the maps and
+the tiled probes also timed by their device time in a torch.profiler
+trace), prints the SASS opcode counts of every kernel form, checks small end-to-end runs on the card against the
 same code on CPU tensors (at 8 and at 16 bits, degrain_clip and the gray
 degrain_window), and drives six main paths
 at full width:
@@ -66,10 +68,12 @@ kernels by time, and the summed device time of every kernel form).
 
     python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
 
-times the 8-bit kernels at the YUV420 and DCT paths' shapes and drives the
-full-width paths (no other kernel comparison, no small runs, no kernels line
-and no "ok" line), with the package of the checkout at DIR if given: the way
-to compare two trees' kernels, paths and kernel sums in one call.  DIR
+times the 8-bit kernels at the YUV420 and DCT paths' shapes, the uint16
+map and the three-stat tiled probe at theirs (phase
+redesigned_kernel_times), and drives the full-width paths (no other kernel
+comparison, no small runs, no kernels line and no "ok" line), with the
+package of the checkout at DIR if given: the way to compare two trees'
+kernels, paths and kernel sums in one call.  DIR
 must hold a package that has the uint16 kernel forms and Super.take.
 """
 
@@ -121,6 +125,11 @@ W, H, BATCH, RADIUS = 1920, 1080, 8, 1
 # (ms on an H100 80GB HBM3 at 700 W, as PERF.md records them)
 GRAY_K1_BEFORE = (2.879, 0.599, 0.172)
 GRAY_K2_BEFORE = (0.374, 0.100, 0.067)
+# K1 u16's first body at the deep-bit YUV level-0 luma, chroma and
+# 0-against-maximum shapes, and K2''s at Recalculate's, the hexagon's, the
+# ring's and the masked hexagon's (PERF.md, H100 80GB HBM3, 700 W)
+K1_U16_BEFORE = {16: (3.280, 0.843, 3.299), 10: (3.277, 0.847, None)}
+K2P_BEFORE = (0.158, 0.139, 0.176, 0.094)
 FLASH = (416, 832, 256, 256)
 SMALL_W, SMALL_H, SMALL_FLASH = 256, 192, (32, 64, 96, 128)
 # the YUV420 path: 14 frames, flash over most of the frame, noise of +-4 per
@@ -176,6 +185,25 @@ def time_cuda(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def time_device(fn, reps, kernel):
+    """Mean device milliseconds a call of fn() spends in the kernels whose
+    trace names match `kernel` (a regular expression), from a torch.profiler
+    trace of `reps` calls after one warm-up: the kernel's own time, without
+    the wrapper's host path that a short kernel's CUDA-event time holds.
+    None where the trace shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and re.search(kernel, e.key))
+    return us / 1e3 / reps if us > 0 else None
 
 
 def time_plain(fn):
@@ -272,23 +300,23 @@ def k1_case(ctx, stacks, gen, plane=0, stats="sad", extra="",
     err = compare(f"sad_map {label}", out, want)
     del want
     ms = time_cuda(lambda: sadmap.sad_map(*args), 5)
+    device_ms = time_device(lambda: sadmap.sad_map(*args), 5, KERNEL_NAMES[
+        kernel_name("sad_map", stack, stats)])
     n_entries = out.numel() // (1 if stats == "sad" else 3)
     n_ops = n_entries * bsy * bsx * OPS_PER_PIXEL[stats]
     n_bytes = ((stack.numel() + src_plane.numel()) * stack.element_size()
                + 4 * (afy.numel() + afx.numel()) + 4 * out.numel())
     b_ms, b_by = bound(n_bytes, n_ops)
     res = dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               min_entry=int(out.min()), max_entry=int(out.max()))
+               device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, min_entry=int(out.min()),
+               max_entry=int(out.max()))
     if stats == "sad":
-        if stack.dtype == torch.uint8:
-            g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile,
-                                       pit_x)
-        else:
-            g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile,
-                                       pit_x, stack.element_size())
+        g = sadmap.map_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile, pit_x,
+                                   stack.element_size())
         res["launch"] = {k: g[k] for k in ("threads", "smem", "nws", "nox",
-                                           "n_chunk", "nbc", "n_part")
+                                           "n_chunk", "passes", "nbc",
+                                           "n_part")
                          if k in g}
     else:
         g = sadmap.map3_launch_geom(r_y, r_x, bsy, bsx, ctx.pel, tile, pit_x)
@@ -425,14 +453,15 @@ def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad",
                              f"valid and invalid candidates ({n_valid}, "
                              f"{n_invalid})")
     ms = time_cuda(run, 10)
+    device_ms = time_device(run, 10, KERNEL_NAMES[name])
     # the entries this run's data needs: valid and live
     n_needed = int((sads != probe.INVALID_SAD).sum())
     b_ms, b_by = probe_bound(stack, cy, src_blocks, out,
                              n_needed / len(offsets), len(offsets), bsy, bsx,
                              stats)
     res = dict(case=label, shape=list(out.shape), invalid=n_invalid,
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               max_abs_err=err, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     if masked:
         res["live_share"] = float(active.float().mean())
     if before_ms is not None:
@@ -691,7 +720,7 @@ KERNEL_NAMES = {
     "probe_sads_tiled[stats3]": r"probe_stats3_kernel[<(]",
     "fetch_blocks_tiled": r"fetch_kernel<(unsigned char, )?-?\d+, 1>",
     "fetch_blocks": r"fetch_kernel<(unsigned char, )?-?\d+, 0>",
-    "sad_map[u16]": r"sadmap_kernel<unsigned short",
+    "sad_map[u16]": r"sadmap(16_kernel<|_kernel<unsigned short)",
     "probe_sads_tiled[u16]": r"probe_kernel<unsigned short",
     "probe_sads[u16]": r"probe_block_kernel<unsigned short>",
     "fetch_blocks_tiled[u16]": r"fetch_kernel<unsigned short, -?\d+, 1>",
@@ -706,12 +735,14 @@ SASS_FORMS = {
     "probe_sads_tiled": ("probe", r"12probe_kernelI(h|Li)"),
     "probe_sads": ("probe_block", r"18probe_block_kernel(IhE|EPKh)"),
     "fetch_blocks_tiled/fetch_blocks": ("fetch", r"12fetch_kernelI(h|Li)"),
-    "sad_map[u16]": ("sadmap", r"13sadmap_kernelIt"),
+    "sad_map[u16]": ("sadmap", r"(13sadmap_kernelIt|15sadmap16_kernel)"),
     "probe_sads_tiled[u16]": ("probe", r"12probe_kernelIt"),
     "probe_sads[u16]": ("probe_block", r"18probe_block_kernelItE"),
     "fetch_blocks_tiled/fetch_blocks[u16]": ("fetch",
                                              r"12fetch_kernelIt"),
     "sad_map[stats3]": ("sadmap", r"sadmap3_kernel"),
+    "probe_sads_tiled[stats3]": ("probe", r"19probe_stats3_kernel"),
+    "probe_sads[stats3]": ("probe_block", r"probe_block_stats3_kernel"),
 }
 
 
@@ -916,8 +947,9 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
     pitch 4; K4 on the small planes of levels 4 and 5; K5 as the tiled
     fetch's hand-over at level 5 and at origins past every edge), on a clip
     of `bits` bits whose samples use the low bits too, with a region of 0
-    against 2^bits - 1.  At 10 bits also K1 with 128x128 blocks, whose tile
-    the launch geometry splits over CTAs."""
+    against 2^bits - 1.  At 10 bits also K1 with 128x128 blocks, the
+    largest staging of any map the search admits.  K1's cases print its first
+    uint16 body's time as before_ms (PERF.md)."""
     from mvtools_tpu_torch.ops import pixels
     scfg, acfg, _, _ = cfgs
     fmt = VideoFormat(W, H, bits, ColorFamily.YUV420)
@@ -940,7 +972,8 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
     k1, k2, k3, k4, k5 = [], [], [], [], []
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
     for plane in (0, 1):
-        k1.append(k1_case(ctx, stacks, gen, plane))
+        k1.append(k1_case(ctx, stacks, gen, plane,
+                          before_ms=K1_U16_BEFORE[bits][plane]))
         offsets = HEXAGON if plane == 0 else grid16
         label = case_label(ctx, plane, " K=1 D=%d" % len(offsets))
         k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane))
@@ -956,7 +989,8 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
     xctx = ctx._replace(src_planes=tuple(full(p, 0)
                                          for p in ctx.src_planes))
     xstacks = tuple(full(t, top) for t in stacks)
-    k1.append(k1_case(xctx, xstacks, gen, extra=" 0 against the maximum"))
+    k1.append(k1_case(xctx, xstacks, gen, extra=" 0 against the maximum",
+                      before_ms=K1_U16_BEFORE[bits][2]))
     k2.append(k2_case(xctx, xstacks, gen, HEXAGON, 1,
                       case_label(ctx, 0, " K=1 D=6 0 against the maximum")))
     if k1[-1]["max_entry"] != 16 * 16 * top or k1[-1]["min_entry"] != \
@@ -1013,16 +1047,16 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
         del ctx, stacks
     del sups, clip
     if bits == 10:
-        k1.append(k1_split_case(gen, dev))
+        k1.append(k1_largest_blocks_case(gen, dev))
     torch.cuda.empty_cache()
     return k1, k2, k3, k4, k5
 
 
-def k1_split_case(gen, dev):
+def k1_largest_blocks_case(gen, dev):
     """K1 at 10 bits with 128x128 blocks (overlap 60: pitch 68, two blocks
-    a tile) on level 0 of a 1080p gray clip, 4 jobs: the whole tile's
-    staging would pass the card's shared memory, so the launch geometry
-    gives each of the tile's blocks a CTA of its own."""
+    a tile) on level 0 of a 1080p gray clip, 4 jobs: the largest staging of
+    any map the search admits (one subplane's window, both blocks' source
+    rows)."""
     fmt = VideoFormat(W, H, 10, ColorFamily.GRAY)
     clip = make_test_clip_yuv(5, W, H, seed=4, noise=YUV_NOISE, pan=YUV_PAN,
                               bits=10, device=dev)[0]
@@ -1034,9 +1068,6 @@ def k1_split_case(gen, dev):
                                torch.tensor([1, 1, 3, 3], device=dev),
                                torch.tensor([2, 0, 4, 2], device=dev), 0)
     case = k1_case(ctx, stacks, gen, extra=" 128x128")
-    if case["launch"]["nbc"] >= fe._map_tile(ctx):
-        raise AssertionError(f"sad_map {case['case']}: the tile was not "
-                             f"split {case['launch']}")
     del ctx, stacks, sups, clip
     return case
 
@@ -1304,8 +1335,11 @@ def satd_kernel_cases(gen, dev):
     """K1', K2' and K4' at the shapes the two SATD paths give them: K1' at
     Recalculate's level 0 (16x16, pitch 8, 32 026 blocks) and at Analyse's
     level 0; K2' at Recalculate's level 0 (the predictor's cost: K = 1,
-    D = 1) and at Analyse's level 0 (the rescue's hexagon and ring); K4' on
-    Analyse's level-5 plane, which is under the tile window."""
+    D = 1; also on blocks of 0 against references of 255) and at Analyse's
+    level 0 (the rescue's hexagon and ring); K4' on Analyse's level-5 plane,
+    which is under the tile window.  Then K1' and K2' at block sizes the
+    paths do not reach (K2': 8x8, one lane a tile and eight offsets a warp;
+    32x32, two tiles a lane; 64x64, the generic body)."""
     sspec, aspec, _, rspec = chain_specs(W, H, 5)
     clip = satd_clip(RECALC_PAIRS + 1, W, H, 1, YUV_FLASH, SATD_CLEAN, dev)
     sups = build_super([clip], sspec)
@@ -1317,15 +1351,25 @@ def satd_kernel_cases(gen, dev):
     ctx, stacks = level_inputs(sspec, rspec, sups, src_idx, ref_idx, 0)
     k1.append(k1_case(ctx, stacks, gen, stats=STATS3, before_ms=10.855))
     k2.append(k2_case(ctx, stacks, gen, ((0, 0),), 1,
-                      case_label(ctx, 0, " K=1 D=1"), stats=STATS3))
-    del ctx, stacks
+                      case_label(ctx, 0, " K=1 D=1"), stats=STATS3,
+                      before_ms=K2P_BEFORE[0]))
+    # the largest sums: every source block 0, every reference pixel 255
+    xctx = ctx._replace(src_planes=tuple(torch.zeros_like(p)
+                                         for p in ctx.src_planes))
+    xstacks = tuple(torch.full_like(t, 255) for t in stacks)
+    k2.append(k2_case(xctx, xstacks, gen, HEXAGON, 1,
+                      case_label(ctx, 0, " K=1 D=6 0 against 255"),
+                      stats=STATS3))
+    del ctx, stacks, xctx, xstacks
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
     k1.append(k1_case(ctx, stacks, gen, stats=STATS3, before_ms=2.914))
-    for offsets, what in ((HEXAGON, "hexagon D=6"), (ring, "ring D=8")):
+    for offsets, what, before in ((HEXAGON, "hexagon D=6", K2P_BEFORE[1]),
+                                  (ring, "ring D=8", K2P_BEFORE[2])):
         k2.append(k2_case(ctx, stacks, gen, offsets, 1,
-                          f"level 0 K=1 {what}", stats=STATS3))
+                          f"level 0 K=1 {what}", stats=STATS3,
+                          before_ms=before))
     k2.append(k2_case(ctx, stacks, gen, HEXAGON, 1, "level 0 K=1 hexagon D=6",
-                      stats=STATS3, masked=True))
+                      stats=STATS3, masked=True, before_ms=K2P_BEFORE[3]))
     del ctx, stacks
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 5)
     for offsets in (HEXAGON, tuple(fe._HEXP), ((0, 0),)):
@@ -1334,15 +1378,21 @@ def satd_kernel_cases(gen, dev):
     # K1' at the geometries the two paths do not reach: 8x8 and 32x32
     # blocks, pitch 8 and 16, pel 1 (level 0 of the same clip, 4 jobs)
     fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
-    for pel, bs, ov in ((2, 8, 0), (2, 32, 16), (1, 16, 8), (1, 16, 0)):
+    for pel, bs, ov in ((2, 8, 0), (2, 32, 16), (1, 16, 8), (1, 16, 0),
+                        (2, 64, 0)):
         sspec = SuperConfig(pel=pel, levels=1, chroma=False).validate(fmt)
         aspec = AnalyseConfig(blksize=bs, overlap=ov, levels=1, chroma=False,
                               dct=5).validate(sspec)
         sups = build_super([clip], sspec)
         ctx, stacks = level_inputs(sspec, aspec, sups, src_idx[:4],
                                    ref_idx[:4], 0)
-        k1.append(k1_case(ctx, stacks, gen, stats=STATS3,
-                          extra=f" {bs}x{bs}"))
+        if bs != 64:
+            k1.append(k1_case(ctx, stacks, gen, stats=STATS3,
+                              extra=f" {bs}x{bs}"))
+        if pel == 2:
+            k2.append(k2_case(ctx, stacks, gen, HEXAGON, 1,
+                              case_label(ctx, 0, f" {bs}x{bs} K=1 D=6"),
+                              stats=STATS3, masked=bs == 8))
         del ctx, stacks, sups
     del clip
     torch.cuda.empty_cache()
@@ -1678,6 +1728,24 @@ def u8_kernel_times(cfgs, dev):
                                  ("probe_sads", k4), ("fetch_blocks", k5))}})
 
 
+def redesigned_kernel_times(cfgs, dev):
+    """K1 u16 and K2' (redesigned in this tree) at the shapes PERF.md
+    records them at, against their plain versions, for --paths-only: with
+    --package-root the other tree's kernels, so that one call times both
+    trees in turns."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    k1 = [c for bits in (DEEP_BITS, 10)
+          for c in deep_kernel_cases(cfgs, gen, dev, bits)[0]]
+    gen.manual_seed(0)
+    k2 = satd_kernel_cases(gen, dev)[1]
+    keys = ("case", "ms", "device_ms", "bound_ms", "plain_ms", "launch")
+    emit({"phase": "redesigned_kernel_times",
+          **{name: [{k: c[k] for k in keys if k in c} for c in cases]
+             for name, cases in (("sad_map[u16]", k1),
+                                 ("probe_sads_tiled[stats3]", k2))}})
+
+
 def run_yuv16_paths(cfgs, dev, profile):
     """The flagship YUV420 path at 16 bits and full width through
     degrain_clip: first with the flash (K1, K2, K4 and K3 in their uint16
@@ -1793,6 +1861,7 @@ def main():
         small_end_to_end_dct(dev)
     else:
         u8_kernel_times(cfgs, dev)
+        redesigned_kernel_times(cfgs, dev)
 
     # ---- gray main path at full width ---------------------------------------
     n_windows = 2
@@ -1948,6 +2017,7 @@ def main():
                     launches_on=path,
                     launches_by_path={k: v[name] for k, v in by_path.items()},
                     max_abs_err=case["max_abs_err"], ms=case["ms"],
+                    device_ms=case.get("device_ms"),
                     plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                     bound_by=case["bound_by"],
                     library_ms=case.get("library_ms"),

@@ -1,5 +1,6 @@
 // Pixels packed in 32-bit words, for the SAD kernels that sum a word of
-// pixels at a time (sadmap.cu's sad map, probe.cu's tiled probe).
+// pixels at a time: probe.cu's tiled probe in either pixel type, sadmap.cu's
+// 8-bit sad map.
 //
 // PixWord<T> for the pixel type T of a stack (uint8_t, or uint16_t for 9- to
 // 16-bit clips): PPW pixels a word (LOG_PPW its log), SH bits a pixel, and
@@ -14,6 +15,12 @@
 //           two differences of 65 535 would overflow it.  The largest block
 //           sum the search admits (a 16x16 block of 0 against one of 65 535,
 //           16 776 960) fits the accumulator with room.
+//
+// The uint16 sad map does not sum |a - b| word by word: it takes
+// sum S + sum R - 2 sum min(S, R), one min.u16x2 and one IDP.2A a word, the
+// two sums once per block and per window position (sadmap.cu::
+// sadmap16_kernel).  The tiled probe keeps sad(): a probe's window is read
+// once per offset, so there is no sum to share.
 
 #pragma once
 

@@ -72,10 +72,20 @@
 // The three-stat form writes the triple (SAD, SATD, sum of the reference
 // block) per entry, out[job, block, k, d, 0..2] (satd.cuh says what the SATD
 // is), under the same validity rule: an invalid candidate, or an inactive
-// entry, reports INVALID_SAD in all three.  A group of lanes owns one
-// (job, block, candidate, offset) and splits the block's 8x4 partitions.
-// Bound: integer operations once a call has more than a few offsets per
-// candidate, bytes below that.
+// entry, reports INVALID_SAD in all three.  Bound: bytes at the search's
+// offset counts.  Its first body gave each (job, block, candidate, offset) a
+// group of lanes that loaded both blocks byte by byte and transformed S - R
+// afresh (about ten instructions a pixel-offset, 64-bit index arithmetic,
+// the validity rule's loads in every lane): 0.158 ms at Recalculate's
+// [8, 32026, 1, 1, 3], 0.139 at Analyse's hexagon [8, 8040, 1, 6, 3]
+// (H100 80GB HBM3, 700 W, CUDA events).  probe_stats3_kernel is K2's frame
+// with the arithmetic of K1' (the three-stat map): a warp per candidate (or
+// per two or more where a candidate has too few offsets to fill the warp),
+// the source block's 4x4
+// Hadamard transforms H(S) made once, and per offset H(R) in biased 16-bit
+// halves, set against H(S) by one min.u16x2 and one IDP.2A a coefficient
+// pair (satd.cuh); the launch geometry is
+// ops/probe.py::probe3_launch_geom.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -298,48 +308,187 @@ probe_kernel(const T* __restrict__ stack,
     }
 }
 
-// The three-stat form: `group` lanes per (job, block, candidate, offset).
-__global__ void probe_stats3_kernel(const uint8_t* __restrict__ stack,
-                                    const int* __restrict__ cand_y,
-                                    const int* __restrict__ cand_x,
-                                    const uint8_t* __restrict__ src,
-                                    const int* __restrict__ offs,
-                                    const uint8_t* __restrict__ active,
-                                    int* __restrict__ out, ProbeParams p,
-                                    int group) {
-    const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long item = gt / group;          // ((job, block), k, d) flat
-    const int g_lane = (int)(gt % group);
-    const bool in_range = item < p.total * p.d;
-    const long long w = in_range ? item / p.d : 0;     // (job, block, k)
-    const int d = in_range ? (int)(item % p.d) : 0;
-    const long long jb = w / p.k;
-    const int blk = (int)(jb % p.nblk);
-    const int job = (int)(jb / p.nblk);
-    const size_t ci = (size_t)w;
-    const int cy = cand_y[ci], cx = cand_x[ci];
-    // an inactive entry reads nothing and reports INVALID_SAD
-    const bool wanted = in_range && (!active || active[ci * p.d + d]);
-    const bool valid = wanted
-                       && candidate_valid(cand_y, cand_x, p, job, blk, cy,
-                                          cx);
+// The three-stat form (K2'): K2's frame with the arithmetic of K1'.  One warp
+// per C (job, block, candidate)s, as probe_kernel with C = 1: the same 32-bit
+// indices, the validity rule computed once a candidate, the offsets and flags
+// read once and taken by shuffle and ballot.  A lane owns whole 4x4 tiles of
+// the block: G lanes an offset (G = the block's tiles where they are a power
+// of two up to 32, 32 beyond), 32 / G offset slots a warp, split evenly over
+// its C candidates (C > 1 where a candidate has too few offsets to fill the
+// slots: Recalculate's one offset of a 16x16 block, two candidates a warp).
+// TPL: tiles a lane keeps in registers (1, 2 or 4 when the tiles are G *
+// TPL), their source words and their transforms H(S), made once before the
+// offset loop; 0 for the generic body, which strides the tiles over the warp
+// and makes both afresh per offset.  Per offset a lane builds each tile's
+// four reference words (ref_word: one funnel shift each) and adds, by
+// satd.cuh::tile_stats3, the tile's SAD (VABSDIFF4 + IDP.4A a word),
+// reference sum (IDP.4A) and SATD part from H(R) in biased 16-bit halves (one
+// VIMNMX.U16x2 + IDP.2A a coefficient pair); the offset's lanes then add
+// their three sums.
+template <int TPL>
+__global__ void __launch_bounds__(256)
+probe_stats3_kernel(const uint8_t* __restrict__ stack,
+                    const int* __restrict__ cand_y,
+                    const int* __restrict__ cand_x,
+                    const uint8_t* __restrict__ src,
+                    const int* __restrict__ offs,  // [D, 2] (dx, dy)
+                    const uint8_t* __restrict__ active,
+                    int* __restrict__ out, ProbeParams p, int cpw) {
+    const int lane = threadIdx.x & 31;
+    const unsigned w0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5))
+                        * (unsigned)cpw;       // the warp's first candidate
+    if (w0 >= p.n_warps) return;               // uniform over the warp
+    const int ncw = min(cpw, (int)(p.n_warps - w0));  // its candidates
+    const int g = lane & (p.g - 1);            // lane inside its offset slot
+    const int slot = lane / p.g;
+    const int spc = 32 / p.g / cpw;            // offset slots a candidate
+    const int cl = slot / spc, so = slot - cl * spc;
+    const unsigned w = w0 + cl;                // the lane's candidate
+    const bool have = cl < ncw;
+    // up to 32 offsets: lane d holds offset d; with C candidates (C * D <= 32)
+    // lane l holds the flag of entry l % D of candidate l / D, bit l of `live`
+    const bool few = p.d <= 32;
+    int odx = 0, ody = 0;
+    unsigned live = FULL;
+    const uint8_t* act = active ? active + (size_t)w0 * p.d : nullptr;
+    if (few) {
+        if (lane < p.d) {
+            odx = offs[2 * lane];
+            ody = offs[2 * lane + 1];
+        }
+        live = __ballot_sync(FULL, lane < ncw * p.d && (!act || act[lane]));
+    } else if (act) {                          // C == 1
+        bool any = false;
+        for (int d = lane; d < p.d; d += 32) any |= act[d] != 0;
+        live = __ballot_sync(FULL, any);
+    }
+    const unsigned mine = few ? (live >> (cl * p.d)) & ((2u << (p.d - 1)) - 1u)
+                              : live;
+    const int ntx = p.bs_x >> 2;               // tiles a tile row
+    const int n_tiles = (p.bs_y >> 2) * ntx;
+    constexpr int NT = TPL > 0 ? TPL : 1;
+    uint32_t sw[NT][4];                        // the lane's source tiles
+    bool ok = false;
+    unsigned jb = 0, job = 0;
+    int cy = 0, cx = 0;
+    if (have && mine) {
+        jb = w / (unsigned)p.k;
+        job = jb / (unsigned)p.nblk;
+        cy = cand_y[w];
+        cx = cand_x[w];
+        if (TPL > 0) {       // loaded while the validity rule's are in flight
+            const uint8_t* s = src + (size_t)jb * p.bs_y * p.bs_x;
+#pragma unroll
+            for (int i = 0; i < NT; ++i) {
+                const int t = g + i * p.g;
+                const int ty = t / ntx, tx = t - ty * ntx;
+#pragma unroll
+                for (int y = 0; y < 4; ++y)
+                    sw[i][y] = *(const uint32_t*)(s + 4 * (ty * p.bs_x + tx)
+                                                  + y * p.bs_x);
+            }
+        }
+        ok = candidate_valid(cand_y, cand_x, p, (int)job,
+                             (int)(jb - job * (unsigned)p.nblk), cy, cx);
+    }
+    int* o = out + (size_t)w * p.d * 3;
+    if (!__any_sync(FULL, ok)) {
+        int* ow = out + (size_t)w0 * p.d * 3;
+        for (int i = lane; i < 3 * p.d * ncw; i += 32) ow[i] = INT_MAX;
+        return;
+    }
+    if (have && !ok)                           // the candidate's lanes
+        for (int i = so * p.g + g; i < 3 * p.d; i += spc * p.g) o[i] = INT_MAX;
+
+    const uint8_t* s = src + (size_t)jb * p.bs_y * p.bs_x;
+
+    // the lane's tiles: H(S), plane offset, and the source constants sum of
+    // 8 S00 + 16 Z
+    uint32_t hs[NT][8];
+    int toff[NT];
+    int sconst = 0;
+    if (TPL > 0 && ok) {
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+            const int t = g + i * p.g;
+            const int ty = t / ntx, tx = t - ty * ntx;
+            mvt::tile_hadamard(sw[i], hs[i]);
+            sconst += 8 * (int)(sw[i][0] & 255u) + 16 * (int)mvt::ZB;
+            toff[i] = 4 * (ty * p.wp + tx);
+        }
+    }
 
     const int pelm = (1 << p.logp) - 1;
-    const size_t plane = (size_t)p.hp * p.wp;
-    const int px = cx + offs[2 * d], py = cy + offs[2 * d + 1];
-    const int sub = (px & pelm) | ((py & pelm) << p.logp);
-    // an invalid candidate may point outside the stack: it reads nothing
-    const uint8_t* r = stack + ((size_t)job * p.n_sub + sub) * plane
-                       + (valid ? (size_t)(py >> p.logp) * p.wp
-                                  + (px >> p.logp) : 0);
-    const uint8_t* s = src + (size_t)jb * p.bs_y * p.bs_x;
-    const mvt::Stats3 st = mvt::block_stats3(s, p.bs_x, r, p.wp, p.bs_y,
-                                             p.bs_x, g_lane, group, valid);
-    if (in_range && g_lane == 0) {
-        int* o = out + (ci * p.d + d) * 3;
-        o[0] = valid ? st.sad : INT_MAX;
-        o[1] = valid ? st.satd : INT_MAX;
-        o[2] = valid ? st.luma : INT_MAX;
+    const int plane = p.hp * p.wp;
+    const uint8_t* stack_j = stack + (size_t)job * p.n_sub * plane;
+    for (int d0 = 0; d0 < p.d; d0 += spc) {
+        const int d = d0 + so;
+        bool on;
+        int dx, dy;
+        if (few) {
+            on = ok && d < p.d && ((mine >> d) & 1u);
+            dx = __shfl_sync(FULL, odx, d & 31);
+            dy = __shfl_sync(FULL, ody, d & 31);
+        } else {
+            on = ok && d < p.d && (!act || act[d]);
+            dx = on ? offs[2 * d] : 0;
+            dy = on ? offs[2 * d + 1] : 0;
+        }
+        if (ok && d < p.d && !on && g == 0)
+            o[3 * d] = o[3 * d + 1] = o[3 * d + 2] = INT_MAX;
+        if (!__any_sync(FULL, on)) continue;
+        unsigned sad = 0, luma = 0;
+        int sat = 0;
+        if (on) {
+            const int px = cx + dx, py = cy + dy;
+            const int sub = (px & pelm) | ((py & pelm) << p.logp);
+            const uint8_t* r = stack_j + (sub * plane + (py >> p.logp) * p.wp
+                                          + (px >> p.logp));
+            uint32_t rw[4];
+            if (TPL > 0) {
+                sat = sconst;
+#pragma unroll
+                for (int i = 0; i < NT; ++i) {
+#pragma unroll
+                    for (int y = 0; y < 4; ++y)
+                        rw[y] = ref_word(r + toff[i] + y * p.wp, 3);
+                    mvt::tile_stats3(rw, sw[i], hs[i], sad, sat, luma);
+                }
+            } else {                           // generic: G == 32
+                for (int t = lane; t < n_tiles; t += 32) {
+                    const int ty = t / ntx, tx = t - ty * ntx;
+                    const uint8_t* st = s + 4 * (ty * p.bs_x + tx);
+                    uint32_t sv[4], hv[8];
+#pragma unroll
+                    for (int y = 0; y < 4; ++y) {
+                        sv[y] = *(const uint32_t*)(st + y * p.bs_x);
+                        rw[y] = ref_word(r + 4 * (ty * p.wp + tx) + y * p.wp,
+                                         3);
+                    }
+                    mvt::tile_hadamard(sv, hv);
+                    sat += 8 * (int)(sv[0] & 255u) + 16 * (int)mvt::ZB;
+                    mvt::tile_stats3(rw, sv, hv, sad, sat, luma);
+                }
+            }
+        }
+        // the offset's lanes add their sums: one warp-wide sum per stat
+        // when the warp runs one offset, else xor shuffles inside the slot
+        if (p.g == 32) {
+            sad = __reduce_add_sync(FULL, sad);
+            sat = (int)__reduce_add_sync(FULL, (unsigned)sat);
+            luma = __reduce_add_sync(FULL, luma);
+        } else {
+            for (int sh = p.g >> 1; sh > 0; sh >>= 1) {
+                sad += __shfl_xor_sync(FULL, sad, sh);
+                sat += __shfl_xor_sync(FULL, sat, sh);
+                luma += __shfl_xor_sync(FULL, luma, sh);
+            }
+        }
+        if (g == 0 && on) {
+            o[3 * d] = (int)sad;
+            o[3 * d + 1] = sat;
+            o[3 * d + 2] = (int)luma;
+        }
     }
 }
 
@@ -433,27 +582,46 @@ extern "C" int mvt_probe_sads_tiled(
     return (int)cudaGetLastError();
 }
 
+// g, tpl, cpw: the launch geometry of ops/probe.py::probe3_launch_geom
+// (lanes an offset, tiles a lane holds, 0 for the generic body, candidates a
+// warp).
 extern "C" int mvt_probe_sads_tiled_stats3(
         const void* stack, const void* cand_y, const void* cand_x,
         const void* src, const void* offs, const void* active, void* out,
         int n_jobs, int n_sub, int hp, int wp, int nblk, int row_len, int k,
         int d, int tile, int bs_y, int bs_x, int logp, int min_dy, int min_dx,
         int wy, int cxs, int wy_total, int wx_total, int center_y,
-        int center_x, int u16, void* stream) {
-    // the three stats are defined for 8-bit stacks only
-    if (u16) return (int)cudaErrorInvalidValue;
-    const ProbeParams p = probe_params(
+        int center_x, int g, int tpl, int cpw, void* stream) {
+    ProbeParams p = probe_params(
         n_jobs, n_sub, hp, wp, nblk, row_len, k, d, tile, bs_y, bs_x, logp,
         min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x, 4);
     if (p.total == 0 || d == 0) return 0;
-    const int group = mvt::stats3_group(bs_y, bs_x);
-    const int threads = 128;
-    const long long lanes = p.total * d * group;
-    const long long blocks = (lanes + threads - 1) / threads;
-    probe_stats3_kernel<<<(unsigned)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(
-        (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,
-        (const uint8_t*)src, (const int*)offs, (const uint8_t*)active,
-        (int*)out, p, group);
+    const int n_tiles = (bs_y / 4) * (bs_x / 4);
+    // whole 4x4 tiles (8x4 partitions, or one 4x4 block), 32-bit indices,
+    // the candidates of a warp sharing its offset slots
+    if (bs_y % 4 || bs_x % 4 || (bs_x % 8 && n_tiles != 1)
+        || !pow2(g) || g > 32 || (tpl > 0 && g * tpl != n_tiles)
+        || (tpl == 0 && g != 32) || !pow2(cpw)
+        || (cpw > 1 && cpw * d > 32 / g) || p.total > INT_MAX
+        || (long long)n_sub * hp * wp > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    p.g = g;
+    const int warps = 8;
+    const long long n_w = (p.total + cpw - 1) / cpw;
+    const unsigned blocks = (unsigned)((n_w + warps - 1) / warps);
+    cudaStream_t st = (cudaStream_t)stream;
+#define MVT_PROBE3(T)                                                       \
+    probe_stats3_kernel<T><<<blocks, warps * 32, 0, st>>>(                  \
+        (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,      \
+        (const uint8_t*)src, (const int*)offs, (const uint8_t*)active,      \
+        (int*)out, p, cpw)
+    switch (tpl) {
+        case 0: MVT_PROBE3(0); break;
+        case 1: MVT_PROBE3(1); break;
+        case 2: MVT_PROBE3(2); break;
+        case 4: MVT_PROBE3(4); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef MVT_PROBE3
     return (int)cudaGetLastError();
 }

@@ -49,28 +49,24 @@
 // The launch geometry (threads, shared-memory layout and size, template
 // choice) is computed by ops/sadmap.py::map_launch_geom, where a CPU test
 // holds it to the card's limits for every geometry the search admits.
-// nvcc -Xptxas -v (sm_90a): 32-59 registers a thread over the 24
-// instantiations, twelve per pixel type (sadmap_kernel<uint8_t, 4, 9> and
-// <uint16_t, 8, 9>: 40), no spills.
+// nvcc -Xptxas -v (sm_90a): 32-59 registers a thread over the 12
+// instantiations (sadmap_kernel<uint8_t, 4, 9>: 40), no spills.
 //
-// The same body serves uint16 stacks (9- to 16-bit clips): the pixel type is
-// a template parameter, a 32-bit word then holds two pixels (pixels.cuh:
-// the SAD of a word is max.u16x2 - min.u16x2 and one IDP.2A), the funnel
-// shift steps by 16 bits and the column alignment M takes two values.  The
-// staged window and source rows take twice the bytes (about 104 KB a CTA at
-// the YUV level-0 luma shape, against 70 KB at 8 bits); where a shape would
-// pass the card's shared memory (10-bit clips with the largest blocks), the
-// geometry gives a CTA fewer blocks of its tile (nbc), each CTA staging the
-// window of its own blocks round the tile's anchor.  Every 8-bit shape fits
-// whole, and the 8-bit instantiation leaves the split out: with it, that
-// instantiation took 60 registers instead of 40 and ran up to 18 % slower.
-// The uint16 form at the YUV level-0 luma shape: 3.28 ms (H100 80GB HBM3,
-// 700 W), 3.9x its operations bound (four instructions for two pixels).
+// uint16 stacks (9- to 16-bit clips) take a kernel of their own,
+// sadmap16_kernel (below): with |a - b| = a + b - 2 min(a, b) an entry is
+// sum S + sum R - 2 sum min(S, R), so its items spend one min.u16x2 and one
+// IDP.2A on a word of two pixels, sum S is made once per block and sum R
+// from the window's column sums, and a CTA stages one subplane's window at
+// a time (72 KB at the YUV level-0 luma shape: three CTAs an SM).  Its first
+// body was this kernel's body on uint16 words (four instructions for two
+// pixels, 104 KB of staging a CTA, two CTAs an SM): 3.28 ms at that shape
+// (H100 80GB HBM3, 700 W), 3.9x its operations bound.
+//
 // The three-stat form (K1', sadmap3_kernel) writes, for the same grid, the
 // triple (SAD, SATD, sum of the reference block) per entry:
 // out[job, block, dy + r_y, dx + r_x, 0..2] (satd.cuh says what the SATD
 // is).  Bound: integer operations, 9 a pixel-offset as PERF.md counts them.
-// Its first body (the one K2' and K4' still use, satd.cuh::block_stats3)
+// Its first body (the one K4' still uses, satd.cuh::block_stats3)
 // gave each (block, offset) pair a group of lanes that loaded both blocks
 // byte by byte and transformed S - R afresh: about ten instructions per
 // pixel-offset, 10.855 ms at [8, 32026, 15, 15, 3] (H100 80GB HBM3, 700 W).
@@ -91,10 +87,16 @@
 #include <stdint.h>
 
 #include "pixels.cuh"
+#include "satd.cuh"
 
 namespace {
 
 using mvt::PixWord;
+using mvt::ZB;
+using mvt::col_pass;
+using mvt::min_u16x2;
+using mvt::row_pass;
+using mvt::tile_words;
 
 struct MapParams {
     int n_sub, hp, wp;          // stack [J, n_sub, hp, wp]
@@ -118,7 +120,6 @@ struct MapGeom {
     int wpr;                    // source words per block row
     int n_rows;                 // (subplane, full-pel row) pairs per block
     int n_chunk;                // column chunks of NOX per grid row
-    int nbc, n_part;            // blocks per CTA, CTAs per tile
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -177,37 +178,27 @@ __device__ __forceinline__ void map_rows(const uint32_t* __restrict__ ref,
     }
 }
 
-// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).
+// T: the pixel type (uint8_t; uint16_t stacks take sadmap16_kernel).
 template <typename T, int NWS, int NOX>
 __global__ void __launch_bounds__(512)
 sadmap_kernel(const T* __restrict__ stack, const T* __restrict__ src,
               const int* __restrict__ afy, const int* __restrict__ afx,
               int* __restrict__ out, MapParams p, MapGeom g) {
     constexpr int PPW = PixWord<T>::PPW, SH = PixWord<T>::SH;
-    // only the uint16 form splits a tile over CTAs (MapGeom::n_part)
-    constexpr bool SPLIT = sizeof(T) > 1;
     extern __shared__ __align__(16) uint8_t smem16[];
-    // this CTA's blocks: part `part` of tile tc (nbc blocks each)
-    const int tc = SPLIT ? blockIdx.x / g.n_part : blockIdx.x;
-    const int part = SPLIT ? blockIdx.x - tc * g.n_part : 0;
-    const int row = blockIdx.y, job = blockIdx.z;
-    const int b0 = tc * p.tile + (SPLIT ? part * g.nbc : 0);
-    const int nb = SPLIT ? min(min(g.nbc, p.tile - part * g.nbc),
-                               p.nbx - b0)
-                         : min(p.tile, p.nbx - b0);
-    if (SPLIT && nb <= 0) return;                  // uniform over the CTA
+    const int tc = blockIdx.x, row = blockIdx.y, job = blockIdx.z;
+    const int b0 = tc * p.tile;
+    const int nb = min(p.tile, p.nbx - b0);
     uint8_t* ref_s = smem16;                       // [n_sub * wy][ref_pitch]
     uint8_t* src_s = smem16 + g.src_off;           // [nb][src_stride]
     int* out_s = (int*)(smem16 + g.out_off);       // [nb][Dy][Dx]
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
 
-    // ---- stage the reference window of this CTA's blocks, one 32-bit word
-    // per lane
+    // ---- stage the tile's reference window, one 32-bit word per lane
     const int t = row * p.ntx + tc;
     const int base_y = afy[job * p.nby * p.ntx + t] + p.min_oy;
-    const int base_x = afx[job * p.nby * p.ntx + t] + p.min_ox
-                       + (SPLIT ? part * g.nbc * p.pitch_x : 0);
+    const int base_x = afx[job * p.nby * p.ntx + t] + p.min_ox;
     const size_t plane = (size_t)p.hp * p.wp;
     const T* stack_j = stack + (size_t)job * p.n_sub * plane;
     const int wpitch = g.ref_pitch >> 2;
@@ -277,24 +268,16 @@ sadmap_kernel(const T* __restrict__ stack, const T* __restrict__ src,
         unsigned acc[NOX];
 #pragma unroll
         for (int i = 0; i < NOX; ++i) acc[i] = 0;
-        if constexpr (PPW == 4) {
-            switch (col0 & 3) {
-                case 0: map_rows<T, NWS, NOX, 0>(ref, wpitch, sw, g.wpr,
-                                                 p.bs_y, lastmask, acc); break;
-                case 1: map_rows<T, NWS, NOX, 1>(ref, wpitch, sw, g.wpr,
-                                                 p.bs_y, lastmask, acc); break;
-                case 2: map_rows<T, NWS, NOX, 2>(ref, wpitch, sw, g.wpr,
-                                                 p.bs_y, lastmask, acc); break;
-                default: map_rows<T, NWS, NOX, 3>(ref, wpitch, sw, g.wpr,
-                                                  p.bs_y, lastmask, acc);
-                         break;
-            }
-        } else if (col0 & 1) {
-            map_rows<T, NWS, NOX, 1>(ref, wpitch, sw, g.wpr, p.bs_y, lastmask,
-                                     acc);
-        } else {
-            map_rows<T, NWS, NOX, 0>(ref, wpitch, sw, g.wpr, p.bs_y, lastmask,
-                                     acc);
+        switch (col0 & 3) {
+            case 0: map_rows<T, NWS, NOX, 0>(ref, wpitch, sw, g.wpr, p.bs_y,
+                                             lastmask, acc); break;
+            case 1: map_rows<T, NWS, NOX, 1>(ref, wpitch, sw, g.wpr, p.bs_y,
+                                             lastmask, acc); break;
+            case 2: map_rows<T, NWS, NOX, 2>(ref, wpitch, sw, g.wpr, p.bs_y,
+                                             lastmask, acc); break;
+            default: map_rows<T, NWS, NOX, 3>(ref, wpitch, sw, g.wpr, p.bs_y,
+                                              lastmask, acc);
+                     break;
         }
         int* o = out_s + b * dn + (dy + p.r_y) * dxn
                  + dx0 + ((chunk * NOX) << p.logp) + p.r_x;
@@ -308,6 +291,250 @@ sadmap_kernel(const T* __restrict__ stack, const T* __restrict__ src,
     int* out_t = out + ((size_t)job * p.nbx * p.nby + (size_t)row * p.nbx
                         + b0) * dn;
     for (int i = threadIdx.x; i < nb * dn; i += blockDim.x) out_t[i] = out_s[i];
+}
+
+// ---------------------------------------------------------------------------
+// K1 on uint16 stacks (9- to 16-bit clips): sadmap16_kernel.  With
+// |a - b| = a + b - 2 min(a, b), an entry is
+//
+//   SAD = sum S + sum R - 2 sum min(S, R)
+//
+// The items sum only the minima: one min.u16x2 and one IDP.2A a word of two
+// pixels (map16_rows), where |a - b| per half took max.u16x2, min.u16x2, a
+// subtract and an IDP.2A.  sum S is taken once per block after its rows are
+// staged.  sum R, the sum of the block-sized reference window at each
+// (subplane, full-pel position), comes from the window's block-high column
+// sums at every full-pel grid row, made once per subplane as the window is
+// staged (below); an item adds bs_x of them for its first column and slides
+// along the grid row for the next.  All sums are unsigned 32-bit: a 16x16 block of 16-bit pixels gives
+// at most 2 * 16 776 960 for sum S + sum R, a 10-bit 128x128 block
+// 2 * 16 760 832.
+//
+// The CTA walks the subplanes in turn, staging one subplane's window at a
+// time, two barriers a subplane: a word column a thread, eight rows' loads
+// in flight, the thread then summing its two pixel columns.  At the YUV
+// level-0 luma shape a whole tile's CTA holds 72 KB (the window 12.8 KB, the
+// source rows 16 KB, the results 35.8 KB, the column sums 9.5 KB), so three
+// CTAs share an SM, where the staging of all four subplanes took 104 KB and
+// two.  The launch geometry may split a tile over CTAs (n_part, each
+// staging the window of its own blocks round the tile's anchor), for more
+// CTAs an SM to cover each other's staging and barriers.  A thread owns one
+// (full-pel grid row, block, chunk of NOX columns) of the subplane's
+// offsets, the grid row fastest, so that a warp's window reads spread over
+// the banks (its source reads are broadcasts).
+
+constexpr int MAP16_THREADS = 288;
+
+// The uint16 map's shared-memory layout and work split
+// (ops/sadmap.py::map16_launch_geom).
+struct Map16Geom {
+    int ref_pitch;              // bytes per staged reference row (4 | it)
+    int src_stride;             // bytes per staged source block (4 | it)
+    int src_off, out_off, col_off, ss_off;  // byte offsets in shared memory
+    int wpr;                    // source words per block row
+    int n_chunk;                // column chunks of NOX per grid row
+    int ny, wx;                 // full-pel grid rows, window columns summed
+    int nbc, n_part;            // blocks a CTA, CTAs a tile
+};
+
+// Rows row0 .. row0 + n - 1 of one word column of a uint16 plane into shared
+// memory (a stride of `dst_pitch` words): the two pixels from column x of
+// each row, up to 8 rows' loads in flight together.  Inside the row a word
+// is one aligned load, or two joined by a funnel shift (each holds a needed
+// pixel, so neither leaves the stack); columns past either edge are clamped
+// one by one, rows into the plane.
+__device__ __forceinline__ void stage_column(const uint16_t* __restrict__ plane,
+                                             int w, int h, int row0, int n,
+                                             int x, uint32_t* dst,
+                                             int dst_pitch) {
+    const bool inside = x >= 0 && x + 1 < w;
+    for (int y0 = 0; y0 < n; y0 += 8) {
+        uint32_t v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            if (y0 + k >= n) break;
+            const uint16_t* row = plane
+                                  + (size_t)clampi(row0 + y0 + k, 0, h - 1) * w;
+            if (inside) {
+                const uintptr_t a = (uintptr_t)(row + x);
+                v[k] = (a & 2) ? __funnelshift_r(
+                                     __ldg((const uint32_t*)(a - 2)),
+                                     __ldg((const uint32_t*)(a + 2)), 16)
+                               : __ldg((const uint32_t*)a);
+            } else {
+                v[k] = (uint32_t)row[clampi(x, 0, w - 1)]
+                       | ((uint32_t)row[clampi(x + 1, 0, w - 1)] << 16);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+            if (y0 + k < n) dst[(y0 + k) * dst_pitch] = v[k];
+    }
+}
+
+// One item of the uint16 map: NOX sums of minima over the block's rows.  ref
+// points at the word holding the item's first reference pixel (pixel M of
+// it), src at the block's first staged source word.  A word at an odd pixel
+// offset is the funnel shift of two staged words; each is made once a row
+// step and serves every (column, source word) pair that reads it.
+template <int NWS, int NOX, int M>
+__device__ __forceinline__ void map16_rows(const uint32_t* __restrict__ ref,
+                                           int ref_pitch_w,
+                                           const uint32_t* __restrict__ src,
+                                           int wpr, int bs_y,
+                                           unsigned (&acc)[NOX]) {
+    constexpr int NRW = ((M + NOX - 1 + 2 * (NWS - 1)) >> 1) + 2;
+    for (int y = 0; y < bs_y; ++y) {
+        const uint32_t* rr = ref + y * ref_pitch_w;
+        const uint32_t* ss = src + y * wpr;
+        for (int wc = 0; wc < wpr; wc += NWS) {
+            uint32_t s[NWS], r[NRW];
+#pragma unroll
+            for (int k = 0; k < NWS; ++k) s[k] = ss[wc + k];
+#pragma unroll
+            for (int q = 0; q < NRW; ++q) r[q] = rr[wc + q];
+#pragma unroll
+            for (int i = 0; i < NOX; ++i) {
+#pragma unroll
+                for (int k = 0; k < NWS; ++k) {
+                    const int o = M + i + 2 * k;
+                    const uint32_t v = (o & 1) ? __funnelshift_r(
+                                                     r[o >> 1], r[(o >> 1) + 1],
+                                                     16)
+                                               : r[o >> 1];
+                    acc[i] = __dp2a_lo(mvt::min_u16x2(v, s[k]), 0x0101u,
+                                       acc[i]);
+                }
+            }
+        }
+    }
+}
+
+template <int NWS, int NOX>
+__global__ void __launch_bounds__(MAP16_THREADS, 3)
+sadmap16_kernel(const uint16_t* __restrict__ stack,
+                const uint16_t* __restrict__ src, const int* __restrict__ afy,
+                const int* __restrict__ afx, int* __restrict__ out,
+                MapParams p, Map16Geom g) {
+    extern __shared__ __align__(16) uint8_t smem_u16[];
+    // this CTA's blocks: part `part` of tile tc (nbc blocks each)
+    const int tc = blockIdx.x / g.n_part, part = blockIdx.x - tc * g.n_part;
+    const int row = blockIdx.y, job = blockIdx.z;
+    const int b0 = tc * p.tile + part * g.nbc;
+    const int nb = min(min(g.nbc, p.tile - part * g.nbc), p.nbx - b0);
+    if (nb <= 0) return;                           // uniform over the CTA
+    uint32_t* ref_s = (uint32_t*)smem_u16;                 // [wy][rpw]
+    uint32_t* src_s = (uint32_t*)(smem_u16 + g.src_off);   // [nb][sw]
+    int* out_s = (int*)(smem_u16 + g.out_off);             // [nb][Dy][Dx]
+    unsigned* col_s = (unsigned*)(smem_u16 + g.col_off);   // [ny][wx]
+    unsigned* ss_s = (unsigned*)(smem_u16 + g.ss_off);     // [nb]
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+    const int rpw = g.ref_pitch >> 2, sw = g.src_stride >> 2;
+
+    // ---- each block's source rows, word-aligned, a word column a thread;
+    // then each block's sum
+    const uint16_t* src_j = src + (size_t)job * p.hs * p.ws;
+    const int sy0 = p.src_y0 + row * p.pitch_y;
+    const int sx0 = p.src_x0 + b0 * p.pitch_x;
+    for (int i = tid; i < nb * g.wpr; i += nthr) {
+        const int b = i / g.wpr, cw = i - b * g.wpr;
+        stage_column(src_j, p.ws, p.hs, sy0, p.bs_y,
+                     sx0 + b * p.pitch_x + 2 * cw, src_s + b * sw + cw, g.wpr);
+    }
+    const int n_bw = p.bs_y * g.wpr;
+    __syncthreads();
+    for (int b = warp; b < nb; b += nwarps) {
+        unsigned acc = 0;
+        for (int k = lane; k < n_bw; k += 32)
+            acc = __dp2a_lo(src_s[b * sw + k], 0x0101u, acc);
+        acc = __reduce_add_sync(0xffffffffu, acc);
+        if (lane == 0) ss_s[b] = acc;
+    }
+
+    const int pelm = (1 << p.logp) - 1;
+    const int dxn = 2 * p.r_x + 1;
+    const int dn = (2 * p.r_y + 1) * dxn;
+    const int t = row * p.ntx + tc;
+    const int base_y = afy[job * p.nby * p.ntx + t] + p.min_oy;
+    const int base_x = afx[job * p.nby * p.ntx + t] + p.min_ox
+                       + part * g.nbc * p.pitch_x;
+    const size_t plane = (size_t)p.hp * p.wp;
+    for (int s = 0; s < p.n_sub; ++s) {
+        __syncthreads();        // the previous subplane's items are done
+        // ---- the subplane's reference window, a word column a thread, and
+        // the block-high sums of its two pixel columns at every grid row
+        const uint16_t* plane_s = stack + ((size_t)job * p.n_sub + s) * plane;
+        for (int cw = tid; cw < rpw; cw += nthr) {
+            stage_column(plane_s, p.wp, p.hp, base_y, p.wy, base_x + 2 * cw,
+                         ref_s + cw, rpw);
+            const int x = 2 * cw;
+            if (x >= g.wx) continue;
+            unsigned lo = 0, hi = 0;
+            for (int y = 0; y < p.bs_y; ++y) {
+                const uint32_t w = ref_s[y * rpw + cw];
+                lo += w & 0xffffu;
+                hi += w >> 16;
+            }
+            for (int oy = 0; oy < g.ny; ++oy) {
+                if (oy > 0) {
+                    const uint32_t wi = ref_s[(oy + p.bs_y - 1) * rpw + cw];
+                    const uint32_t wo = ref_s[(oy - 1) * rpw + cw];
+                    lo += (wi & 0xffffu) - (wo & 0xffffu);
+                    hi += (wi >> 16) - (wo >> 16);
+                }
+                col_s[oy * g.wx + x] = lo;
+                if (x + 1 < g.wx) col_s[oy * g.wx + x + 1] = hi;
+            }
+        }
+        __syncthreads();
+
+        // ---- items: (grid row, block, column chunk) of this subplane
+        const int px = s & pelm, py = s >> p.logp;
+        const int dy0 = parity_first(p.r_y, py, pelm);
+        const int dx0 = parity_first(p.r_x, px, pelm);
+        const int rows_s = parity_count(p.r_y, dy0, p.logp);
+        const int cols_s = parity_count(p.r_x, dx0, p.logp);
+        const int n_items = rows_s * nb * g.n_chunk;
+        for (int item = tid; item < n_items; item += nthr) {
+            const int kr = item % rows_s;
+            const int rest = item / rows_s;
+            const int b = rest % nb, chunk = rest / nb;
+            const int ncol = min(NOX, cols_s - chunk * NOX);
+            if (ncol <= 0) continue;
+            const int dy = dy0 + (kr << p.logp);
+            const int oy = (dy >> p.logp) - p.min_oy;
+            const int col0 = b * p.pitch_x + (dx0 >> p.logp) - p.min_ox
+                             + chunk * NOX;
+            const uint32_t* ref = ref_s + oy * rpw + (col0 >> 1);
+            const uint32_t* sp = src_s + b * sw;
+            unsigned acc[NOX];
+#pragma unroll
+            for (int i = 0; i < NOX; ++i) acc[i] = 0;
+            if (col0 & 1)
+                map16_rows<NWS, NOX, 1>(ref, rpw, sp, g.wpr, p.bs_y, acc);
+            else
+                map16_rows<NWS, NOX, 0>(ref, rpw, sp, g.wpr, p.bs_y, acc);
+            // sum S + sum R - 2 sum min, sum R sliding along the grid row
+            const unsigned* cs = col_s + oy * g.wx + col0;
+            unsigned box = ss_s[b];
+            for (int j = 0; j < p.bs_x; ++j) box += cs[j];
+            int* o = out_s + b * dn + (dy + p.r_y) * dxn + dx0
+                     + ((chunk * NOX) << p.logp) + p.r_x;
+#pragma unroll
+            for (int i = 0; i < NOX; ++i) {
+                if (i >= ncol) break;
+                if (i > 0) box += cs[i - 1 + p.bs_x] - cs[i - 1];
+                o[i << p.logp] = (int)(box - 2u * acc[i]);
+            }
+        }
+    }
+    __syncthreads();
+
+    // ---- the tile's results are one contiguous run of the output
+    int* out_t = out + ((size_t)job * p.nbx * p.nby + (size_t)row * p.nbx
+                        + b0) * dn;
+    for (int i = tid; i < nb * dn; i += nthr) out_t[i] = out_s[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -332,52 +559,6 @@ sadmap_kernel(const T* __restrict__ stack, const T* __restrict__ src,
 //
 // one VIMNMX.U16x2 and one IDP.2A per two coefficients, the source terms a
 // per-block constant, the reference terms two IDP.4A per partition row 0.
-
-constexpr uint32_t ZB = 16384u;                 // the bias Z
-constexpr uint32_t ZP = ZB | (ZB << 16);        // Z in both halves
-
-__device__ __forceinline__ uint32_t min_u16x2(uint32_t a, uint32_t b) {
-    uint32_t d;
-    asm("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-    return d;
-}
-
-// The 4-point Hadamard of one row of four pixels (bytes of w, in order):
-// A = (c0 | c1 << 16), B = (c2 | c3 << 16), each biased by Z, in the order
-// of ops/sad.py::_hadamard4.
-__device__ __forceinline__ void row_pass(uint32_t w, uint32_t& A,
-                                         uint32_t& B) {
-    const uint32_t e = __byte_perm(w, 0u, 0x4240);   // (p0, p2)
-    const uint32_t f = __byte_perm(w, 0u, 0x4341);   // (p1, p3)
-    const uint32_t g = e + f + ZP;                   // (s0, s2)
-    const uint32_t k = e - f + ZP;                   // (s1, s3)
-    const uint32_t pp = __byte_perm(g, k, 0x5410);   // (s0, s1)
-    const uint32_t qq = __byte_perm(g, k, 0x7632);   // (s2, s3)
-    A = pp + qq - ZP;
-    B = pp - qq + ZP;
-}
-
-// The 4-point Hadamard down four rows of biased words, in place.
-__device__ __forceinline__ void col_pass(uint32_t& a, uint32_t& b,
-                                         uint32_t& c, uint32_t& e) {
-    const uint32_t s0 = a + b - ZP, s1 = a - b + ZP;
-    const uint32_t s2 = c + e - ZP, s3 = c - e + ZP;
-    a = s0 + s2 - ZP; b = s1 + s3 - ZP;
-    c = s0 - s2 + ZP; e = s1 - s3 + ZP;
-}
-
-// The 8 words of the transform of the 4x4 tile whose rows are the words
-// w[0..3] (pixels in byte order), stored as two uint4 at dst.
-__device__ __forceinline__ void tile_words(const uint32_t (&w)[4],
-                                           uint4* dst) {
-    uint32_t a[4], b[4];
-#pragma unroll
-    for (int y = 0; y < 4; ++y) row_pass(w[y], a[y], b[y]);
-    col_pass(a[0], a[1], a[2], a[3]);
-    col_pass(b[0], b[1], b[2], b[3]);
-    dst[0] = make_uint4(a[0], a[1], a[2], a[3]);
-    dst[1] = make_uint4(b[0], b[1], b[2], b[3]);
-}
 
 // Four bytes at byte offset x of a word-aligned shared row.
 __device__ __forceinline__ uint32_t word_at(const uint8_t* row, int x) {
@@ -747,8 +928,8 @@ static int launch_map_nws(int nws, int nox, dim3 grid, int threads, int smem,
     }
 }
 
-// threads .. n_part: the launch geometry of ops/sadmap.py::map_launch_geom;
-// u16: 1 for uint16 stack and source planes, 0 for uint8.
+// threads .. n_rows: the launch geometry of ops/sadmap.py::map_launch_geom
+// (uint8 stack and source planes).
 extern "C" int mvt_sad_map(const void* stack, const void* src,
                            const void* afy, const void* afx, void* out,
                            int n_jobs, int n_sub, int hp, int wp, int hs,
@@ -757,27 +938,83 @@ extern "C" int mvt_sad_map(const void* stack, const void* src,
                            int src_x0, int r_y, int r_x, int logp,
                            int threads, int smem, int ref_pitch,
                            int src_stride, int src_off, int out_off, int nws,
-                           int nox, int n_chunk, int n_rows, int nbc,
-                           int n_part, int u16, void* stream) {
+                           int nox, int n_chunk, int n_rows, void* stream) {
     const MapParams p = map_params(n_sub, hp, wp, hs, ws, nbx, nby, tile,
                                    pitch_x, pitch_y, bs_y, bs_x, src_y0,
                                    src_x0, r_y, r_x, logp);
-    const int ppw = u16 ? 2 : 4;
     MapGeom g;
     g.ref_pitch = ref_pitch; g.src_stride = src_stride; g.src_off = src_off;
-    g.out_off = out_off; g.wpr = (bs_x + ppw - 1) / ppw; g.n_rows = n_rows;
-    g.n_chunk = n_chunk; g.nbc = nbc; g.n_part = n_part;
+    g.out_off = out_off; g.wpr = (bs_x + 3) / 4; g.n_rows = n_rows;
+    g.n_chunk = n_chunk;
     if (ref_pitch % 4 || src_stride % 4 || src_off % 4 || out_off % 4
-        || g.wpr % nws || nbc < 1 || n_part < 1 || nbc * n_part < tile
-        || (!u16 && n_part != 1))
+        || g.wpr % nws)
+        return (int)cudaErrorInvalidValue;
+    dim3 grid(p.ntx, nby, n_jobs);
+    return launch_map_nws<uint8_t>(nws, nox, grid, threads, smem,
+                                   (cudaStream_t)stream, stack, src, afy, afx,
+                                   out, p, g);
+}
+
+template <int NWS, int NOX>
+static int launch_map16(dim3 grid, int threads, int smem, cudaStream_t st,
+                        const void* stack, const void* src, const void* afy,
+                        const void* afx, void* out, const MapParams& p,
+                        const Map16Geom& g) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sadmap16_kernel<NWS, NOX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            sadmap16_kernel<NWS, NOX>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    sadmap16_kernel<NWS, NOX><<<grid, threads, smem, st>>>(
+        (const uint16_t*)stack, (const uint16_t*)src, (const int*)afy,
+        (const int*)afx, (int*)out, p, g);
+    return (int)cudaGetLastError();
+}
+
+// threads .. wx: the launch geometry of ops/sadmap.py::map16_launch_geom
+// (uint16 stack and source planes).
+extern "C" int mvt_sad_map_u16(const void* stack, const void* src,
+                               const void* afy, const void* afx, void* out,
+                               int n_jobs, int n_sub, int hp, int wp, int hs,
+                               int ws, int nbx, int nby, int tile,
+                               int pitch_x, int pitch_y, int bs_y, int bs_x,
+                               int src_y0, int src_x0, int r_y, int r_x,
+                               int logp, int threads, int smem,
+                               int ref_pitch, int src_stride, int src_off,
+                               int out_off, int col_off, int ss_off, int nws,
+                               int nox, int n_chunk, int ny, int wx,
+                               int nbc, int n_part, void* stream) {
+    const MapParams p = map_params(n_sub, hp, wp, hs, ws, nbx, nby, tile,
+                                   pitch_x, pitch_y, bs_y, bs_x, src_y0,
+                                   src_x0, r_y, r_x, logp);
+    Map16Geom g;
+    g.ref_pitch = ref_pitch; g.src_stride = src_stride; g.src_off = src_off;
+    g.out_off = out_off; g.col_off = col_off; g.ss_off = ss_off;
+    g.wpr = bs_x / 2; g.n_chunk = n_chunk; g.ny = ny; g.wx = wx;
+    g.nbc = nbc; g.n_part = n_part;
+    if (ref_pitch % 4 || src_stride % 4 || src_off % 4 || out_off % 4
+        || col_off % 4 || ss_off % 4 || bs_x % 2 || g.wpr % nws
+        || threads % 32 || threads > MAP16_THREADS || nbc < 1
+        || nbc * n_part < tile)
         return (int)cudaErrorInvalidValue;
     dim3 grid(p.ntx * n_part, nby, n_jobs);
     cudaStream_t st = (cudaStream_t)stream;
-    if (u16)
-        return launch_map_nws<uint16_t>(nws, nox, grid, threads, smem, st,
-                                        stack, src, afy, afx, out, p, g);
-    return launch_map_nws<uint8_t>(nws, nox, grid, threads, smem, st, stack,
-                                   src, afy, afx, out, p, g);
+    switch (nws * 100 + nox) {
+#define MVT_MAP16(W, N)                                                      \
+        case W * 100 + N:                                                    \
+            return launch_map16<W, N>(grid, threads, smem, st, stack, src,   \
+                                      afy, afx, out, p, g);
+        MVT_MAP16(1, 6) MVT_MAP16(1, 9) MVT_MAP16(1, 16)
+        MVT_MAP16(2, 6) MVT_MAP16(2, 9) MVT_MAP16(2, 16)
+        MVT_MAP16(4, 6) MVT_MAP16(4, 9) MVT_MAP16(4, 16)
+        MVT_MAP16(8, 6) MVT_MAP16(8, 9) MVT_MAP16(8, 16)
+#undef MVT_MAP16
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 extern "C" int mvt_sad_map_stats3(const void* stack, const void* src,

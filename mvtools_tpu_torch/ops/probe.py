@@ -404,10 +404,35 @@ def _probe_lib(stats3: bool):
     lib = cuda_build.load("probe")
     fn = lib.mvt_probe_sads_tiled_stats3 if stats3 else lib.mvt_probe_sads_tiled
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 21 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * (23 if stats3 else 21) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+# tiles of a block a lane of the three-stat tiled probe keeps in registers
+PROBE3_TPL = (1, 2, 4)
+
+
+def probe3_launch_geom(bs_y: int, bs_x: int, n_offsets: int) -> dict:
+    """Launch geometry of the three-stat tiled probe (K2',
+    csrc/probe.cu::probe_stats3_kernel) for a block size and offset count:
+    `g` lanes an offset, each owning `tpl` of the block's 4x4 tiles, so a
+    warp has 32 // g offset slots, which its `cpw` candidates share (cpw > 1
+    where a candidate's offsets fill no more than half of them); tpl 0 is
+    the generic body, whose 32 lanes stride over the tiles.  The block's
+    tiles are g * tpl where tpl is not 0."""
+    n = (bs_y // 4) * (bs_x // 4)
+    if n & (n - 1) == 0 and n <= 32:
+        g, tpl = n, 1
+    elif n % 32 == 0 and n // 32 in PROBE3_TPL:
+        g, tpl = 32, n // 32
+    else:
+        g, tpl = 32, 0
+    cpw = 1
+    while 2 * cpw * n_offsets <= 32 // g:
+        cpw *= 2
+    return dict(g=g, tpl=tpl, cpw=cpw)
 
 
 def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
@@ -461,8 +486,13 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     offs = _offsets_tensor(offsets, dev)
     if src_blocks.data_ptr() % 4:
         src_blocks = src_blocks.clone()     # the kernel reads 32-bit words
-    name = "probe_sads_tiled[stats3]" if stats3 else "probe_sads_tiled"
-    name = _launch_name(name, stack)
+    if stats3:
+        name = "probe_sads_tiled[stats3]"
+        g = probe3_launch_geom(bs_y, bs_x, len(offsets))
+        geom = (g["g"], g["tpl"], g["cpw"])
+    else:
+        name = _launch_name("probe_sads_tiled", stack)
+        geom = (int(stack.dtype == torch.uint16),)
     out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
                       dtype=I32, device=dev)
     with torch.cuda.device(dev):
@@ -473,8 +503,7 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
             nj, pel * pel, stack.shape[2], stack.shape[3], nblk, row_len,
             kk, len(offsets), tile, bs_y, bs_x, pel.bit_length() - 1,
             min_dy, min_dx, wy, cxs, wy_total, wx_total, center_y, center_x,
-            int(stack.dtype == torch.uint16),
-            torch.cuda.current_stream().cuda_stream)
+            *geom, torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, name)
     launches[name] += 1
     return out

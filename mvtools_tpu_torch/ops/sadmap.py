@@ -14,8 +14,9 @@ With stats="sad_satd_luma" every entry is the triple (SAD, SATD, sum of the
 reference block) that the SATD cost modes (dct 5-10) mix: [J, nblk, Dy, Dx, 3],
 a kernel of its own in the same source file (launch geometry:
 map3_launch_geom), defined for 8-bit data only.  The SAD form takes uint8
-and uint16 (9- to 16-bit) stacks, a kernel instantiation for each, and
-counts the launches of the uint16 one as "sad_map[u16]".
+and uint16 (9- to 16-bit) stacks, a kernel for each (launch geometry:
+map_launch_geom, map16_launch_geom), and counts the launches of the uint16
+one as "sad_map[u16]".
 
 Contract: map entries are bit-identical to probe SADs (or stat triples) for
 the same candidate.  Candidates outside the grid are the caller's to reject (they
@@ -179,32 +180,27 @@ def _parity_count(r: int, q: int, pel: int) -> int:
 def map_launch_geom(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
                     tile: int, pitch_x: int, pix_bytes: int = 1) -> dict:
     """Launch geometry of the plain map kernel for one map shape and pixel
-    size (1: uint8, 2: uint16): the template choice, the work split and the
-    shared-memory layout.
+    size (1: uint8, 2: uint16, whose kernel is map16_launch_geom's): the
+    template choice, the work split and the shared-memory layout.
 
-    A CTA serves `nbc` consecutive blocks of one tile (the whole tile
-    unless its staging would pass SMEM_LIMIT; then the tile's blocks are
-    split over n_part CTAs, each staging the window of its own blocks round
-    the tile's anchor: the uint16 form's way with 10-bit 128x128 blocks;
-    every 8-bit shape fits whole, and the 8-bit form takes no split).  A
-    thread owns one (block, subplane, full-pel row) and `nox` full-pel
-    columns of that grid row (n_chunk chunks cover the row); the CTA stages
-    the [pel^2, wy, ref_pitch] reference window, each block's source rows
-    ([nbc, src_stride] bytes, word-aligned) and the blocks' int32 results.
-    A 32-bit word holds 4 // pix_bytes pixels.
-    ref_pitch covers the last word any thread reads (its column start, the
-    block row's words and the funnel shift's spill); the two strides are
-    odd word counts, so the threads of a warp, which differ in their block,
-    hit different shared-memory banks."""
+    A CTA serves one tile.  A thread owns one (block, subplane, full-pel
+    row) and `nox` full-pel columns of that grid row (n_chunk chunks cover
+    the row); the CTA stages the [pel^2, wy, ref_pitch] reference window,
+    each block's source rows ([tile, src_stride] bytes, word-aligned) and
+    the blocks' int32 results.  ref_pitch covers the last word any thread
+    reads (its column start, the block row's words and the funnel shift's
+    spill); the two strides are odd word counts, so the threads of a warp,
+    which differ in their block, hit different shared-memory banks."""
     if pel not in (1, 2):
         raise ValueError("map_launch_geom: pel must be 1 or 2")
     if pix_bytes not in (1, 2):
         raise ValueError("map_launch_geom: pixels are 1 or 2 bytes")
+    if pix_bytes == 2:
+        return map16_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x)
     logp = pel.bit_length() - 1
-    ppw = 4 // pix_bytes
-    wpr = -(-bs_x // ppw)
+    wpr = -(-bs_x // 4)
     nws = next(n for n in reversed(MAP_NWS) if wpr % n == 0)
-    if bs_x % ppw:
+    if bs_x % 4:
         nws = 1
     nox_max = max(_parity_count(r_x, q, pel) for q in range(pel))
     nox = next((n for n in MAP_NOX if n >= nox_max), MAP_NOX[-1])
@@ -217,32 +213,116 @@ def map_launch_geom(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
     src_stride = bs_y * wpr * 4
     if (src_stride // 4) % 2 == 0:
         src_stride += 4
-    for nbc in range(tile, 0, -1):
-        col0_max = (nbc - 1) * pitch_x + col_off + (n_chunk - 1) * nox
-        last = (pix_bytes * (col0_max + nox) + 4 * wpr
-                + (2 if pix_bytes == 1 else 0))
-        ref_pitch = -(-last // 4) * 4
-        if (ref_pitch // 4) % 2 == 0:
-            ref_pitch += 4
-        src_off = pel * pel * wy * ref_pitch
-        out_off = src_off + nbc * src_stride
-        smem = out_off + nbc * (2 * r_y + 1) * (2 * r_x + 1) * 4
-        if smem <= SMEM_LIMIT:
-            break
-    if pix_bytes == 1 and nbc < tile:
+    col0_max = (tile - 1) * pitch_x + col_off + (n_chunk - 1) * nox
+    ref_pitch = -(-(col0_max + nox + 4 * wpr + 2) // 4) * 4
+    if (ref_pitch // 4) % 2 == 0:
+        ref_pitch += 4
+    src_off = pel * pel * wy * ref_pitch
+    out_off = src_off + tile * src_stride
+    smem = out_off + tile * (2 * r_y + 1) * (2 * r_x + 1) * 4
+    if smem > SMEM_LIMIT:
         raise ValueError("map_launch_geom: an 8-bit map whose tile does "
                          "not fit a CTA")
-    items = nbc * n_rows * n_chunk
+    items = tile * n_rows * n_chunk
     passes = -(-items // MAP_MAX_THREADS)
     threads = -(-(-(-items // passes)) // 32) * 32
     return dict(threads=threads, smem=smem, ref_pitch=ref_pitch,
                 src_stride=src_stride, src_off=src_off, out_off=out_off,
                 nws=nws, nox=nox, n_chunk=n_chunk, n_rows=n_rows, wy=wy,
-                items=items, nbc=nbc, n_part=-(-tile // nbc))
+                items=items)
+
+
+# csrc/sadmap.cu::sadmap16_kernel: its threads per CTA (its
+# __launch_bounds__), and the shared memory that lets three CTAs share an
+# SM (each CTA also holds 1 KB the card reserves)
+MAP16_MAX_THREADS = 288
+MAP16_SMEM_3CTA = 233472 // 3 - 1024
+
+
+def map16_launch_geom(r_y: int, r_x: int, bs_y: int, bs_x: int, pel: int,
+                      tile: int, pitch_x: int, n_part: int = 0) -> dict:
+    """Launch geometry of the uint16 map kernel (sadmap16_kernel) for one
+    map shape: the template choice, the work split and the shared-memory
+    layout.
+
+    A CTA serves `nbc` consecutive blocks of one tile (n_part CTAs a tile,
+    each staging the window of its own blocks round the tile's anchor) and
+    walks the subplanes in turn.  Per subplane a thread owns one item a
+    pass: one (full-pel grid row of the subplane's parity, block, chunk of
+    nox full-pel columns), the row fastest, so that the threads of a warp
+    spread over the banks of the staged window.  Shared memory holds, in
+    this order: one subplane's reference window ([wy, ref_pitch] bytes, two
+    pixels a word, an odd word count a row), each block's source rows
+    ([nbc, src_stride] bytes, an odd word count a block), the blocks' int32
+    results ([nbc, 2r_y+1, 2r_x+1]), the window's block-high column sums at
+    every full-pel grid row ([ny, wx] words: the sum of the reference block
+    at (oy, x) is that of columns x to x + bs_x - 1) and each block's source
+    sum (nbc words).
+
+    n_part 0 picks the split: two CTAs a tile where a whole tile's CTA
+    would run fewer than 256 threads and the tile holds at least 16 blocks
+    (the YUV chroma maps: their small CTAs wait on their staging and
+    barriers more than they compute, and twice as many of them cover each
+    other's waits), else one."""
+    if n_part == 0:
+        whole = map16_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x,
+                                  1)
+        n_part = 2 if whole["threads"] < 256 and tile >= 16 else 1
+        if n_part == 1:
+            return whole
+    if bs_x % 2:
+        raise ValueError("map16_launch_geom: uint16 blocks are an even "
+                         "number of pixels wide")
+    logp = pel.bit_length() - 1
+    nbc = -(-tile // n_part)
+    wpr = bs_x // 2
+    nws = next(n for n in reversed(MAP_NWS) if wpr % n == 0)
+    nox_max = max(_parity_count(r_x, q, pel) for q in range(pel))
+    nox = next((n for n in MAP_NOX if n >= nox_max), MAP_NOX[-1])
+    n_chunk = -(-nox_max // nox)
+    rows_max = max(_parity_count(r_y, q, pel) for q in range(pel))
+    min_oy, min_ox = (-r_y) >> logp, (-r_x) >> logp
+    ny = (r_y >> logp) - min_oy + 1
+    nx = (r_x >> logp) - min_ox + 1
+    wy = bs_y + ny - 1
+    wx = (nbc - 1) * pitch_x + bs_x + nx - 1
+    first_col = max((_parity_first(r_x, q, pel - 1) >> logp) - min_ox
+                    for q in range(pel))
+    col0_max = (nbc - 1) * pitch_x + first_col + (n_chunk - 1) * nox
+    # the last word an item reads: its first word, the row's words and the
+    # shifted words' spill (map16_rows: NRW words a step of NWS)
+    nrw = (1 + nox - 1 + 2 * (nws - 1)) // 2 + 2
+    last_word = col0_max // 2 + wpr - nws + nrw - 1
+    ref_pitch = 4 * max(last_word + 1, -(-wx // 2))
+    if (ref_pitch // 4) % 2 == 0:
+        ref_pitch += 4
+    src_stride = bs_y * wpr * 4
+    if (src_stride // 4) % 2 == 0:
+        src_stride += 4
+    src_off = wy * ref_pitch
+    out_off = src_off + nbc * src_stride
+    col_off = out_off + nbc * (2 * r_y + 1) * (2 * r_x + 1) * 4
+    ss_off = col_off + ny * wx * 4
+    smem = ss_off + 4 * nbc
+    if smem > SMEM_LIMIT:
+        raise ValueError("map16_launch_geom: a tile part that does not fit a "
+                         "CTA")
+    items = nbc * rows_max * n_chunk
+    passes = -(-items // MAP16_MAX_THREADS)
+    threads = -(-(-(-items // passes)) // 32) * 32
+    return dict(threads=threads, smem=smem, ref_pitch=ref_pitch,
+                src_stride=src_stride, src_off=src_off, out_off=out_off,
+                col_off=col_off, ss_off=ss_off, nws=nws, nox=nox,
+                n_chunk=n_chunk, rows_max=rows_max, ny=ny, wy=wy, wx=wx,
+                nrw=nrw, items=items, passes=passes, nbc=nbc,
+                n_part=-(-tile // nbc))
 
 
 _GEOM_ARGS = ("threads", "smem", "ref_pitch", "src_stride", "src_off",
-              "out_off", "nws", "nox", "n_chunk", "n_rows", "nbc", "n_part")
+              "out_off", "nws", "nox", "n_chunk", "n_rows")
+_GEOM16_ARGS = ("threads", "smem", "ref_pitch", "src_stride", "src_off",
+                "out_off", "col_off", "ss_off", "nws", "nox", "n_chunk",
+                "ny", "wx", "nbc", "n_part")
 
 # template instantiations of csrc/sadmap.cu::sadmap3_kernel: full-pel
 # columns a thread owns; its threads per CTA (its __launch_bounds__)
@@ -334,13 +414,18 @@ _GEOM3_ARGS = ("threads", "smem", "nox", "n_chunk", "ref_pitch",
                "n_band")
 
 
-def _lib(stats3: bool):
-    lib = cuda_build.load("sadmap")
-    fn = lib.mvt_sad_map_stats3 if stats3 else lib.mvt_sad_map
+# the C entry of each kernel form and its launch-geometry arguments
+_ENTRIES = {"sad_map": ("mvt_sad_map", _GEOM_ARGS),
+            "sad_map[u16]": ("mvt_sad_map_u16", _GEOM16_ARGS),
+            "sad_map[stats3]": ("mvt_sad_map_stats3", _GEOM3_ARGS)}
+
+
+def _lib(name: str):
+    entry, geom_args = _ENTRIES[name]
+    fn = getattr(cuda_build.load("sadmap"), entry)
     if not fn.argtypes:
-        n_int = 18 + (len(_GEOM3_ARGS) if stats3 else len(_GEOM_ARGS) + 1)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * (18 + len(geom_args)) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -379,16 +464,15 @@ def sad_map(stack, src_plane, anchor_fy, anchor_fx, r_y: int, r_x: int,
     if stats3:
         name = "sad_map[stats3]"
         g = map3_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x)
-        geom = tuple(g[k] for k in _GEOM3_ARGS)
     else:
         name = "sad_map[u16]" if u16 else "sad_map"
         g = map_launch_geom(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x,
                             2 if u16 else 1)
-        geom = tuple(g[k] for k in _GEOM_ARGS) + (int(u16),)
+    geom = tuple(g[k] for k in _ENTRIES[name][1])
     out = torch.empty((nj, nby * nbx, 2 * r_y + 1, 2 * r_x + 1)
                       + ((3,) if stats3 else ()), dtype=I32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib(stats3)(
+        err = _lib(name)(
             stack.data_ptr(), src_plane.data_ptr(), anchor_fy.data_ptr(),
             anchor_fx.data_ptr(), out.data_ptr(), nj, pel * pel,
             stack.shape[2], stack.shape[3], src_plane.shape[1],

@@ -1,12 +1,12 @@
 """PyTorch port: Recalculate against the JAX package's
 recalculate(engine="lockstep") on the CPU, bit for bit: the interpolation
-of the old field onto the new grid, and the refined field's x / y / sad with
-dct 0 and dct 5 on a clip that leaves blocks on both sides of thsad.
-
-Both packages are fed the SAME old field and the same pyramids (made once
-by the JAX package and carried across through convert.py), so that only
-Recalculate is compared; the JAX side is one cached run
-(torch_port_reference.load_recalc).  Inputs are made with numpy from a
+of the old field onto the new grid, the configuration and the refusals.
+The refined field's x / y / sad with dct 0, 5 and 7 on a clip that leaves
+blocks on both sides of thsad, against one cached JAX run
+(torch_port_reference.load_recalc), are in
+test_torch_recalculate_{fields,exhaustive,thsad,chroma}.py: files that wait
+for a JAX reference hold at most six tests, so that pytest-xdist hands them
+out after the suite's longest file.  Inputs are made with numpy from a
 seed; every comparison is assert_array_equal (tolerance 0 — the pipeline is
 integer)."""
 import dataclasses
@@ -25,126 +25,25 @@ torch.set_num_threads(1)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-import mvtools_tpu as mvt
+import mvtools_tpu  # noqa: F401  (enables x64)
 from mvtools_tpu import recalculate as jax_recalc
 from mvtools_tpu.core import config as jax_config, types as jax_types
 
 import mvtools_tpu_torch as port
-from mvtools_tpu_torch import convert
-from mvtools_tpu_torch.core import config as port_config, types as port_types
 from mvtools_tpu_torch.core.config import AnalyseConfig, SuperConfig
 from mvtools_tpu_torch.core.types import (ColorFamily, MVField, MVPlaneField,
                                           SearchType, VideoFormat)
-from mvtools_tpu_torch.ops import probe as probe_ops
 from mvtools_tpu_torch.recalculate import _interpolate_old_vectors
 from mvtools_tpu_torch.super import Super
 
 import torch_port_reference as tpr
 
 W, H, PEL = tpr.RC_W, tpr.RC_H, tpr.RC_PEL
-CONFIGS = tpr.RC_CONFIGS
 
 
 def _specs(pkg_config, pkg_types):
     """(sspec, old 16x16 overlap-0 AnalyseSpec) in either package."""
     return tpr.recalc_specs(pkg_config, pkg_types)
-
-
-@pytest.fixture(scope="module")
-def clip(tmp_path_factory):
-    """The JAX package's level-0 pyramids of three frames, the old field of
-    the two jobs (frame 1 against frame 2 and frame 0) and the JAX package's
-    refined fields."""
-    ref = tpr.load_recalc(tmp_path_factory)
-    return dict(ref, planes=list(ref["planes"]),
-                old=(ref["old_x"], ref["old_y"], ref["old_sad"]))
-
-
-def _port_inputs(clip, jobs, rcfg_kw):
-    fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
-    sspec = SuperConfig(pel=PEL, levels=1, chroma=False).validate(fmt)
-    old_spec = AnalyseConfig(blksize=16, levels=1, chroma=False,
-                             truemotion=True).validate(sspec)
-    rcfg = port.RecalculateConfig(**rcfg_kw)
-    rspec = rcfg.to_analyse_config().validate(sspec)
-    p = clip["planes"]
-    src = convert.super_from_numpy(
-        [[np.stack([p[1]] * len(jobs))]], sspec, device="cpu")
-    ref = convert.super_from_numpy(
-        [[np.stack([p[2 if j == 0 else 0] for j in jobs])]], sspec,
-        device="cpu")
-    old = convert.mvfield_from_numpy(
-        [tuple(a[list(jobs)] for a in clip["old"])],
-        convert.spec_to_dict(old_spec.meta), device="cpu")
-    return src, ref, old, rspec, rcfg
-
-
-def _kw(pkg_types, kw):
-    return tpr.recalc_kw(pkg_types, kw)
-
-
-@pytest.fixture(scope="module")
-def results(clip):
-    """Per configuration: the port's batched [J = 2] result and the JAX
-    package's result of each job."""
-    out = {}
-    for name, kw in CONFIGS.items():
-        args = _port_inputs(clip, (0, 1), _kw(port, kw))
-        before = dict(probe_ops.launches)
-        got = port.recalculate(*args)
-        assert dict(probe_ops.launches) == before      # CPU: no launch
-        want = [tuple(clip[f"{name}_{k}"][j] for k in ("x", "y", "sad"))
-                for j in (0, 1)]
-        out[name] = (got, want, args)
-    return out
-
-
-@pytest.mark.parametrize("key", ["x", "y", "sad"])
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_recalculate_matches_jax(results, name, key):
-    got, want, _ = results[name]
-    g = getattr(got.levels[0], key)
-    assert g.dtype == (torch.int64 if key == "sad" else torch.int32)
-    assert len(got.levels) == 1 and got.validity.tolist() == [1, 1]
-    k = ("x", "y", "sad").index(key)
-    for j in (0, 1):
-        np.testing.assert_array_equal(g[j].numpy(), want[j][k])
-
-
-@pytest.mark.parametrize("name", ["dct0-16ov8", "dct5-16ov8"])
-def test_blocks_on_both_sides_of_thsad(clip, results, name):
-    """The clean region with a true old vector stays under thsad and keeps
-    its predictor; noisy or mispredicted blocks refine and move."""
-    got, _, (src, ref, old, rspec, rcfg) = results[name]
-    px, py, _ = _interpolate_old_vectors(
-        old.levels[0], old.meta, rspec.meta, rcfg.smooth, 1)
-    thsad = rcfg.thsad * 16 * 16 // 64
-    sad = got.levels[0].sad
-    moved = (got.levels[0].x != px) | (got.levels[0].y != py)
-    assert int((sad <= thsad).sum()) > 10 and int((sad > thsad).sum()) > 10
-    assert bool(moved.any()) and not bool(moved.all())
-
-
-@pytest.mark.parametrize("name", ["dct5-16ov8", "dct5-8ov0-exh"])
-def test_batched_equals_single_calls(clip, results, name):
-    """[J = 2] gives each job what a call on that job alone gives, with or
-    without the leading job axis."""
-    got, _, _ = results[name]
-    kw = _kw(port, CONFIGS[name])
-    for j in (0, 1):
-        src, ref, old, rspec, rcfg = _port_inputs(clip, (j,), kw)
-        one = port.recalculate(src, ref, old, rspec, rcfg)
-        bare = port.recalculate(
-            src.map(lambda a: a[0]), ref.map(lambda a: a[0]),
-            MVField(tuple(MVPlaneField(l.x[0], l.y[0], l.sad[0])
-                          for l in old.levels), old.validity[0], old.meta),
-            rspec, rcfg)
-        for key in ("x", "y", "sad"):
-            want = getattr(got.levels[0], key)[j]
-            assert torch.equal(getattr(one.levels[0], key)[0], want)
-            assert getattr(bare.levels[0], key).ndim == 2
-            assert torch.equal(getattr(bare.levels[0], key), want)
-        assert bare.validity.ndim == 0
 
 
 @pytest.mark.parametrize("smooth", [0, 1])
@@ -229,33 +128,3 @@ def test_unported_options_raise(kw, what):
         port.recalculate(dummy, dummy, old, rspec, rcfg, **call)
     with pytest.raises(ValueError, match="unknown engine"):
         port.recalculate(dummy, dummy, old, rspec, rcfg, engine="fast")
-
-
-# ---------------------------------------------------------------------------
-# Chroma in the search: YUV420, the chroma cost stays plain SAD
-
-
-@pytest.fixture(scope="module")
-def chroma_results(clip):
-    """Recalculate with chroma=True and dct 5 on a YUV420 pair, one job, fed
-    the JAX package's pyramids: the luma cost is the SATD, U and V add their
-    SADs."""
-    sspec, old_p = tpr.recalc_specs(port_config, port_types, "YUV420")
-    rcfg = port.RecalculateConfig(**tpr.RC_CHROMA)
-    rspec = rcfg.to_analyse_config().validate(sspec)
-    assert rspec.chroma
-    src, ref = (convert.super_from_numpy(
-        [[clip[f"chroma_planes{p}"][i][None]] for p in range(3)], sspec,
-        device="cpu") for i in (0, 1))
-    old = tuple(clip[f"chroma_old_{k}"] for k in ("x", "y", "sad"))
-    got = port.recalculate(
-        src, ref, convert.mvfield_from_numpy(
-            [old], convert.spec_to_dict(old_p.meta), device="cpu"),
-        rspec, rcfg).levels[0]
-    return got, {k: clip[f"chroma_{k}"] for k in ("x", "y", "sad")}
-
-
-@pytest.mark.parametrize("key", ["x", "y", "sad"])
-def test_recalculate_with_chroma_matches_jax(chroma_results, key):
-    got, want = chroma_results
-    np.testing.assert_array_equal(getattr(got, key)[0].numpy(), want[key])

@@ -183,41 +183,87 @@ def test_map_launch_geom_fits_the_card(family):
         assert g["out_off"] >= g["src_off"] + tile * bs_y * -(-bs_x // 4) * 4
 
 
+def _map16_items(r_y, r_x, bs_y, bs_x, pel, tile, pitch_x, g):
+    """The uint16 map kernel's items (csrc/sadmap.cu::sadmap16_kernel) of a
+    full CTA (g["nbc"] blocks of a tile, the whole tile unless the geometry
+    splits it), subplane by subplane, as arrays: the last reference word, the
+    last staged row and the last column sum each item reads, and the output
+    entries each writes."""
+    logp, pelm = pel.bit_length() - 1, pel - 1
+    min_oy, min_ox = (-r_y) >> logp, (-r_x) >> logp
+    nox, nws, wpr, nbc = g["nox"], g["nws"], bs_x // 2, g["nbc"]
+    words, rows, boxes, entries = [], [], [], []
+    for s in range(pel * pel):
+        py, px = s >> logp, s & pelm
+        dy0 = -r_y + ((py + r_y) & pelm)
+        dx0 = -r_x + ((px + r_x) & pelm)
+        rows_s = max(0, ((r_y - dy0) >> logp) + 1)
+        cols_s = max(0, ((r_x - dx0) >> logp) + 1)
+        item = np.arange(rows_s * nbc * g["n_chunk"])
+        kr, rest = item % rows_s, item // rows_s
+        b, chunk = rest % nbc, rest // nbc
+        ncol = np.minimum(nox, cols_s - chunk * nox)
+        dy = dy0 + (kr << logp)
+        oy = (dy >> logp) - min_oy
+        col0 = b * pitch_x + (dx0 >> logp) - min_ox + chunk * nox
+        nrw = ((col0 % 2 + nox - 1 + 2 * (nws - 1)) >> 1) + 2
+        keep = ncol > 0
+        words.append((col0 // 2 + wpr - nws + nrw - 1)[keep])
+        rows.append((oy + bs_y - 1)[keep])
+        boxes.append((col0 + ncol - 2 + bs_x)[keep])
+        entries += [(bb, (d + r_y) * (2 * r_x + 1) + dx0 + ((c * nox + i)
+                                                            << logp) + r_x)
+                    for bb, d, c, n in zip(b, dy, chunk, ncol)
+                    for i in range(n)]
+    return (np.concatenate(words), np.concatenate(rows),
+            np.concatenate(boxes), entries)
+
+
 @pytest.mark.parametrize("bits", [10, 16])
 @pytest.mark.parametrize("family", ["GRAY", "YUV420", "YUV422", "YUV444"])
 def test_map_launch_geom_fits_the_card_at_deep_bits(family, bits):
-    """The same for the uint16 form (two pixels a word) over every map
-    shape the search admits at 10 and 16 bits (16-bit: blocks up to 16x16;
-    10-bit: every size): where a whole tile's staging would pass 227 KB
-    (10-bit 128x128 blocks) a CTA takes fewer of its blocks, and its items
-    still read only staged words and rows and write each entry of its
-    blocks once."""
+    """The same for the uint16 form (sadmap16_kernel: one subplane's window
+    staged at a time with its block-high column sums, each block's source
+    sum) over every map shape the search admits at 10 and 16 bits (16-bit:
+    blocks up to 16x16; 10-bit: every size): every tile or part of one fits
+    a CTA, the parts cover the tile, the regions lie in order, and the items
+    of every subplane read only staged words, rows and column sums and
+    write each entry of the CTA's blocks once; the YUV420 level-0 luma map
+    leaves room for three CTAs an SM, and its chroma maps split their tile
+    in two."""
     shapes = _admitted_map_shapes(family, bits)
     assert len(shapes) > 20
     assert all(bs_y * bs_x <= 256 for _, _, bs_y, bs_x, *_ in shapes) == (
         bits == 16)
-    split = 0
     for shape in shapes:
         r_y, r_x, bs_y, bs_x, pel, tile, pitch_x = shape
         g = sadmap.map_launch_geom(*shape, 2)
+        assert g == sadmap.map16_launch_geom(*shape)
+        assert g["n_part"] in (1, 2) and g["nbc"] * g["n_part"] >= tile
+        assert (g["n_part"] - 1) * g["nbc"] < tile
         assert g["smem"] <= sadmap.SMEM_LIMIT, (shape, g)
         assert g["threads"] % 32 == 0, (shape, g)
-        assert 32 <= g["threads"] <= sadmap.MAP_MAX_THREADS, (shape, g)
+        assert 32 <= g["threads"] <= sadmap.MAP16_MAX_THREADS, (shape, g)
+        assert g["passes"] * g["threads"] >= g["items"], (shape, g)
         assert g["nws"] in sadmap.MAP_NWS and g["nox"] in sadmap.MAP_NOX
-        assert -(-bs_x // 2) % g["nws"] == 0
-        assert 1 <= g["nbc"] <= tile and g["nbc"] * g["n_part"] >= tile
-        if g["nbc"] < tile:
-            split += 1
-            # the split is taken only where one more block does not fit
-            assert sadmap.map_launch_geom(*shape[:5], g["nbc"] + 1,
-                                          pitch_x, 2)["nbc"] == g["nbc"]
-        last_word, last_row, entries = _map_items(*shape, g, ppw=2)
+        assert (bs_x // 2) % g["nws"] == 0
+        last_word, last_row, last_box, entries = _map16_items(*shape, g)
         assert last_word.max() < g["ref_pitch"] // 4, (shape, g)
-        assert last_row.max() < pel * pel * g["wy"], (shape, g)
+        assert last_row.max() < g["wy"], (shape, g)
+        assert last_box.max() < g["wx"] <= 2 * g["ref_pitch"] // 4, (shape,
+                                                                     g)
         d = (2 * r_y + 1) * (2 * r_x + 1)
-        assert len(entries) == g["nbc"] * d, (shape, g)
-        assert len(set(entries)) == g["nbc"] * d, (shape, g)
-        assert g["src_off"] >= pel * pel * g["wy"] * g["ref_pitch"]
-        assert g["out_off"] >= g["src_off"] + g["nbc"] * bs_y * -(
-            -bs_x // 2) * 4
-    assert (split > 0) == (bits == 10)
+        nbc = g["nbc"]
+        assert len(entries) == nbc * d, (shape, g)
+        assert len(set(entries)) == nbc * d, (shape, g)
+        assert g["ref_pitch"] // 4 % 2 == 1 and g["src_stride"] // 4 % 2 == 1
+        assert (g["src_off"] >= g["wy"] * g["ref_pitch"]
+                and g["out_off"] >= g["src_off"] + nbc * g["src_stride"]
+                and g["col_off"] >= g["out_off"] + 4 * nbc * d
+                and g["ss_off"] >= g["col_off"] + 4 * g["ny"] * g["wx"]
+                and g["smem"] >= g["ss_off"] + 4 * nbc)
+    if family == "YUV420":
+        luma = sadmap.map_launch_geom(8, 8, 16, 16, 2, 31, 8, 2)
+        assert luma["smem"] <= sadmap.MAP16_SMEM_3CTA and luma["n_part"] == 1
+        assert sadmap.map_launch_geom(5, 5, 8, 8, 2, 31, 4, 2)["n_part"] == 2
+        assert (8, 8, 16, 16, 2, 31, 8) in shapes

@@ -243,3 +243,30 @@ def test_field_prober_check_with_a_mask_keeps_the_satd_state(dctmode):
     the state equals the one the unmasked probes give.  Mode 7 mixes in the
     reference sums (the adaptive weight)."""
     tpr.check_masked_state("GRAY", dctmode, tpr.WALK, tpr.entry_mask)
+
+
+def test_probe3_launch_geom_covers_every_satd_size():
+    """The three-stat tiled probe kernel's launch geometry
+    (ops/probe.py::probe3_launch_geom): every block size the SATD admits
+    gets lanes an offset that divide a warp, and a lane's tiles in
+    registers (tpl) where they are g * tpl, the generic body (tpl 0, 32
+    lanes) elsewhere; a warp's candidates share its offset slots, the most
+    that fit a power of two."""
+    from mvtools_tpu_torch.core.config import _VALID_BLOCK_SIZES
+    from mvtools_tpu_torch.ops import sad as sad_ops
+    sizes = sorted((bw, bh) for bw, bh in _VALID_BLOCK_SIZES
+                   if sad_ops.satd_supported(bw, bh))
+    assert len(sizes) == 11
+    for bw, bh in sizes:
+        g = probe_ops.probe3_launch_geom(bh, bw, 6)
+        n = (bh // 4) * (bw // 4)
+        assert g["g"] in (1, 2, 4, 8, 16, 32) and 32 % g["g"] == 0
+        if g["tpl"]:
+            assert g["tpl"] in probe_ops.PROBE3_TPL and g["g"] * g["tpl"] == n
+        else:
+            assert g["g"] == 32 and n > 32 * max(probe_ops.PROBE3_TPL)
+        for d in (1, 2, 3, 6, 8, 16, 32, 49):
+            c = probe_ops.probe3_launch_geom(bh, bw, d)["cpw"]
+            slots = 32 // g["g"]
+            assert c & (c - 1) == 0 and (c == 1 or c * d <= slots)
+            assert 2 * c * d > slots

@@ -6,10 +6,10 @@ pyramid, set by the number of operations it dispatches, not by the frame
 size), so each reference below is run through the JAX package once per test
 run and cached as an .npz that every test file (and every pytest-xdist
 worker) loads.  A reference is computed by whichever process first takes
-its lock; the others wait for the file.  Under pytest-xdist the first
-fixture to need a reference also starts four background processes that
-compute four of them at once, while the workers compute the other two (see
-_prefetch); each exits when the worker that started it does.
+its lock; the others wait for the file.  Under pytest-xdist a background
+process a reference computes them all at once from the start of the run,
+at the lowest priority (see _prefetch); each exits when the worker that
+started it does.
 
 * load(): gray, 3 levels, no overlap, radius 1 (the headline path).
 * load_yuv(): YUV420, levels=0 (4 levels at this size), overlap 8, chroma,
@@ -760,28 +760,23 @@ COMPUTE = {
     "torch_port_reference_dct6": _compute_dct6,
     "torch_port_reference_deep": _compute_deep,
 }
-# the background processes, the references each computes.  pytest-xdist
-# hands out the test files with the most tests first, and those are the
-# port's: at the start of a run every worker needs a reference.  The YUV and
-# Recalculate references are needed by the first tests of files handed out
-# at once, so those workers compute them themselves; the other four are
-# needed by the first tests of the other four workers' files, so each has a
-# process of its own and all six are made at once (with two chains of two,
-# two workers waited for a second reference, one of them 268 s, before the
-# JAX package's own longest file could start).
-PREFETCH = (("torch_port_reference_satd",), ("torch_port_reference",),
-            ("torch_port_reference_dct6",), ("torch_port_reference_dct",))
+# the background processes, the references each computes: all of them, a
+# process each, started as the run begins (test_torch_satd.py, which
+# pytest-xdist hands out in its first round, starts them) at the lowest
+# priority.  The test files that compare with a reference hold at most six
+# tests, so pytest-xdist hands them out last, after the suite's longest
+# file (tests/test_batch_engine.py), while that one runs.
+PREFETCH = tuple((stem,) for stem in COMPUTE)
 
 
 def _prefetch() -> None:
     """Under pytest-xdist, start the background processes that compute the
-    PREFETCH references, once per test run: the first fixture to need any
-    reference starts them (pytest-xdist hands out the files that need
-    references first), so they are made while the workers run other tests,
-    on the cores the workers leave free.  Every reference still goes through
-    _ensure, which waits for a process computing it or computes it itself.
-    Outside pytest-xdist nothing starts and each reference is made when a
-    fixture first needs it."""
+    PREFETCH references, once per test run: test_torch_satd.py starts them
+    as the run begins (and the first fixture to need a reference, should it
+    come first), so they are made while the workers run other tests.  Every
+    reference still goes through _ensure, which waits for a process
+    computing it or computes it itself.  Outside pytest-xdist nothing starts
+    and each reference is made when a fixture first needs it."""
     global _prefetched
     if _prefetched or not os.environ.get("PYTEST_XDIST_TESTRUNUID"):
         return
@@ -817,6 +812,11 @@ def _exit_with_parent(parent: int) -> None:
 
 if __name__ == "__main__":
     # a prefetch process: python torch_port_reference.py BASE PARENT STEM...
+    # It runs at the lowest priority, on the cycles the test workers leave:
+    # the files that need its reference come last, while the files ahead of
+    # the suite's longest one (tests/test_batch_engine.py) set when that
+    # one can start.
+    os.nice(19)
     _exit_with_parent(int(sys.argv[2]))
     sys.path.insert(0, os.getcwd())
     import jax
@@ -946,3 +946,290 @@ def block_mask(rng, shape, d):
     """A [J, nblk, 1] mask, block by block (the rescue's `active`)."""
     import torch
     return torch.from_numpy(rng.random(shape + (1,)) < 0.5)
+
+
+# ---------------------------------------------------------------------------
+# The port's side of the slices (torch only; no JAX run): what the test files
+# that compare a slice with its reference share.  Each test file makes them
+# in module fixtures of its own; the references above are made once per run.
+
+
+def gray_port_fields(ref):
+    """The port's analyse_batch on the port's own supers of load()'s clip,
+    and the host reads it took."""
+    import torch
+
+    from mvtools_tpu_torch import analyse_batch
+    from mvtools_tpu_torch import field_engine as fe
+    from mvtools_tpu_torch.super import build_super
+    sspec, aspec = specs(ref)
+    sups = build_super([torch.from_numpy(ref["frames"])], sspec)
+    src, rf = job_indices()
+    before = fe.host_syncs
+    mvb = analyse_batch(sups.map(lambda a: a[src]),
+                        sups.map(lambda a: a[rf]), aspec)
+    return mvb, fe.host_syncs - before
+
+
+def yuv_clip(ref):
+    """load_yuv()'s clip as three uint8 planes [T, h, w]."""
+    import torch
+    return [torch.from_numpy(ref[k]) for k in "yuv"]
+
+
+def yuv_jax_fields(ref, device="cpu"):
+    """load_yuv()'s analysed fields as the port's MVField."""
+    from mvtools_tpu_torch import convert
+    meta = json.loads(str(ref["aspec_json"]))["meta"]
+    return convert.mvfield_from_numpy(
+        [(ref[f"mv_x{lv}"], ref[f"mv_y{lv}"], ref[f"mv_sad{lv}"])
+         for lv in range(YUV_LEVELS)], meta, device)
+
+
+def yuv_jobs(mvb, sl):
+    """The jobs `sl` of a batched field."""
+    from mvtools_tpu_torch.core.types import MVField, MVPlaneField
+    return MVField(tuple(MVPlaneField(l.x[sl], l.y[sl], l.sad[sl])
+                         for l in mvb.levels), mvb.validity[sl], mvb.meta)
+
+
+def yuv_port_run(ref):
+    """The port's own supers of load_yuv()'s clip and its analyse_batch over
+    the jobs of both directions, with every per-block probe call noted:
+    (supers, field, [(stack plane shape, blocks)])."""
+    from mvtools_tpu_torch import analyse_batch
+    from mvtools_tpu_torch.ops import probe as probe_ops
+    from mvtools_tpu_torch.super import build_super
+    sspec, aspec = specs(ref)
+    sups = build_super(yuv_clip(ref), sspec)
+    src, rf = yuv_job_indices()
+    calls = []
+    plain = probe_ops.probe_sads_plain
+
+    def spy(stack, cand_y, *args):
+        calls.append((tuple(stack.shape[-2:]), cand_y.shape[1]))
+        return plain(stack, cand_y, *args)
+
+    probe_ops.probe_sads_plain = spy
+    try:
+        mvb = analyse_batch(sups.map(lambda a: a[src]),
+                            sups.map(lambda a: a[rf]), aspec)
+    finally:
+        probe_ops.probe_sads_plain = plain
+    return sups, mvb, calls
+
+
+def yuv_degrain_run(ref, sups):
+    """Overlapped three-plane Degrain2 on the port's supers, batched over
+    the clip's frames, on the JAX side's vectors, clip-edge validity
+    included."""
+    from mvtools_tpu_torch.degrain import DegrainConfig, degrain
+    from mvtools_tpu_torch.models.denoise import (edge_validity,
+                                                  neighbour_index)
+    t, r = YUV_FRAMES, YUV_RADIUS
+    _, aspec = specs(ref)
+    mvb = yuv_jax_fields(ref)
+    nj = t * r
+    nxt, prv = neighbour_index(t, r, +1, "cpu"), neighbour_index(t, r, -1,
+                                                                 "cpu")
+    prev_ok, next_ok = edge_validity(t, r, "cpu")
+    sups_r, mvs, valid = [], [], []
+    for k in range(r):
+        sl = slice(k * t, (k + 1) * t)
+        sups_r += [sups.map(lambda a: a[nxt[sl]]),
+                   sups.map(lambda a: a[prv[sl]])]
+        mvs += [yuv_jobs(mvb, sl),
+                yuv_jobs(mvb, slice(nj + k * t, nj + (k + 1) * t))]
+        valid += [next_ok[:, k], prev_ok[:, k]]
+    return degrain(yuv_clip(ref), sups_r, mvs, aspec.meta,
+                   DegrainConfig(thsad=400), valid=valid)
+
+
+def yuv_clip_run(ref):
+    """degrain_clip on load_yuv()'s clip with the jobs of a direction (6)
+    split over two analyse_batch calls, as a long clip's are: (planes,
+    info)."""
+    from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
+    from mvtools_tpu_torch.models import denoise
+    scfg, acfg, dcfg, _ = denoise.flagship_configs()
+    info = {}
+    whole = denoise._MAX_JOBS
+    denoise._MAX_JOBS = 4
+    try:
+        out = denoise.degrain_clip(
+            yuv_clip(ref), VideoFormat(YUV_W, YUV_H, 8, ColorFamily.YUV420),
+            scfg, acfg, dcfg, radius=YUV_RADIUS, info=info)
+    finally:
+        denoise._MAX_JOBS = whole
+    return out, info
+
+
+def satd_port_configs():
+    """The SATD slice's (sspec, aspec, rcfg, rspec) in the port."""
+    import mvtools_tpu_torch as port
+    from mvtools_tpu_torch.core import config, types
+    return satd_configs(config, types, port)
+
+
+def satd_run(ref):
+    """The port's SATD chain on the port's own supers of load_satd()'s
+    clip: (analysed field, host syncs of Analyse, refined field, denoised
+    frames)."""
+    import torch
+
+    import mvtools_tpu_torch as port
+    from mvtools_tpu_torch import field_engine as fe
+    from mvtools_tpu_torch.core.types import MVField, MVPlaneField
+    from mvtools_tpu_torch.degrain import DegrainConfig, degrain
+    from mvtools_tpu_torch.super import build_super
+    sspec, aspec, rcfg, rspec = satd_port_configs()
+    frames = torch.from_numpy(ref["frames"])
+    sups = build_super([frames], sspec)
+    src, rf = satd_job_indices()
+    sup_s, sup_r = sups.map(lambda a: a[src]), sups.map(lambda a: a[rf])
+    before = fe.host_syncs
+    mvb = port.analyse_batch(sup_s, sup_r, aspec)
+    syncs = fe.host_syncs - before
+    refined = port.recalculate(sup_s, sup_r, mvb, rspec, rcfg)
+    n_out = SATD_FRAMES - 2 * SATD_RADIUS
+
+    def job(t, j):
+        return t.reshape((n_out, 2) + t.shape[1:])[:, j]
+
+    lv = refined.levels[0]
+    mvs = [MVField((MVPlaneField(job(lv.x, j), job(lv.y, j),
+                                 job(lv.sad, j)),),
+                   job(refined.validity, j), refined.meta) for j in (0, 1)]
+    sups_r = [sup_r.map(lambda a, j=j: job(a, j).contiguous())
+              for j in (0, 1)]
+    out = degrain([frames[SATD_RADIUS:SATD_RADIUS + n_out]], sups_r, mvs,
+                  rspec.meta, DegrainConfig(thsad=400))[0]
+    return mvb, syncs, refined, out
+
+
+def _recalculate_on_jax_field(ref, configs, sup_levels, levels, src, rf):
+    """Recalculate held alone: fed the JAX package's pyramids (sup_levels
+    levels) and the JAX package's analysed field (levels levels) through
+    convert.py."""
+    import mvtools_tpu_torch as port
+    from mvtools_tpu_torch import convert
+    sspec, aspec, rcfg, rspec = configs
+    sups = convert.super_from_numpy(
+        [[ref[f"super{lv}"] for lv in range(sup_levels)]], sspec,
+        device="cpu")
+    old = convert.mvfield_from_numpy(
+        [tuple(ref[f"mv_{k}{lv}"] for k in ("x", "y", "sad"))
+         for lv in range(levels)],
+        convert.spec_to_dict(aspec.meta), device="cpu")
+    return port.recalculate(sups.map(lambda a: a[src]),
+                            sups.map(lambda a: a[rf]), old, rspec, rcfg)
+
+
+def satd_recalc_on_jax_field(ref):
+    """The SATD slice's Recalculate on the JAX side's pyramids and field."""
+    src, rf = satd_job_indices()
+    configs = satd_port_configs()
+    return _recalculate_on_jax_field(ref, configs, configs[0].levels,
+                                     SATD_LEVELS, src, rf)
+
+
+def dct_port_configs():
+    """The DCT slice's (sspec, aspec, rcfg, rspec) in the port."""
+    import mvtools_tpu_torch as port
+    from mvtools_tpu_torch.core import config, types
+    return dct_configs(config, types, port)
+
+
+def dct_run(ref):
+    """The port's DCT chain on the port's own supers of load_dct()'s clip:
+    (analysed field, refined field, blocks the rescue took, the fetch calls
+    by plain version)."""
+    import torch
+
+    import mvtools_tpu_torch as port
+    from mvtools_tpu_torch import field_engine as fe
+    from mvtools_tpu_torch.ops import probe as probe_ops
+    from mvtools_tpu_torch.super import build_super
+    sspec, aspec, rcfg, rspec = dct_port_configs()
+    src, rf = list(DCT_SRC), list(DCT_REF)
+    sups = build_super([torch.from_numpy(ref["frames"])], sspec)
+    sup_s, sup_r = sups.map(lambda a: a[src]), sups.map(lambda a: a[rf])
+    calls = {"fetch_blocks_plain": [], "fetch_blocks_tiled_plain": []}
+    plain = {k: getattr(probe_ops, k) for k in calls}
+
+    def spy(name):
+        def call(stack, cand_y, *args):
+            calls[name].append(tuple(stack.shape[-2:]))
+            return plain[name](stack, cand_y, *args)
+        return call
+
+    before = fe.rescued_blocks
+    for k in calls:
+        setattr(probe_ops, k, spy(k))
+    try:
+        mvb = port.analyse_batch(sup_s, sup_r, aspec)
+        rescued = fe.rescued_blocks - before
+        refined = port.recalculate(sup_s, sup_r, mvb, rspec, rcfg)
+    finally:
+        for k, fn in plain.items():
+            setattr(probe_ops, k, fn)
+    return mvb, refined, rescued, calls
+
+
+def dct_recalc_on_jax_field(ref):
+    """The DCT slice's Recalculate on the JAX side's pyramids and field."""
+    return _recalculate_on_jax_field(ref, dct_port_configs(), DCT_LEVELS,
+                                     DCT_LEVELS, list(DCT_SRC),
+                                     list(DCT_REF))
+
+
+def recalc_clip(ref):
+    """load_recalc() with the pyramids as a list and the old field as a
+    triple."""
+    return dict(ref, planes=list(ref["planes"]),
+                old=(ref["old_x"], ref["old_y"], ref["old_sad"]))
+
+
+def recalc_port_inputs(clip, jobs, rcfg_kw):
+    """The port's (src, ref, old field, rspec, rcfg) of load_recalc()'s
+    jobs `jobs` under a Recalculate configuration."""
+    import numpy as np
+
+    import mvtools_tpu_torch as port
+    from mvtools_tpu_torch import convert
+    from mvtools_tpu_torch.core.config import AnalyseConfig, SuperConfig
+    from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
+    fmt = VideoFormat(RC_W, RC_H, 8, ColorFamily.GRAY)
+    sspec = SuperConfig(pel=RC_PEL, levels=1, chroma=False).validate(fmt)
+    old_spec = AnalyseConfig(blksize=16, levels=1, chroma=False,
+                             truemotion=True).validate(sspec)
+    rcfg = port.RecalculateConfig(**rcfg_kw)
+    rspec = rcfg.to_analyse_config().validate(sspec)
+    p = clip["planes"]
+    src = convert.super_from_numpy(
+        [[np.stack([p[1]] * len(jobs))]], sspec, device="cpu")
+    ref = convert.super_from_numpy(
+        [[np.stack([p[2 if j == 0 else 0] for j in jobs])]], sspec,
+        device="cpu")
+    old = convert.mvfield_from_numpy(
+        [tuple(a[list(jobs)] for a in clip["old"])],
+        convert.spec_to_dict(old_spec.meta), device="cpu")
+    return src, ref, old, rspec, rcfg
+
+
+def recalc_results(clip, names):
+    """Per configuration of RC_CONFIGS named: the port's batched [J = 2]
+    result, the JAX package's result of each job and the port's inputs."""
+    import mvtools_tpu_torch as port
+    from mvtools_tpu_torch.ops import probe as probe_ops
+    out = {}
+    for name in names:
+        args = recalc_port_inputs(clip, (0, 1),
+                                  recalc_kw(port, RC_CONFIGS[name]))
+        before = dict(probe_ops.launches)
+        got = port.recalculate(*args)
+        assert dict(probe_ops.launches) == before      # CPU: no launch
+        want = [tuple(clip[f"{name}_{k}"][j] for k in ("x", "y", "sad"))
+                for j in (0, 1)]
+        out[name] = (got, want, args)
+    return out
