@@ -9,7 +9,8 @@ PyTorch built for CUDA:
 It builds the CUDA kernels from mvtools_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card at the shapes the main paths
 give it (integers: tolerance 0; the tiled probe also with an `active` mask
-that leaves about 30 % of the entries live, the SAD map also at block
+that leaves about 30 % of the entries live, its uint16 form also at the
+coarser levels' shapes and with the walk's offsets, the SAD map also at block
 pitches 14 and 6 and at pel 1, its three-stat form also with 8x8 and 32x32
 blocks and at pel 1, the tiled fetch also on the DCT path's map rows, at
 origins outside the plane and with 8x8 blocks; the uint16 forms of K1-K5
@@ -64,17 +65,22 @@ result.  The last line is {"ok": true, "device": {...}}.
 
 additionally traces one more full-width run of each of the eleven clips
 with torch.profiler and prints where the device time went (busy share,
-kernels by time, and the summed device time of every kernel form).
+kernels by time, and the summed device time of every kernel form; for the
+16-bit flash clip also the uint16 tiled probe's time by launch grid, which
+names the plane and the pyramid level).
 
     python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
+                          [--sass-out FILE] [--sass-reference FILE]
 
 times the 8-bit kernels at the YUV420 and DCT paths' shapes, the uint16
-map and the three-stat tiled probe at theirs (phase
-redesigned_kernel_times), and drives the full-width paths (no other kernel
-comparison, no small runs, no kernels line and no "ok" line), with the
-package of the checkout at DIR if given: the way to compare two trees'
-kernels, paths and kernel sums in one call.  DIR
-must hold a package that has the uint16 kernel forms and Super.take.
+tiled probe and map at theirs (phase redesigned_kernel_times), and drives
+the full-width paths (no other kernel comparison, no small runs, no
+kernels line and no "ok" line), with the package of the checkout at DIR if
+given: the way to compare two trees' kernels, paths and kernel sums in one
+call.  DIR must hold a package that has the uint16 kernel forms and
+Super.take.  --sass-out writes the sass phase's opcode counts as JSON;
+--sass-reference reads such a file (another tree's) and fails unless every
+kernel form but the uint16 tiled probe counts the same opcodes.
 """
 
 import dataclasses
@@ -130,6 +136,10 @@ GRAY_K2_BEFORE = (0.374, 0.100, 0.067)
 # ring's and the masked hexagon's (PERF.md, H100 80GB HBM3, 700 W)
 K1_U16_BEFORE = {16: (3.280, 0.843, 3.299), 10: (3.277, 0.847, None)}
 K2P_BEFORE = (0.158, 0.139, 0.176, 0.094)
+# K2 u16's first body at the deep-bit YUV level-0 luma (unmasked, masked)
+# and chroma (unmasked, masked) shapes (PERF.md, H100 80GB HBM3, 700 W)
+K2_U16_BEFORE = {16: (0.585, 0.343, 0.832, 0.391),
+                 10: (0.591, 0.348, 0.827, 0.388)}
 FLASH = (416, 832, 256, 256)
 SMALL_W, SMALL_H, SMALL_FLASH = 256, 192, (32, 64, 96, 128)
 # the YUV420 path: 14 frames, flash over most of the frame, noise of +-4 per
@@ -400,6 +410,16 @@ def live_mask(shape, gen, dev, block_share=0.5, entry_share=0.6):
     dead (their warps end at once), the rest live entry by entry."""
     rows = torch.rand(shape[:3] + (1,), generator=gen, device=dev) < block_share
     return rows & (torch.rand(shape, generator=gen, device=dev) < entry_share)
+
+
+def fits_tile_window(ctx, stacks, plane, offsets, kk):
+    """Whether a plane's stack holds the tiled probe's window (else the
+    per-block probe serves it)."""
+    bsy, bsx, _, pit_x, _, _, _ = plane_geom(ctx, plane)
+    wy_total, wx_total, _, _ = probe.tile_params(
+        offsets, bsy, bsx, ctx.pel, 8 if kk <= 2 else 4, pit_x)
+    return (stacks[plane].shape[2] >= wy_total
+            and stacks[plane].shape[3] >= wx_total)
 
 
 def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad",
@@ -676,8 +696,34 @@ def sass_opcodes(source, function):
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
-def profile_run(label, fn):
-    """One traced run of fn(): device-busy share and the kernels by time."""
+def kernel_split(prof, kernel):
+    """{kernel form, launch grid and block: {"ms", "launches"}} of the
+    kernels whose trace names match `kernel`, from a profile's trace: the
+    grid names the shape a launch served (plane, pyramid level)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    split = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") != "kernel" or not re.search(kernel, name):
+            continue
+        m = re.search(r"\w+_kernel<[^>]*>", name)
+        args = e.get("args", {})
+        key = (f"{m.group(0) if m else name[:60]} grid {args.get('grid')} "
+               f"block {args.get('block')}")
+        row = split.setdefault(key, {"ms": 0.0, "launches": 0})
+        row["ms"] += e.get("dur", 0) / 1e3
+        row["launches"] += 1
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def profile_run(label, fn, split=None):
+    """One traced run of fn(): device-busy share and the kernels by time;
+    with `split` (a KERNEL_NAMES key) that kernel's time by launch grid."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -706,7 +752,9 @@ def profile_run(label, fn):
           "kernel_sums": {name: summed(kernel)
                           for name, kernel in KERNEL_NAMES.items()},
           "top_kernels": [{"name": k[:60], "count": c, "ms": ms}
-                          for k, c, ms in rows[:12]]})
+                          for k, c, ms in rows[:12]],
+          **({"split": {split: kernel_split(prof, KERNEL_NAMES[split])}}
+             if split else {})})
 
 
 # the device functions of the kernels that --profile sums, as the trace
@@ -721,22 +769,23 @@ KERNEL_NAMES = {
     "fetch_blocks_tiled": r"fetch_kernel<(unsigned char, )?-?\d+, 1>",
     "fetch_blocks": r"fetch_kernel<(unsigned char, )?-?\d+, 0>",
     "sad_map[u16]": r"sadmap(16_kernel<|_kernel<unsigned short)",
-    "probe_sads_tiled[u16]": r"probe_kernel<unsigned short",
+    "probe_sads_tiled[u16]": r"probe(16_kernel<|_kernel<unsigned short)",
     "probe_sads[u16]": r"probe_block_kernel<unsigned short>",
     "fetch_blocks_tiled[u16]": r"fetch_kernel<unsigned short, -?\d+, 1>",
     "fetch_blocks[u16]": r"fetch_kernel<unsigned short, -?\d+, 0>",
 }
 # the mangled names of the kernels whose SASS the sass phase counts, by
-# form; a uint8 form matches its name in this tree (the pixel type its
-# first template argument, "h") and in its parent's (no pixel type), so
-# that --package-root reads both
+# form; a uint8 form matches its name with the pixel type as its first
+# template argument ("h") and without, and K2 u16 its name in this tree
+# (probe16_kernel) and in a tree before its redesign (probe_kernel on
+# uint16, "t"), so that --package-root reads both
 SASS_FORMS = {
     "sad_map": ("sadmap", r"13sadmap_kernelI(h|Li)"),
     "probe_sads_tiled": ("probe", r"12probe_kernelI(h|Li)"),
     "probe_sads": ("probe_block", r"18probe_block_kernel(IhE|EPKh)"),
     "fetch_blocks_tiled/fetch_blocks": ("fetch", r"12fetch_kernelI(h|Li)"),
     "sad_map[u16]": ("sadmap", r"(13sadmap_kernelIt|15sadmap16_kernel)"),
-    "probe_sads_tiled[u16]": ("probe", r"12probe_kernelIt"),
+    "probe_sads_tiled[u16]": ("probe", r"(12probe_kernelIt|14probe16_kernel)"),
     "probe_sads[u16]": ("probe_block", r"18probe_block_kernelItE"),
     "fetch_blocks_tiled/fetch_blocks[u16]": ("fetch",
                                              r"12fetch_kernelIt"),
@@ -744,6 +793,41 @@ SASS_FORMS = {
     "probe_sads_tiled[stats3]": ("probe", r"19probe_stats3_kernel"),
     "probe_sads[stats3]": ("probe_block", r"probe_block_stats3_kernel"),
 }
+
+
+# the forms whose SASS must stay another tree's (--sass-reference): all but
+# the one this tree redesigned
+SASS_HELD = tuple(f for f in SASS_FORMS if f != "probe_sads_tiled[u16]")
+
+
+def arg_value(flag):
+    """The value after `flag` on the command line, or None."""
+    argv = sys.argv[1:]
+    return argv[argv.index(flag) + 1] if flag in argv else None
+
+
+def sass_phase():
+    """The instructions of each kernel form (with --package-root, of the
+    other tree's build).  --sass-out FILE writes them as JSON; with
+    --sass-reference FILE (another tree's --sass-out) every form of
+    SASS_HELD must count the same opcodes as there, or the phase fails."""
+    sass = {form: sass_opcodes(source, pattern)
+            for form, (source, pattern) in SASS_FORMS.items()}
+    emit({"phase": "sass", **sass})
+    out = arg_value("--sass-out")
+    if out:
+        with open(out, "w") as f:
+            json.dump(sass, f)
+    ref = arg_value("--sass-reference")
+    if ref:
+        with open(ref) as f:
+            want = json.load(f)
+        differ = [form for form in SASS_HELD
+                  if sass[form] is None or sass[form] != want.get(form)]
+        if differ:
+            raise AssertionError(f"sass: {differ} differ from {ref}")
+        emit({"phase": "sass_held", "reference": ref,
+              "forms": list(SASS_HELD)})
 
 
 PLAIN_KERNELS = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled",
@@ -976,10 +1060,17 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
                           before_ms=K1_U16_BEFORE[bits][plane]))
         offsets = HEXAGON if plane == 0 else grid16
         label = case_label(ctx, plane, " K=1 D=%d" % len(offsets))
-        k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane))
+        before = K2_U16_BEFORE[bits][2 * plane:2 * plane + 2]
         k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane,
-                          masked=True))
+                          before_ms=before[0]))
+        k2.append(k2_case(ctx, stacks, gen, offsets, 1, label, plane,
+                          masked=True, before_ms=before[1]))
         k3.append(k3_case(sspec, aspec.meta, sups, gen, plane, frames=n))
+    # the flash clip's other K2 shapes: the walk's eight offsets on luma, and
+    # both planes of the coarser levels whose stacks hold the tile window,
+    # masked as the search masks them
+    k2.append(k2_case(ctx, stacks, gen, walk, 1,
+                      case_label(ctx, 0, " K=1 walk D=8"), 0, masked=True))
     # the largest sums: every source block 0, every reference pixel the
     # maximum, so every entry is 16 * 16 * (2^bits - 1)
     def full(t, v):
@@ -1016,6 +1107,14 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
                              f"{bits}-bit", stack, ey, ex, 16, 16, ctx.pel,
                              ctx.nblk[0]))
     del ctx, stacks, stack
+    for lv in (1, 2, 3):
+        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
+        for plane, offsets in ((0, walk), (1, grid16)):
+            if fits_tile_window(ctx, stacks, plane, offsets, 1):
+                k2.append(k2_case(ctx, stacks, gen, offsets, 1, case_label(
+                    ctx, plane, f" K=1 D={len(offsets)}"), plane,
+                    masked=True))
+        del ctx, stacks
     for lv, plane, sets in ((4, 1, ((grid16, 1), (ring, 1), (((0, 0),), 6))),
                             (5, 0, ((HEXAGON, 1), (walk, 1),
                                     (((0, 0),), 6), (((0, 0),), 1)))):
@@ -1729,21 +1828,21 @@ def u8_kernel_times(cfgs, dev):
 
 
 def redesigned_kernel_times(cfgs, dev):
-    """K1 u16 and K2' (redesigned in this tree) at the shapes PERF.md
-    records them at, against their plain versions, for --paths-only: with
-    --package-root the other tree's kernels, so that one call times both
-    trees in turns."""
+    """K2 u16 (redesigned in this tree) and K1 u16 beside it at the shapes
+    PERF.md records them at, 16 and 10 bits, against their plain versions,
+    for --paths-only: with --package-root the other tree's kernels, so that
+    one call times both trees in turns."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    k1 = [c for bits in (DEEP_BITS, 10)
-          for c in deep_kernel_cases(cfgs, gen, dev, bits)[0]]
-    gen.manual_seed(0)
-    k2 = satd_kernel_cases(gen, dev)[1]
-    keys = ("case", "ms", "device_ms", "bound_ms", "plain_ms", "launch")
+    by_bits = [deep_kernel_cases(cfgs, gen, dev, bits)
+               for bits in (DEEP_BITS, 10)]
+    keys = ("case", "ms", "device_ms", "bound_ms", "plain_ms", "before_ms",
+            "live_share", "launch")
     emit({"phase": "redesigned_kernel_times",
-          **{name: [{k: c[k] for k in keys if k in c} for c in cases]
-             for name, cases in (("sad_map[u16]", k1),
-                                 ("probe_sads_tiled[stats3]", k2))}})
+          **{name: [{k: c[k] for k in keys if k in c}
+                    for cases in by_bits for c in cases[i]]
+             for i, name in ((1, "probe_sads_tiled[u16]"),
+                             (0, "sad_map[u16]"))}})
 
 
 def run_yuv16_paths(cfgs, dev, profile):
@@ -1779,7 +1878,8 @@ def run_yuv16_paths(cfgs, dev, profile):
             raise AssertionError(f"{phase}: an 8-bit kernel ran {u8}")
     if profile:
         profile_run("yuv16_main_path",
-                    lambda: degrain_clip(flash_clip, fmt, *cfgs))
+                    lambda: degrain_clip(flash_clip, fmt, *cfgs),
+                    split="probe_sads_tiled[u16]")
         profile_run("yuv16_main_path_calm",
                     lambda: degrain_clip(calm_clip, fmt, *cfgs))
     del flash_clip, calm_clip
@@ -1839,11 +1939,7 @@ def main():
     emit({"phase": "build", "seconds": build_s,
           "sources": [f"mvtools_tpu_torch/csrc/{n}.cu"
                       for n in cuda_build.SOURCES]})
-    # the instructions of each kernel form (with --package-root, of the
-    # other tree's build)
-    emit({"phase": "sass", **{form: sass_opcodes(source, pattern)
-                              for form, (source, pattern)
-                              in SASS_FORMS.items()}})
+    sass_phase()
 
     # ---- kernels against their plain versions -----------------------------
     sspec, aspec, dcfg = headline_specs(W, H)

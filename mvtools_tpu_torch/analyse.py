@@ -297,14 +297,15 @@ class DenseEvaluator:
 def _blocks_of(plane, base_y, base_x, nb_y, nb_x, bh, bw, step_y=None,
                step_x=None):
     """[J, nblk, bh, bw] blocks of a regular grid with pitch (step_y,
-    step_x), default the block size; overlapped grids are strided views
-    copied once."""
+    step_x), default the block size, contiguous: overlapped grids are
+    strided views copied once, and so is a single row (which reshape would
+    leave a view)."""
     step_y = bh if step_y is None else step_y
     step_x = bw if step_x is None else step_x
     region = plane[:, base_y:base_y + (nb_y - 1) * step_y + bh,
                    base_x:base_x + (nb_x - 1) * step_x + bw]
     return (region.unfold(1, bh, step_y).unfold(2, bw, step_x)
-            .reshape(-1, nb_y * nb_x, bh, bw))
+            .reshape(-1, nb_y * nb_x, bh, bw).contiguous())
 
 
 def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,

@@ -1,8 +1,9 @@
 // Tiled candidate probe (K2) and its three-stat form (K2').
 //
 // Replaces the TPU kernel mvtools_tpu/ops/probe.py::_tiled_probe_kernel
-// (probe_sads_tiled_pallas): probe_kernel its stats="sad" form,
-// probe_stats3_kernel its stats="sad_satd_luma" form.
+// (probe_sads_tiled_pallas): probe_kernel its stats="sad" form on uint8
+// stacks, probe16_kernel the same on uint16 stacks, probe_stats3_kernel its
+// stats="sad_satd_luma" form.
 //
 // out[job, block, k, d] = SAD of the source block against the reference
 // block at pel position (cand_x + dx_d, cand_y + dy_d), for K candidate
@@ -55,20 +56,47 @@
 // re-read from global per offset and each lane's (row, word) stepped
 // without division.  What remains is a fixed cost a warp: a handful of
 // runtime integer divisions (~15 SASS instructions each) and the dependent
-// loads of the validity rule, before any pixel.  Staging the offset set's
-// window in shared memory once per warp timed slower (PERF.md).
-// nvcc -Xptxas -v (sm_90a): 32-74 registers a thread over the
-// instantiations (probe_kernel<uint8_t, 2, false> and <uint16_t, 4, false>:
-// 40), no spills.
+// loads of the validity rule, before any pixel (for this body's former
+// uint16 form the cuts below found the pixel loads the larger cost).
+// Staging the offset set's window in shared memory once per warp timed
+// slower (PERF.md).  nvcc -Xptxas -v (sm_90a): 32-74 registers a thread
+// over the instantiations (probe_kernel<2, false>: 40), no spills.
 //
-// The same body serves uint16 stacks (9- to 16-bit clips): the pixel type is
-// a template parameter, a word holds two pixels (pixels.cuh: the SAD of a
-// word is max.u16x2 - min.u16x2 and one IDP.2A), so a 16x16 block is 128
-// words, four a lane, and an 8x8 chroma block 32 words, one a lane; the
-// funnel shift of ref_word steps by 16 bits (a 16-bit pixel's address is
-// even).  0.585 ms at [12, 32026, 1, 6] (the 8-bit form: 0.44; H100 80GB
-// HBM3, 700 W).
-//
+// probe_kernel takes uint8 stacks only.  uint16 stacks (9- to 16-bit clips)
+// have a kernel of their own, probe16_kernel: it replaces the same Pallas
+// kernel (_tiled_probe_kernel) on uint16 stacks.  Bound: bytes (each valid,
+// live entry reads its block of the stack; every entry writes four bytes;
+// each flag is read once).  probe_kernel's former uint16 instantiation took
+// 0.585 ms at [12, 32026, 1, 6] and 0.832 at the chroma [12, 32026, 1, 16]
+// (H100 80GB HBM3, 700 W); cutting its body on the card
+// (experiments/k2u16_timing.py, which keeps a copy of it) showed that
+// neither its runtime divisions (0.00 ms) nor the validity rule's loads
+// (0.03 ms) held it back: its pixel loads did (0.21 of 0.58 ms), two
+// 32-bit loads a word, and a warp per
+// candidate walked the chroma block's 16 offsets one at a time.  The clip's
+// launches are masked: 3.8 % of the 3.1 G entries a 16-bit flash clip
+// probes are live and valid, and 97-98 % of the items of its level-0 walks
+// are dead, so a dead item must cost no more than its flags and its stores.
+// probe16_kernel's design:
+// - a CTA takes a span of a block row's blocks (3-D grid: block group,
+//   block row, job), its items up to 32 a warp (fewer in a launch of few
+//   items, so that its warps fill the card);
+// - a lane checks one item: its flags (whole words where D is a multiple
+//   of 4), then for a live item its candidate against its tile's window
+//   base; a dead or off-tile item is filled with INVALID_SAD by that lane,
+//   four entries a store;
+// - the warp's live, valid items go to its groups of G lanes in turn, each
+//   lane with CH chunks of four (two, one) source words of one block row,
+//   loaded once by one vector load; the launch geometry is
+//   ops/probe.py::probe16_launch_geom;
+// - per offset a chunk's five reference words come from up to three
+//   aligned 8-byte loads and a select (two thirds of the 32-bit loads), one
+//   funnel shift a word, and the SAD is sum S + sum R - 2 sum min(S, R): one
+//   min.u16x2 and two IDP.2A a word, sum S made once; the item's G lanes add
+//   by xor shuffles.
+// The loads of the live entries' reference words remain its largest cost
+// (PERF.md).
+
 // The three-stat form writes the triple (SAD, SATD, sum of the reference
 // block) per entry, out[job, block, k, d, 0..2] (satd.cuh says what the SATD
 // is), under the same validity rule: an invalid candidate, or an inactive
@@ -162,19 +190,19 @@ __device__ __forceinline__ uint32_t ref_word(const uint8_t* a, int last) {
     return __funnelshift_r(lo, hi, (unsigned)(ai & 3) * 8u);
 }
 
-// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).  WPL:
-// source words a lane holds in registers (1, 2, 4, 8, 16), or 0 for the
-// generic body.  MASKED: the block width is not a multiple of the pixels a
-// word holds (only a 2-wide 8-bit chroma block), so a row's last word is cut
-// by a mask.
-template <typename T, int WPL, bool MASKED>
+// The uint8 form.  WPL: source words a lane holds in registers (1, 2, 4, 8,
+// 16), or 0 for the generic body.  MASKED: the block width is not a multiple
+// of the pixels a word holds (only a 2-wide chroma block), so a row's last
+// word is cut by a mask.
+template <int WPL, bool MASKED>
 __global__ void __launch_bounds__(256)
-probe_kernel(const T* __restrict__ stack,
+probe_kernel(const uint8_t* __restrict__ stack,
              const int* __restrict__ cand_y, const int* __restrict__ cand_x,
-             const T* __restrict__ src,
+             const uint8_t* __restrict__ src,
              const int* __restrict__ offs,  // [D, 2] (dx, dy)
              const uint8_t* __restrict__ active, int* __restrict__ out,
              ProbeParams p) {
+    using T = uint8_t;
     constexpr int PPW = PixWord<T>::PPW, SH = PixWord<T>::SH;
     constexpr int PB = (int)sizeof(T);        // bytes a pixel
     const int lane = threadIdx.x & 31;
@@ -305,6 +333,84 @@ probe_kernel(const T* __restrict__ stack,
             const unsigned t = __reduce_add_sync(FULL, slot == s2 ? acc : 0u);
             if (lane == s2 * p.g && on) o[d] = (int)t;
         }
+    }
+}
+
+struct Probe16Params {
+    int n_sub, hp, wp;        // stack [J, n_sub, hp, wp] of uint16 pixels
+    int nblk, row_len, k, d;  // blocks per job, blocks per row, K, D
+    int tile, bs_y, bs_x, logp;
+    int min_dy, min_dx;       // most negative offsets of the set
+    int wy, cxs;              // logical window rows, 128-rounded columns
+    int wy_total, wx_total, center_y, center_x;
+    int g, lg;                // lanes an item takes in the pixel pass, log2
+    int lcpr;                 // log2 of the chunks a block row
+    int nc;                   // chunks a block
+    int span;                 // blocks of a block row a CTA takes
+};
+
+// CW source words (2 * CW pixels) from a uint16 address aligned to 4 * CW
+// bytes, with one vector load.
+template <int CW>
+__device__ __forceinline__ void load_words(const uint16_t* p, uint32_t* v) {
+    if (CW == 4) {
+        const uint4 q = *(const uint4*)p;
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else if (CW == 2) {
+        const uint2 q = *(const uint2*)p;
+        v[0] = q.x; v[1] = q.y;
+    } else {
+        v[0] = *(const uint32_t*)p;
+    }
+}
+
+// Adds sum R and sum min(S, R) of one chunk: the CW reference words at byte
+// address a (even) against the source words s.  Four-word chunks: up to
+// three aligned 8-byte loads and a select of the five words that hold the
+// chunk (32-bit and 16-byte loads timed slower, PERF.md); narrower ones:
+// CW + 1 aligned 32-bit loads.  One funnel shift a word.  Every aligned
+// load holds a pixel of the chunk, so none can leave the stack's allocation.
+template <int CW>
+__device__ __forceinline__ void chunk_sums(uintptr_t a, const uint32_t* s,
+                                           unsigned& acc_r, unsigned& acc_m) {
+    const unsigned sh = (unsigned)(a & 3) * 8u;
+    uint32_t v[CW + 1];
+    if (CW == 4) {
+        const uint2* a8 = (const uint2*)(a & ~(uintptr_t)7);
+        const uint2 x0 = __ldg(a8), x1 = __ldg(a8 + 1);
+        const uint2 x2 = (a & 7) ? __ldg(a8 + 2) : x1;
+        const uint32_t w[6] = {x0.x, x0.y, x1.x, x1.y, x2.x, x2.y};
+        const bool q = ((a >> 2) & 1u) != 0;
+#pragma unroll
+        for (int j = 0; j < CW + 1; ++j) v[j] = q ? w[j + 1] : w[j];
+    } else {
+        const uint32_t* a4 = (const uint32_t*)(a & ~(uintptr_t)3);
+#pragma unroll
+        for (int j = 0; j < CW; ++j) v[j] = __ldg(a4 + j);
+        v[CW] = __ldg((const uint32_t*)((a + 4 * CW - 1) & ~(uintptr_t)3));
+    }
+#pragma unroll
+    for (int j = 0; j < CW; ++j) {
+        const uint32_t r = __funnelshift_r(v[j], v[j + 1], sh);
+        acc_r = __dp2a_lo(r, 0x0101u, acc_r);
+        acc_m = __dp2a_lo(mvt::min_u16x2(r, s[j]), 0x0101u, acc_m);
+    }
+}
+
+// Bit i of the result: byte i of w, a flag of 0 or 1.
+__device__ __forceinline__ unsigned flag_bits(uint32_t w) {
+    return ((w & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// INT_MAX into the d entries at o by the g lanes of an item (lane l of
+// them: l, l + g, ...), four at a time where d is a multiple of 4 (o is
+// then 16-byte aligned: it starts a row of d entries).
+__device__ __forceinline__ void fill_invalid(int* o, int d, int l, int g) {
+    if (d % 4 == 0) {
+        const int4 v = make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
+        for (int e = 4 * l; e < d; e += 4 * g) *(int4*)(o + e) = v;
+    } else {
+        for (int e = l; e < d; e += g) o[e] = INT_MAX;
     }
 }
 
@@ -492,6 +598,176 @@ probe_stats3_kernel(const uint8_t* __restrict__ stack,
     }
 }
 
+// The uint16 form (K2 u16).  A CTA takes `span` blocks of one block row of
+// one job (blockIdx = block group, block row, job), their items (block,
+// candidate) in order, up to 32 a warp at a time.  First each lane checks one
+// item: its flags (whole words where D is a multiple of 4), then, for a
+// live one, its candidate against its tile's window base (made from the
+// three members' candidate 0); a dead or off-tile item is filled with
+// INVALID_SAD by that lane alone.  Then the warp's live, valid items go
+// to its groups of G lanes, 32 / G at a time: G lanes own an item, CH
+// chunks of CW source words each (a chunk is CW words of one block row),
+// loaded once with one vector load a chunk.  Per offset a lane builds its
+// chunks' reference words (chunk_sums) and adds sum R and sum min(S, R);
+// the item's SAD is sum S + sum R - 2 sum min(S, R), summed over its G
+// lanes by xor shuffles.  CH 0: the generic body (G 32, the lanes stride
+// over the chunks, the source re-read per offset).
+template <int CW, int CH>
+__global__ void __launch_bounds__(256)
+probe16_kernel(const uint16_t* __restrict__ stack,
+               const int* __restrict__ cand_y, const int* __restrict__ cand_x,
+               const uint16_t* __restrict__ src,
+               const int* __restrict__ offs,  // [D, 2] (dx, dy)
+               const uint8_t* __restrict__ active, int* __restrict__ out,
+               Probe16Params p) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane & (p.g - 1);            // lane inside its item
+    const int gbase = lane - g;                // the item's first lane
+    const unsigned gmask = p.g == 32 ? FULL
+                                     : ((1u << p.g) - 1u) << gbase;
+    const int grp = lane >> p.lg, n_grp = 32 >> p.lg;
+    const int row = blockIdx.y, job = blockIdx.z;
+    const int col0 = blockIdx.x * p.span;      // the CTA's first column
+    const int n_items = min(p.span, p.row_len - col0) * p.k;
+    const int rb = job * p.nblk + row * p.row_len;  // the row's first block
+    const int w0 = (rb + col0) * p.k;          // the CTA's first item
+    const int last = p.row_len - 1;
+    const int pelm = (1 << p.logp) - 1;
+    const int plane = p.hp * p.wp;
+    const uintptr_t stack_j = (uintptr_t)(stack + (size_t)job * p.n_sub
+                                                  * plane);
+    const int cmask = (1 << p.lcpr) - 1;
+    const bool few = p.d <= 32;
+    const unsigned all = few ? (p.d == 32 ? FULL : (1u << p.d) - 1u) : FULL;
+    for (int i0 = (threadIdx.x >> 5) * 32; i0 < n_items;
+         i0 += (int)blockDim.x) {
+        // the lane's item: live entries (bit d for entry d, D <= 32), and
+        // for a live one its candidate and the validity rule
+        const int it = i0 + lane;
+        const int w = w0 + it;                 // (job, block, candidate)
+        unsigned live = 0;
+        int cy = 0, cx = 0;
+        bool ok = false;
+        if (it < n_items) {
+            const uint8_t* act = active ? active + (size_t)w * p.d : nullptr;
+            live = all;
+            bool any = true;
+            if (act && few) {
+                live = 0;
+                if (p.d % 4 == 0) {
+                    for (int q = 0; q < p.d; q += 4)
+                        live |= flag_bits(*(const uint32_t*)(act + q)) << q;
+                } else {
+                    for (int d = 0; d < p.d; ++d)
+                        live |= (act[d] != 0 ? 1u : 0u) << d;
+                }
+                any = live != 0;
+            } else if (act) {
+                any = false;
+                for (int d = 0; d < p.d; ++d) any |= act[d] != 0;
+            }
+            if (any) {
+                cy = cand_y[w];
+                cx = cand_x[w];
+                const int col = col0 + (p.k == 1 ? it : it / p.k);
+                const int c0 = col - col % p.tile;
+                const int i0m = (rb + min(c0, last)) * p.k;
+                const int imm = (rb + min(c0 + p.tile / 2, last)) * p.k;
+                const int i1m = (rb + min(c0 + p.tile - 1, last)) * p.k;
+                const int ay = tile_base((cand_y[i0m] + p.min_dy) >> p.logp,
+                                         (cand_y[imm] + p.min_dy) >> p.logp,
+                                         (cand_y[i1m] + p.min_dy) >> p.logp,
+                                         p.center_y, p.hp - p.wy_total, ~7);
+                const int ax = tile_base((cand_x[i0m] + p.min_dx) >> p.logp,
+                                         (cand_x[imm] + p.min_dx) >> p.logp,
+                                         (cand_x[i1m] + p.min_dx) >> p.logp,
+                                         p.center_x, p.wp - p.wx_total, ~127);
+                const int rel_y = ((cy + p.min_dy) >> p.logp) - ay;
+                const int rel_x = ((cx + p.min_dx) >> p.logp) - ax;
+                ok = rel_y >= 0 && rel_y + p.wy <= p.wy_total && rel_x >= 0
+                     && (rel_x & ~127) + p.cxs <= p.wx_total;
+            }
+            if (!ok) fill_invalid(out + (size_t)w * p.d, p.d, 0, 1);
+        }
+        // the live, valid items, one to each group of G lanes in turn
+        unsigned todo = __ballot_sync(FULL, ok);
+        while (todo) {
+            unsigned m = todo;                 // the group's item: set bit grp
+            for (int r = 0; r < grp; ++r) m &= m - 1u;
+            const int sl = m ? __ffs(m) - 1 : 0;
+            const bool have = m != 0;
+            const int iw = __shfl_sync(FULL, w, sl);
+            const unsigned ilive = __shfl_sync(FULL, live, sl);
+            const int icy = __shfl_sync(FULL, cy, sl);
+            const int icx = __shfl_sync(FULL, cx, sl);
+            for (int r = 0; r < n_grp; ++r) todo &= todo - 1u;
+            if (!have) continue;
+            const int jb = p.k == 1 ? iw : iw / p.k;
+            int* o = out + (size_t)iw * p.d;
+            const uint8_t* act = active ? active + (size_t)iw * p.d : nullptr;
+            const uint16_t* s = src + (size_t)jb * p.bs_y * p.bs_x;
+            // the lane's chunks: source words, plane byte offset, and the
+            // lane's part of sum S
+            constexpr int NC = CH > 0 ? CH : 1;
+            uint32_t sw[NC][CW];
+            int roff[NC];
+            unsigned ssum = 0;
+            if (CH > 0) {
+#pragma unroll
+                for (int i = 0; i < NC; ++i) {
+                    const int ci = g + i * p.g;
+                    const int r = ci >> p.lcpr, cc = ci & cmask;
+                    load_words<CW>(s + r * p.bs_x + cc * (2 * CW), sw[i]);
+#pragma unroll
+                    for (int j = 0; j < CW; ++j)
+                        ssum = __dp2a_lo(sw[i][j], 0x0101u, ssum);
+                    roff[i] = 2 * (r * p.wp + cc * (2 * CW));
+                }
+            } else {
+                for (int ci = g; ci < p.nc; ci += 32) {
+                    const int r = ci >> p.lcpr, cc = ci & cmask;
+                    uint32_t v[CW];
+                    load_words<CW>(s + r * p.bs_x + cc * (2 * CW), v);
+#pragma unroll
+                    for (int j = 0; j < CW; ++j)
+                        ssum = __dp2a_lo(v[j], 0x0101u, ssum);
+                }
+            }
+            // the offsets one at a time (two a pass timed no faster, PERF.md)
+            for (int d = 0; d < p.d; ++d) {
+                if (!(few ? ((ilive >> d) & 1u) != 0 : (!act || act[d]))) {
+                    if (g == 0) o[d] = INT_MAX;
+                    continue;
+                }
+                const int px = icx + offs[2 * d];
+                const int py = icy + offs[2 * d + 1];
+                const int sub = (px & pelm) | ((py & pelm) << p.logp);
+                const uintptr_t r0 = stack_j
+                    + 2 * (uintptr_t)(sub * plane + (py >> p.logp) * p.wp
+                                      + (px >> p.logp));
+                unsigned acc_r = 0, acc_m = 0;
+                if (CH > 0) {
+#pragma unroll
+                    for (int i = 0; i < NC; ++i)
+                        chunk_sums<CW>(r0 + roff[i], sw[i], acc_r, acc_m);
+                } else {
+                    for (int ci = g; ci < p.nc; ci += 32) {
+                        const int r = ci >> p.lcpr, cc = ci & cmask;
+                        uint32_t v[CW];
+                        load_words<CW>(s + r * p.bs_x + cc * (2 * CW), v);
+                        chunk_sums<CW>(r0 + 2 * (r * p.wp + cc * (2 * CW)),
+                                       v, acc_r, acc_m);
+                    }
+                }
+                unsigned t = ssum + acc_r - 2u * acc_m;
+                for (int sh = p.g >> 1; sh > 0; sh >>= 1)
+                    t += __shfl_xor_sync(gmask, t, sh);
+                if (g == (d & (p.g - 1))) o[d] = (int)t;
+            }
+        }
+    }
+}
+
 }  // namespace
 
 // ppw: pixels a 32-bit word holds (4 for uint8, 2 for uint16).
@@ -517,7 +793,6 @@ static ProbeParams probe_params(int n_jobs, int n_sub, int hp, int wp,
 
 static bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-template <typename T>
 static void launch_probe(int wpl, bool masked, unsigned blocks, int threads,
                          cudaStream_t st, const void* stack,
                          const void* cand_y, const void* cand_x,
@@ -525,9 +800,9 @@ static void launch_probe(int wpl, bool masked, unsigned blocks, int threads,
                          const uint8_t* active, void* out,
                          const ProbeParams& p) {
 #define MVT_PROBE(W, M)                                                     \
-    probe_kernel<T, W, M><<<blocks, threads, 0, st>>>(                      \
-        (const T*)stack, (const int*)cand_y, (const int*)cand_x,            \
-        (const T*)src, (const int*)offs, active, (int*)out, p)
+    probe_kernel<W, M><<<blocks, threads, 0, st>>>(                         \
+        (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,      \
+        (const uint8_t*)src, (const int*)offs, active, (int*)out, p)
     switch (wpl) {
         case 1:
             if (masked) MVT_PROBE(1, true);
@@ -542,14 +817,90 @@ static void launch_probe(int wpl, bool masked, unsigned blocks, int threads,
 #undef MVT_PROBE
 }
 
-// u16: 1 for uint16 stack and source blocks, 0 for uint8.
+// The (CW, CH) forms of probe16_kernel: those ops/probe.py::
+// probe16_launch_geom gives for the block sizes the search admits.
+#define MVT_PROBE16_FORMS(X) X(4, 2) X(4, 4) X(4, 1) X(4, 0) X(2, 2) X(1, 2)
+
+static int launch_probe16(int n_jobs, const ProbeParams& q, int cw, int ch,
+                          int g, int warps, int span, cudaStream_t st,
+                          const void* stack, const void* cand_y,
+                          const void* cand_x, const void* src,
+                          const void* offs, const uint8_t* active,
+                          void* out) {
+    Probe16Params p;
+    p.n_sub = q.n_sub; p.hp = q.hp; p.wp = q.wp; p.nblk = q.nblk;
+    p.row_len = q.row_len; p.k = q.k; p.d = q.d; p.tile = q.tile;
+    p.bs_y = q.bs_y; p.bs_x = q.bs_x; p.logp = q.logp; p.min_dy = q.min_dy;
+    p.min_dx = q.min_dx; p.wy = q.wy; p.cxs = q.cxs;
+    p.wy_total = q.wy_total; p.wx_total = q.wx_total;
+    p.center_y = q.center_y; p.center_x = q.center_x;
+    p.g = g; p.span = span;
+    // whole words a row, rows of whole chunks, a power of two of them; the
+    // item's lanes hold its chunks (CH 1, 2, 4) or stride over them (CH 0,
+    // G 32)
+    const int wpr = q.bs_x / 2;
+    if (q.bs_x % 2 || (cw != 1 && cw != 2 && cw != 4) || wpr % cw
+        || !pow2(wpr / cw) || !pow2(g) || g > 32
+        || (ch != 0 && ch != 1 && ch != 2 && ch != 4)
+        || (ch == 0 && g != 32) || warps < 1 || warps > 8 || span < 1
+        || (long long)n_jobs * q.nblk * q.k * q.d > INT_MAX
+        || q.nblk % q.row_len || q.tile < 1 || n_jobs > 65535)
+        return (int)cudaErrorInvalidValue;
+    p.lg = 0;
+    while ((1 << p.lg) < g) ++p.lg;
+    p.lcpr = 0;
+    while ((1 << p.lcpr) < wpr / cw) ++p.lcpr;
+    p.nc = q.bs_y << p.lcpr;
+    if (ch != 0 && g * ch != p.nc) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)((q.row_len + span - 1) / span),
+                    (unsigned)(q.nblk / q.row_len), (unsigned)n_jobs);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    const unsigned threads = 32u * (unsigned)warps;
+#define MVT_PROBE16(W, C)                                                   \
+    case W * 8 + C:                                                         \
+        probe16_kernel<W, C><<<grid, threads, 0, st>>>(                     \
+            (const uint16_t*)stack, (const int*)cand_y, (const int*)cand_x, \
+            (const uint16_t*)src, (const int*)offs, active, (int*)out, p);  \
+        break;
+    switch (cw * 8 + ch) {
+        MVT_PROBE16_FORMS(MVT_PROBE16)
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef MVT_PROBE16
+    return (int)cudaGetLastError();
+}
+
+// Warps of probe16_kernel<cw, ch> that one SM keeps resident in CTAs of
+// `warps` warps (its registers decide), or a negative CUDA error: with the
+// SM count, the warps a launch should fill (ops/probe.py::probe16_launch_geom).
+extern "C" int mvt_probe16_resident_warps(int cw, int ch, int warps) {
+    int n = 0;
+    cudaError_t e = cudaErrorInvalidValue;
+#define MVT_PROBE16(W, C)                                                   \
+    case W * 8 + C:                                                         \
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                  \
+            &n, probe16_kernel<W, C>, 32 * warps, 0);                       \
+        break;
+    switch (cw * 8 + ch) {
+        MVT_PROBE16_FORMS(MVT_PROBE16)
+        default: break;
+    }
+#undef MVT_PROBE16
+    return e == cudaSuccess ? n * warps : -(int)e;
+}
+
+// u16: 1 for uint16 stack and source blocks (probe16_kernel, launched with
+// the geometry cw, ch, g, n_warps, span of ops/probe.py::
+// probe16_launch_geom),
+// 0 for uint8 (probe_kernel; the geometry is not read).
 extern "C" int mvt_probe_sads_tiled(
         const void* stack, const void* cand_y, const void* cand_x,
         const void* src, const void* offs, const void* active, void* out,
         int n_jobs, int n_sub, int hp, int wp, int nblk, int row_len, int k,
         int d, int tile, int bs_y, int bs_x, int logp, int min_dy, int min_dx,
         int wy, int cxs, int wy_total, int wx_total, int center_y,
-        int center_x, int u16, void* stream) {
+        int center_x, int u16, int cw, int ch, int g, int n_warps,
+        int span, void* stream) {
     const int ppw = u16 ? 2 : 4;
     ProbeParams p = probe_params(
         n_jobs, n_sub, hp, wp, nblk, row_len, k, d, tile, bs_y, bs_x, logp,
@@ -560,6 +911,11 @@ extern "C" int mvt_probe_sads_tiled(
     if (p.total > INT_MAX
         || (long long)n_sub * hp * wp * (u16 ? 2 : 1) > INT_MAX)
         return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const uint8_t* a = (const uint8_t*)active;
+    if (u16)
+        return launch_probe16(n_jobs, p, cw, ch, g, n_warps, span, st,
+                              stack, cand_y, cand_x, src, offs, a, out);
     const bool masked = bs_x % ppw != 0;
     int wpl = 0;                     // 0: the generic body
     if (p.nw <= 32 && pow2(p.nw)) {
@@ -571,14 +927,8 @@ extern "C" int mvt_probe_sads_tiled(
     if (masked && wpl != 1) return (int)cudaErrorInvalidValue;
     const int warps = 8;
     const unsigned blocks = (unsigned)((p.total + warps - 1) / warps);
-    cudaStream_t st = (cudaStream_t)stream;
-    const uint8_t* a = (const uint8_t*)active;
-    if (u16)
-        launch_probe<uint16_t>(wpl, masked, blocks, warps * 32, st, stack,
-                               cand_y, cand_x, src, offs, a, out, p);
-    else
-        launch_probe<uint8_t>(wpl, masked, blocks, warps * 32, st, stack,
-                              cand_y, cand_x, src, offs, a, out, p);
+    launch_probe(wpl, masked, blocks, warps * 32, st, stack, cand_y, cand_x,
+                 src, offs, a, out, p);
     return (int)cudaGetLastError();
 }
 

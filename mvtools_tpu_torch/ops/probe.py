@@ -405,7 +405,7 @@ def _probe_lib(stats3: bool):
     fn = lib.mvt_probe_sads_tiled_stats3 if stats3 else lib.mvt_probe_sads_tiled
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * (23 if stats3 else 21) + [ctypes.c_void_p]
+            + [ctypes.c_int] * (23 if stats3 else 26) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -433,6 +433,65 @@ def probe3_launch_geom(bs_y: int, bs_x: int, n_offsets: int) -> dict:
     while 2 * cpw * n_offsets <= 32 // g:
         cpw *= 2
     return dict(g=g, tpl=tpl, cpw=cpw)
+
+
+# chunks of source words a lane of the uint16 tiled probe keeps in registers
+PROBE16_CH = (1, 2, 4)
+
+
+def probe16_chunks(bs_y: int, bs_x: int) -> tuple[int, int, int]:
+    """(cw, ch, g) of the uint16 tiled probe (K2 u16,
+    csrc/probe.cu::probe16_kernel<cw, ch>) for a block size: a block row of
+    bs_x pixels is bs_x // 2 words, cut in chunks of `cw` words (the most of
+    4, 2 and 1 that divide the row; one vector load each); an item's `g`
+    lanes hold `ch` chunks each (two where the block has 2 to 64 chunks; ch
+    0 is the generic body, whose 32 lanes stride over the chunks)."""
+    wpr = bs_x // 2
+    cw = next(c for c in (4, 2, 1) if wpr % c == 0)
+    nc = bs_y * (wpr // cw)
+    g = min(32, max(1, nc // 2))
+    ch = nc // g
+    if ch not in PROBE16_CH:
+        g, ch = 32, 0
+    return cw, ch, g
+
+
+def probe16_launch_geom(bs_y: int, bs_x: int, kk: int, n_items: int,
+                        in_flight: int) -> dict:
+    """Launch geometry of the uint16 tiled probe for a block size, K
+    candidates and n_items (job, block, candidate) items in all, on a card
+    that keeps `in_flight` warps of the kernel resident
+    (probe16_in_flight).
+
+    cw, ch, g: probe16_chunks.  A CTA takes `span` blocks of a block row,
+    up to 32 items a warp and two warps: a lane checks an item's flags and
+    validity, then `g` lanes take each live, valid item.  A launch with
+    fewer items than `in_flight` warps of 32 gives each warp fewer (down to
+    4, one warp a CTA), so that the warps walking the live items' offsets
+    fill the card."""
+    cw, ch, g = probe16_chunks(bs_y, bs_x)
+    per_warp, warps = 32, 2
+    while per_warp > 4 and n_items < per_warp * in_flight:
+        per_warp //= 2
+    if per_warp < 32:
+        warps = 1
+    return dict(cw=cw, ch=ch, g=g, warps=warps,
+                span=max(1, per_warp * warps // kk))
+
+
+@functools.lru_cache(maxsize=None)
+def probe16_in_flight(device: int, cw: int, ch: int) -> int:
+    """Warps of csrc/probe.cu::probe16_kernel<cw, ch> that CUDA device
+    `device` keeps resident: its SMs times the warps an SM keeps in CTAs of
+    two warps, which the kernel's registers decide."""
+    fn = cuda_build.load("probe").mvt_probe16_resident_warps
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        per_sm = fn(cw, ch, 2)
+    cuda_build.check_launch(max(0, -per_sm), "probe_sads_tiled[u16]")
+    return torch.cuda.get_device_properties(device).multi_processor_count \
+        * per_sm
 
 
 def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
@@ -484,15 +543,23 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     dev = stack.device
     min_dx, min_dy, wy, _, _, cxs = _tile_geom(offsets, bs_y, bs_x, pel)
     offs = _offsets_tensor(offsets, dev)
-    if src_blocks.data_ptr() % 4:
-        src_blocks = src_blocks.clone()     # the kernel reads 32-bit words
+    if src_blocks.data_ptr() % 16:
+        src_blocks = src_blocks.clone()     # the kernels read 4-16 B words
+    if active is not None and active.data_ptr() % 16:
+        active = active.clone()             # and the flags as 32-bit words
     if stats3:
         name = "probe_sads_tiled[stats3]"
         g = probe3_launch_geom(bs_y, bs_x, len(offsets))
         geom = (g["g"], g["tpl"], g["cpw"])
+    elif stack.dtype == torch.uint16:
+        name = "probe_sads_tiled[u16]"
+        cw, ch, _ = probe16_chunks(bs_y, bs_x)
+        g = probe16_launch_geom(bs_y, bs_x, kk, nj * nblk * kk,
+                                probe16_in_flight(dev.index, cw, ch))
+        geom = (1, g["cw"], g["ch"], g["g"], g["warps"], g["span"])
     else:
-        name = _launch_name("probe_sads_tiled", stack)
-        geom = (int(stack.dtype == torch.uint16),)
+        name = "probe_sads_tiled"
+        geom = (0,) * 6
     out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
                       dtype=I32, device=dev)
     with torch.cuda.device(dev):

@@ -4,7 +4,11 @@ comparisons with the JAX package's analyse_batch on a clip whose flashing
 region drives the bad-SAD rescue are in test_torch_analyse_levels.py,
 test_torch_analyse_coarse.py and test_torch_analyse_single.py (files that
 wait for a JAX reference hold at most six tests, so that pytest-xdist hands
-them out after the suite's longest file)."""
+them out after the suite's longest file).
+
+Some of its checks live in test_torch_analyse_refusals{,2}.py, files of at
+most six tests that pytest-xdist's loadfile scheduling hands out after the
+suite's longest file."""
 import os
 import sys
 
@@ -23,8 +27,7 @@ from mvtools_tpu_torch import analyse, analyse_batch
 from mvtools_tpu_torch import field_engine as fe
 from mvtools_tpu_torch.analyse import estimate_global_mv_doubled
 from mvtools_tpu_torch.core.config import AnalyseConfig, SuperConfig
-from mvtools_tpu_torch.core.types import (ColorFamily, SearchType,
-                                          VideoFormat)
+from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
 from mvtools_tpu_torch.super import Super
 
 
@@ -32,6 +35,22 @@ def test_first_minimum_wins_ties():
     cost = torch.tensor([[5, 3, 3, 9], [7, 7, 7, 7], [4, 2, 8, 2]])
     m, k = fe._first_min(cost)
     assert m.tolist() == [3, 7, 2] and k.tolist() == [1, 0, 1]
+
+
+@pytest.mark.parametrize("nb_y,nb_x,step", [(1, 3, 8), (1, 3, 16),
+                                             (2, 3, 8)])
+def test_blocks_of_is_contiguous(nb_y, nb_x, step):
+    """The source blocks the probes take are contiguous, a grid of one row
+    (a coarse level's, which reshape leaves a view) included, and hold the
+    plane's pixels."""
+    from mvtools_tpu_torch.analyse import _blocks_of
+    plane = torch.arange(3 * 40 * 80, dtype=torch.int32).reshape(3, 40, 80)
+    blocks = _blocks_of(plane, 2, 4, nb_y, nb_x, 16, 16, step, step)
+    assert blocks.is_contiguous()
+    assert tuple(blocks.shape) == (3, nb_y * nb_x, 16, 16)
+    for i in range(nb_y * nb_x):
+        y, x = 2 + step * (i // nb_x), 4 + step * (i % nb_x)
+        assert torch.equal(blocks[:, i], plane[:, y:y + 16, x:x + 16])
 
 
 def test_global_mv_first_mode_wins():
@@ -53,25 +72,6 @@ def _spec(**kw):
     base = dict(blksize=16, levels=3, chroma=False)
     base.update(kw)
     return sspec, AnalyseConfig(**base).validate(sspec)
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(bits=16, dct=5), "16-bit"),
-    (dict(dct=1, pel=4), "dct"),
-    (dict(pel=4), "pel=4"),
-    (dict(trymany=True), "trymany"),
-    (dict(divide=1), "divide"),
-    (dict(search=SearchType.UMH), "search=UMH"),
-    (dict(search_coarse=SearchType.NSTEP), "search=NSTEP"),
-    (dict(search=SearchType.ONETIME), "search=ONETIME"),
-])
-def test_unported_options_raise(kw, what):
-    """Nothing falls back silently: every option outside the slice names
-    itself in a NotImplementedError before any work is done."""
-    sspec, aspec = _spec(**kw)
-    dummy = Super(((torch.zeros((1, 4, 8, 8), dtype=torch.uint8),),), sspec)
-    with pytest.raises(NotImplementedError, match=what):
-        analyse_batch(dummy, dummy, aspec)
 
 
 def test_field_shift_and_exact_engine_raise():

@@ -8,11 +8,15 @@ FieldProber, MapProber's dense DCT map and DenseEvaluator, for each of modes
 
 Inputs are made with numpy from a seed and handed to both sides; every
 comparison is assert_array_equal (tolerance 0 — the DCT's float64 sums are
-written out in the order XLA:CPU takes them)."""
+written out in the order XLA:CPU takes them).
+
+Some of its checks live in
+test_torch_dct_{mix,mix16,fetch,probers,map,dense}.py, files of at most six
+tests that pytest-xdist's loadfile scheduling hands out after the suite's
+longest file."""
 import importlib
 import os
 import sys
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -31,15 +35,12 @@ import mvtools_tpu as mvt  # (enables x64)
 from mvtools_tpu import field_engine as jax_fe
 from mvtools_tpu.core import config as jax_config, types as jax_types
 from mvtools_tpu.ops import dct as jax_dct
-from mvtools_tpu.ops import probe as jax_probe
 from mvtools_tpu.ops import sad as jax_sad
 
 from mvtools_tpu_torch import field_engine as fe
-from mvtools_tpu_torch.analyse import (DenseEvaluator, _blocks_of, _level_ctx,
-                                       mix_dct_cost, mix_dct_cost_sums)
+from mvtools_tpu_torch.analyse import _blocks_of, _level_ctx
 from mvtools_tpu_torch.core import config as port_config, types as port_types
 from mvtools_tpu_torch.ops import dct as dct_ops
-from mvtools_tpu_torch.ops import probe as probe_ops
 from mvtools_tpu_torch.super import build_super
 
 import torch_port_reference as tpr
@@ -107,43 +108,6 @@ def _mix_inputs(mode, rng, nj=2, n=500):
     return s, dct_src, dct_ref.astype(np.int32), src_l, ref_l
 
 
-@pytest.mark.parametrize("w16", [0, 16])
-@pytest.mark.parametrize("mode", [1, 2, 3, 4])
-def test_mix_dct_cost_matches_jax(mode, w16):
-    """mix_dct_cost and mix_dct_cost_sums against the JAX package, per job
-    weight [J] (the second job's one lower); modes 3 and 4 with their switch
-    both on and off."""
-    rng = np.random.default_rng(10 * mode + w16)
-    s, dct_src, dct_ref, src_l, ref_l = _mix_inputs(mode, rng)
-    w = np.array([w16, max(w16 - 1, 0)], np.int32)
-    t = torch.from_numpy
-    got = mix_dct_cost(mode, t(s), t(dct_src), t(dct_ref), t(src_l), t(ref_l),
-                       t(w)[:, None], 8)
-    ds = np.abs(dct_src - dct_ref).sum(axis=(-2, -1))
-    dc = np.abs(dct_src[..., 0, 0] - dct_ref[..., 0, 0])
-    got_sums = mix_dct_cost_sums(mode, t(s), t(ds), t(dc), t(src_l), t(ref_l),
-                                 t(w)[:, None], 8)
-    assert got.dtype == got_sums.dtype == torch.int64
-    for j in range(2):
-        want = np.asarray(jax_analyse.mix_dct_cost(
-            mode, jnp.asarray(s[j]), jnp.asarray(dct_src[j]),
-            jnp.asarray(dct_ref[j]), jnp.asarray(src_l[j]),
-            jnp.asarray(ref_l[j]), jnp.int32(w[j]), 8))
-        np.testing.assert_array_equal(got[j].numpy(), want)
-        want_sums = np.asarray(jax_analyse.mix_dct_cost_sums(
-            mode, jnp.asarray(s[j]), jnp.asarray(ds[j]), jnp.asarray(dc[j]),
-            jnp.asarray(src_l[j]), jnp.asarray(ref_l[j]), jnp.int32(w[j]), 8))
-        np.testing.assert_array_equal(got_sums[j].numpy(), want_sums)
-    if mode in (3, 4):
-        adapt = np.abs(src_l - ref_l) > ((src_l + ref_l) >> 5)
-        assert adapt.any() and not adapt.all()
-        np.testing.assert_array_equal(got.numpy()[~adapt], s[~adapt])
-    if mode == 2 and w16 == 0:
-        np.testing.assert_array_equal(got[0].numpy(), s[0])
-    with pytest.raises(ValueError, match="dctmode"):
-        mix_dct_cost_sums(5, t(s), t(ds), t(dc), None, None, None, 8)
-
-
 # ---------------------------------------------------------------------------
 # K5: the per-block fetch
 
@@ -161,73 +125,6 @@ def _fetch_inputs(rng, pel, nj=2, nblk=24, kk=3, ph=96, pw=160, edge=False):
     if edge:
         cy[:, 0, 0], cx[:, 0, 1] = hp * pel + 3, wp * pel + 1
     return stack, cy, cx
-
-
-def test_fetch_blocks_plain_matches_jax_fetch_kernel(monkeypatch):
-    """K5's plain version == the JAX package's Pallas fetch kernel run in
-    interpret mode (a frame-batched launch, pel 2: the subplane follows each
-    candidate's parity) on candidates whose window lies inside the stack."""
-    pel = 2
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(jax_probe.pl, "pallas_call",
-                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    rng = np.random.default_rng(40 + pel)
-    stack, cy, cx = _fetch_inputs(rng, pel, nblk=6, kk=2)
-    got = probe_ops.fetch_blocks(torch.from_numpy(stack), torch.from_numpy(cy),
-                                 torch.from_numpy(cx), 16, 16, pel)
-    want = np.asarray(jax_probe.fetch_blocks_pallas(
-        jnp.asarray(stack), jnp.asarray(cy), jnp.asarray(cx), 16, 16, pel))
-    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
-    np.testing.assert_array_equal(got.numpy(), want)
-
-
-@pytest.mark.parametrize("edge", [False, True], ids=["inside", "past_edge"])
-@pytest.mark.parametrize("pel", [1, 2])
-def test_fetch_blocks_plain_matches_jax_cpu_path(pel, edge):
-    """K5's plain version == the window slices of the JAX package's CPU
-    path (FieldProber._fetch_ref_blocks), origins past the bottom or right
-    edge included: both clamp the full-pel origin as a whole."""
-    rng = np.random.default_rng(50 + pel + 2 * edge)
-    stack, cy, cx = _fetch_inputs(rng, pel, edge=edge)
-    got = probe_ops.fetch_blocks(torch.from_numpy(stack), torch.from_numpy(cy),
-                                 torch.from_numpy(cx), 16, 8, pel)
-    assert tuple(got.shape) == cy.shape + (16, 8)
-    for j in range(stack.shape[0]):
-        prober = SimpleNamespace(bs=(8, 16), pel=pel, logp=pel.bit_length() - 1,
-                                 stack=jnp.asarray(stack[j]))
-        want = jax_fe.FieldProber._fetch_ref_blocks(
-            prober, jnp.asarray(cy[j]), jnp.asarray(cx[j]))
-        np.testing.assert_array_equal(got[j].numpy(), np.asarray(want))
-    if edge:
-        hp, wp = stack.shape[-2:]
-        logp = pel.bit_length() - 1
-        assert ((cy >> logp) > hp - 16).any() and ((cx >> logp) > wp - 8).any()
-
-
-def test_fetch_blocks_tiled_hands_small_stacks_to_fetch_blocks():
-    """A stack under the tiled fetch's window goes to fetch_blocks (the
-    origin clamped as a whole); a wide one stays with the tiled fetch."""
-    rng = np.random.default_rng(60)
-    calls = []
-    plain = probe_ops.fetch_blocks_plain
-    try:
-        probe_ops.fetch_blocks_plain = lambda *a: calls.append(1) or plain(*a)
-        for pw, handed in ((40, True), (160, False)):
-            stack, cy, cx = _fetch_inputs(rng, 2, nblk=6, ph=40, pw=pw)
-            calls.clear()
-            args = (torch.from_numpy(stack), torch.from_numpy(cy),
-                    torch.from_numpy(cx), 16, 16, 2)
-            got = probe_ops.fetch_blocks_tiled(*args, row_len=3, pitch_x=16)
-            assert bool(calls) == handed
-            assert torch.equal(got, plain(*args))
-        wy, wx = probe_ops.tile_params(((0, 0),), 16, 16, 2,
-                                       probe_ops.FETCH_TILE, 16)[:2]
-        assert (wy, wx) == jax_probe.tile_params(((0, 0),), 16, 16, 2, 8,
-                                                 16)[:2]
-        assert stack.shape[-1] >= wx > 40 + 32 + 384
-    finally:
-        probe_ops.fetch_blocks_plain = plain
 
 
 # ---------------------------------------------------------------------------
@@ -309,83 +206,6 @@ def _probers(level, mode, map_prober):
     return jax_probers, port
 
 
-@pytest.mark.parametrize("mode", [1, 2, 3, 4])
-def test_field_prober_dct_cost_matches_jax(level, mode):
-    """FieldProber._dct_cost (fetch -> DCT -> mix) at five candidates per
-    block, job weights 16 and 3."""
-    jax_probers, port = _probers(level, mode, False)
-    got = port._dct_cost(torch.from_numpy(level["cy"]),
-                         torch.from_numpy(level["cx"]))
-    assert got.dtype == torch.int64 and tuple(got.shape) == level["cy"].shape
-    for j, p in enumerate(jax_probers):
-        want = p._dct_cost(jnp.asarray(level["cy"][j]),
-                           jnp.asarray(level["cx"][j]))
-        np.testing.assert_array_equal(got[j].numpy(), np.asarray(want))
-
-
-@pytest.mark.parametrize("mode", [1, 2, 3, 4])
-def test_map_prober_dct_map_matches_jax(level, mode):
-    """MapProber's dense DCT map [J, nblk, 2r+1, 2r+1] int32 (one
-    _dct_cost row per grid dy, the rows fetched through the tiled fetch)
-    and its anchors."""
-    jax_probers, port = _probers(level, mode, True)
-    r = port.r
-    assert port._m_l.dtype == torch.int32
-    assert tuple(port._m_l.shape) == (2, port.ctx.nblk[0] * port.ctx.nblk[1],
-                                      2 * r + 1, 2 * r + 1)
-    for j, p in enumerate(jax_probers):
-        np.testing.assert_array_equal(port._av_x[j].numpy(),
-                                      np.asarray(p._av_x))
-        np.testing.assert_array_equal(port._av_y[j].numpy(),
-                                      np.asarray(p._av_y))
-        np.testing.assert_array_equal(port._m_l[j].numpy(),
-                                      np.asarray(p._m_l))
-
-
-@pytest.mark.parametrize("mode", [1, 2, 3, 4])
-def test_dense_evaluator_dct_matches_jax(level, mode):
-    """DenseEvaluator.luma_sads (the rescue's uniform displacements) with a
-    DCT cost, at four displacements of both pel parities."""
-    ctx, ctx_j = level["ctx"], level["ctx_j"]
-    nbx, nby = ctx.nblk
-    src = _blocks_of(ctx.src_planes[0], ctx.vpad[0], ctx.hpad[0], nby, nbx,
-                     16, 16)
-    cost = fe.cost_keywords(mode, src, torch.from_numpy(level["w16"]), 8)
-    dense = DenseEvaluator(ctx, 6, **cost)
-    x0, y0 = jnp.asarray(level["x0"]), jnp.asarray(level["y0"])
-    for j, cj in enumerate(ctx_j):
-        src_j = jnp.asarray(src[j].numpy())
-        jd = jax_analyse.DenseEvaluator(
-            cj, x0, y0, x0, y0, 6, dctmode=mode,
-            src_luma=jax.vmap(jax_sad.luma)(src_j),
-            dctweight16=jnp.int32(level["w16"][j]),
-            dct_src=jax.vmap(lambda b: jax_dct.dct_block(b, 8))(src_j))
-        for vx, vy in ((0, 0), (3, -2), (-8, 5), (12, 12)):
-            want = jd.luma_sads(jnp.int32(vx), jnp.int32(vy))
-            np.testing.assert_array_equal(
-                dense.luma_sads(vx, vy)[j].numpy(), np.asarray(want))
-
-
-def test_cost_keywords_cover_every_mode():
-    """cost_keywords builds what each cost mode reads: the DCT of the
-    source blocks for 1-4 only, their sums for the adaptive modes."""
-    rng = np.random.default_rng(70)
-    src = torch.from_numpy(rng.integers(0, 256, (2, 6, 8, 8), np.uint8))
-    w16 = torch.zeros(2, dtype=torch.int32)
-    for mode in range(11):
-        kw = fe.cost_keywords(mode, src, w16, 8)
-        assert kw["dctmode"] == mode and kw["dctweight16"] is w16
-        assert (kw["dct_src"] is not None) == (1 <= mode <= 4)
-        if mode in (3, 4, 7, 8, 10):
-            assert torch.equal(kw["src_luma"], src.to(torch.int64).sum((-2, -1)))
-        elif mode:
-            assert not kw["src_luma"].any()
-        else:
-            assert kw["src_luma"] is None
-    assert fe.map_supported(port_analyse._level_ctx(
-        *_gray_specs(dct=2), 0), 7, 2)
-
-
 def _gray_specs(**kw):
     fmt = port_types.VideoFormat(W, H, 8, port_types.ColorFamily.GRAY)
     sspec = port_config.SuperConfig(pel=2, levels=2, chroma=False).validate(fmt)
@@ -393,32 +213,3 @@ def _gray_specs(**kw):
                                             **kw).validate(sspec)
 
 
-def test_fetch_and_probe_before_the_stack_match_pallas(monkeypatch):
-    """Origins and windows that start left of or above the stack: the
-    port's per-block fetch (K5) and per-block probe (K4) take such a start
-    the way the JAX package's Pallas kernels do when run in interpret mode,
-    and the way its CPU path's window slice does: a negative start wraps
-    once round the plane, then the window is clamped inside it."""
-    pel = 2
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(jax_probe.pl, "pallas_call",
-                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    rng = np.random.default_rng(45)
-    stack, cy, cx = _fetch_inputs(rng, pel, nj=1, nblk=6, kk=1)
-    cy[0, :, 0] = np.array([-2, -5, -17, 40, -1, 60], np.int32)
-    cx[0, :, 0] = np.array([40, -3, -17, -6, -1, -19], np.int32)
-    st, y, x = (torch.from_numpy(a) for a in (stack, cy, cx))
-    got = probe_ops.fetch_blocks(st, y, x, 16, 16, pel)[0].numpy()
-    want = np.asarray(jax_probe.fetch_blocks_pallas(
-        jnp.asarray(stack[0]), jnp.asarray(cy[0]), jnp.asarray(cx[0]), 16,
-        16, pel, chunk=2))
-    np.testing.assert_array_equal(got, want)
-    offsets = ((0, 0), (1, -2), (-2, 3))
-    src = rng.integers(0, 256, (1, 6, 16, 16), np.uint8)
-    got = probe_ops.probe_sads(st, y, x, torch.from_numpy(src), offsets, 16,
-                               16, pel)[0].numpy()
-    want = np.asarray(jax_probe.probe_sads_pallas(
-        jnp.asarray(stack[0]), jnp.asarray(cy[0]), jnp.asarray(cx[0]),
-        jnp.asarray(src[0].astype(np.int32)), offsets, 16, 16, pel, chunk=2))
-    np.testing.assert_array_equal(got, want)

@@ -8,8 +8,11 @@ test_torch_recalculate_{fields,exhaustive,thsad,chroma}.py: files that wait
 for a JAX reference hold at most six tests, so that pytest-xdist hands them
 out after the suite's longest file.  Inputs are made with numpy from a
 seed; every comparison is assert_array_equal (tolerance 0 — the pipeline is
-integer)."""
-import dataclasses
+integer).
+
+Some of its checks live in test_torch_recalculate_refusals{,2}.py, files of
+at most six tests that pytest-xdist's loadfile scheduling hands out after
+the suite's longest file."""
 import os
 import sys
 
@@ -29,12 +32,9 @@ import mvtools_tpu  # noqa: F401  (enables x64)
 from mvtools_tpu import recalculate as jax_recalc
 from mvtools_tpu.core import config as jax_config, types as jax_types
 
-import mvtools_tpu_torch as port
 from mvtools_tpu_torch.core.config import AnalyseConfig, SuperConfig
-from mvtools_tpu_torch.core.types import (ColorFamily, MVField, MVPlaneField,
-                                          SearchType, VideoFormat)
+from mvtools_tpu_torch.core.types import ColorFamily, MVPlaneField, VideoFormat
 from mvtools_tpu_torch.recalculate import _interpolate_old_vectors
-from mvtools_tpu_torch.super import Super
 
 import torch_port_reference as tpr
 
@@ -86,45 +86,3 @@ def test_interpolate_old_vectors_matches_jax(new, smooth):
                 np.testing.assert_array_equal(g[j].numpy(), np.asarray(w))
 
 
-def test_recalculate_config_matches_jax():
-    a = port.RecalculateConfig(blksize=16, overlap=8, thsad=200, chroma=False,
-                               truemotion=True, dct=5)
-    b = jax_recalc.RecalculateConfig(blksize=16, overlap=8, thsad=200,
-                                     chroma=False, truemotion=True, dct=5)
-    da, db = (dataclasses.asdict(c.to_analyse_config()) for c in (a, b))
-    assert {k: int(v) if isinstance(v, SearchType) else v
-            for k, v in da.items()} == \
-        {k: int(v) if hasattr(v, "value") else v for k, v in db.items()}
-    assert dataclasses.asdict(port.RecalculateConfig()) == {
-        k: (int(v) if hasattr(v, "value") else v)
-        for k, v in dataclasses.asdict(jax_recalc.RecalculateConfig()).items()}
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(dct=1, pel=4), "dct=1"),
-    (dict(dct=4, pel=4), "dct=4"),
-    (dict(divide=1), "divide"),
-    (dict(fields=True), "fields"),
-    (dict(search=SearchType.UMH), "search=UMH"),
-    (dict(search=SearchType.NSTEP), "search=NSTEP"),
-    (dict(field_shift=1), "field_shift"),
-    (dict(engine="exact"), "exact"),
-])
-def test_unported_options_raise(kw, what):
-    """Nothing falls back silently: every option outside the slice names
-    itself in a NotImplementedError before any work is done."""
-    kw = dict(kw)
-    call = {k: kw.pop(k) for k in ("field_shift", "engine") if k in kw}
-    fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
-    sspec = SuperConfig(pel=kw.pop("pel", PEL), levels=1,
-                        chroma=False).validate(fmt)
-    rcfg = port.RecalculateConfig(blksize=16, overlap=8, chroma=False, **kw)
-    rspec = rcfg.to_analyse_config().validate(sspec)
-    dummy = Super(((torch.zeros((1, 4, 8, 8), dtype=torch.uint8),),), sspec)
-    z = torch.zeros((1, 2, 2), dtype=torch.int32)
-    old = MVField((MVPlaneField(z, z, z.to(torch.int64)),),
-                  torch.ones((1,), dtype=torch.int32), rspec.meta)
-    with pytest.raises(NotImplementedError, match=what):
-        port.recalculate(dummy, dummy, old, rspec, rcfg, **call)
-    with pytest.raises(ValueError, match="unknown engine"):
-        port.recalculate(dummy, dummy, old, rspec, rcfg, engine="fast")

@@ -7,7 +7,11 @@ The kernel cannot run here: these tests rehearse its arithmetic (the
 Hadamard transforms of source and reference tiles in biased 16-bit halves,
 the SATD from the minima of coefficient pairs, the box sums) and its
 indexing (items, bands, staged rows and words), so that a fault shows on
-the CPU before the card.  Tolerance 0 everywhere (integers)."""
+the CPU before the card.  Tolerance 0 everywhere (integers).
+
+Some of its checks live in test_torch_sadmap3_{emul,geom}.py, files of at
+most six tests that pytest-xdist's loadfile scheduling hands out after the
+suite's longest file."""
 import itertools
 import os
 import sys
@@ -267,43 +271,6 @@ def _emulate_map3(stack, src, afy, afx, r_y, r_x, bs_y, bs_x, pel, tile,
     return out.reshape(nj, nby * nbx, 2 * r_y + 1, 2 * r_x + 1, 3), reach, g
 
 
-@pytest.mark.parametrize("pel,r,bs_y,bs_x,pitch,nbx,tile", [
-    (2, 7, 16, 16, 8, 5, 3),      # overlap 8, a ragged last tile
-    (2, 7, 16, 16, 16, 3, 3),     # no overlap
-    (1, 6, 8, 8, 8, 4, 4),        # pel 1, two passes of items
-    (2, 8, 4, 8, 8, 3, 2),        # 8x4 blocks, r 8: two column chunks
-    (2, 6, 32, 32, 16, 2, 2),     # 32x32, eight tile rows
-])
-def test_map3_kernel_emulation_matches_plain(pel, r, bs_y, bs_x, pitch, nbx,
-                                             tile):
-    """The emulated kernel == sad_map_plain(stats="sad_satd_luma"), with
-    anchors at both clamp ends, and every item reads inside the staged
-    rows, words, H(R) positions and box sums the geometry lays out."""
-    rng = np.random.default_rng(62 + pel + r + bs_x + pitch)
-    nby, pad, hpad = 2, 16, 8
-    ph = (nby - 1) * pitch + bs_y + 2 * hpad
-    pw = (nbx - 1) * pitch + bs_x + 2 * hpad
-    nj = 1
-    ref = rng.integers(0, 256, (nj, pel * pel, ph, pw), np.uint8)
-    src = rng.integers(0, 256, (nj, ph, pw), np.uint8)
-    stack = probe_ops.pad_stack(torch.from_numpy(ref), pad)
-    hp, wp = stack.shape[-2:]
-    (lo_y, hi_y), (lo_x, hi_x) = sadmap.anchor_bounds(
-        r, r, bs_y, bs_x, pel, tile, pitch, hp, wp)
-    ntx = -(-nbx // tile)
-    afy = rng.integers(lo_y, hi_y + 1, (nj, nby * ntx)).astype(np.int32)
-    afx = rng.integers(lo_x, hi_x + 1, (nj, nby * ntx)).astype(np.int32)
-    afy[:, 0], afx[:, 0], afy[:, -1], afx[:, -1] = lo_y, lo_x, hi_y, hi_x
-    args = (r, r, bs_y, bs_x, pel, tile, pitch, pitch, nbx, nby, hpad, hpad)
-    want = sadmap.sad_map_plain(stack, torch.from_numpy(src),
-                                torch.from_numpy(afy), torch.from_numpy(afx),
-                                *args, stats="sad_satd_luma").numpy()
-    got, reach, g = _emulate_map3(stack.numpy(), src, afy, afx, *args)
-    np.testing.assert_array_equal(got, want)
-    assert reach["word"] < g["ref_pitch"] // 4
-    assert reach["pos"] < g["npos"] and reach["box"] < g["nbox"]
-
-
 def _admitted_stats3_shapes(family):
     """Every (r_y, r_x, bs_y, bs_x, pel, tile, pitch_x) of a three-stat map
     that MapProber builds at 8-bit: the luma maps of the SATD modes."""
@@ -311,40 +278,3 @@ def _admitted_stats3_shapes(family):
             if sh[6] % 8 == 0 and sh[3] % 8 == 0 and sh[2] % 4 == 0]
 
 
-@pytest.mark.parametrize("family", ["GRAY", "YUV420"])
-def test_map3_launch_geom_fits_the_card(family):
-    """For every three-stat map shape the search admits at 8-bit (block
-    sizes 8x4 to 128x128, pel 1 and 2, the map radii, pitches 8 to 128),
-    the kernel's launch geometry fits a CTA's 227 KB of shared memory and a
-    legal thread count, its regions do not overlap, the template column
-    count exists, and the items of every subplane cover each output entry
-    once, in the passes the geometry counts."""
-    shapes = _admitted_stats3_shapes(family)
-    assert len(shapes) > 20
-    for shape in shapes:
-        r_y, r_x, bs_y, bs_x, pel, tile, pitch_x = shape
-        g = sadmap.map3_launch_geom(*shape)
-        assert g["smem"] <= sadmap.SMEM_LIMIT, (shape, g)
-        assert g["threads"] % 32 == 0, (shape, g)
-        assert 32 <= g["threads"] <= sadmap.MAP3_MAX_THREADS, (shape, g)
-        assert g["nox"] in sadmap.MAP3_NOX, (shape, g)
-        assert g["passes"] * g["threads"] >= g["items"], (shape, g)
-        assert (g["src_off"] >= g["wy"] * g["ref_pitch"]
-                and g["hs_off"] >= g["src_off"] + bs_y * g["span_pitch"]
-                and g["sc_off"] >= g["hs_off"] + bs_y // 4 * g["nxs"] * 32
-                and g["hr_off"] >= g["sc_off"] + 4 * tile
-                and g["box_off"] >= g["hr_off"] + sadmap.MAP3_BAND
-                * g["hr_pitch"]
-                and g["box_off"] >= g["hr_off"] + 4 * g["ny"] * g["wx"]
-                and g["smem"] >= g["box_off"] + 4 * g["ny"] * g["nbox"])
-        assert g["hr_pitch"] >= 32 * g["npos"]
-        assert g["n_band"] * sadmap.MAP3_BAND >= g["nyp"]
-        logp = pel.bit_length() - 1
-        entries = 0
-        for s in range(pel * pel):
-            _, rows = _parity(r_y, s >> logp, pel)
-            _, cols = _parity(r_x, s & (pel - 1), pel)
-            assert rows * g["n_chunk"] * tile <= g["items"]
-            assert g["n_chunk"] * g["nox"] >= cols
-            entries += rows * cols
-        assert entries == (2 * r_y + 1) * (2 * r_x + 1)

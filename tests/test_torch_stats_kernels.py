@@ -5,7 +5,11 @@ The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
 
 Inputs are made with numpy from a seed and handed to both sides; every
-comparison is assert_array_equal (tolerance 0 — integers)."""
+comparison is assert_array_equal (tolerance 0 — integers).
+
+Some of its checks live in test_torch_stats_kernels_{tiled,block}.py, files
+of at most six tests that pytest-xdist's loadfile scheduling hands out after
+the suite's longest file."""
 import os
 import sys
 
@@ -22,11 +26,10 @@ torch.set_num_threads(1)
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 import mvtools_tpu  # noqa: F401  (enables x64)
-from mvtools_tpu.ops import probe as jax_probe, sadmap as jax_sadmap
+from mvtools_tpu.ops import sadmap as jax_sadmap
 
 from mvtools_tpu_torch.ops import probe as probe_ops, sadmap
 
-import torch_port_reference as tpr
 
 STATS = "sad_satd_luma"
 HEXAGON = ((-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2))
@@ -82,55 +85,6 @@ def test_sad_map_stats_plain_matches_jax(pel, bs, r_y, r_x, nbx, tile):
             got[j].reshape(nby * nbx, -1, 3), np.asarray(want))
 
 
-@pytest.mark.parametrize("pel,bs,kk,offsets", [
-    (2, 16, 1, HEXAGON),        # the rescue's hexagon, tile 8
-    (2, 16, 1, ((0, 0),)),      # Recalculate's predictor cost
-    (1, 16, 6, ((0, 0),)),      # six predictor candidates, tile 4
-    (1, 8, 1, RING),
-])
-def test_probe_sads_tiled_stats_plain_matches_jax(pel, bs, kk, offsets):
-    """Row length 6 is no multiple of the tile, so block rows are
-    edge-padded; a tenth of the candidates is thrown off its tile and must
-    come back as INVALID_SAD in all three stats on both sides."""
-    rng = np.random.default_rng(60 + pel + kk + bs)
-    nbx, nby, pad, hpad = 6, 3, 16, 16
-    ph, pw = nby * bs + 2 * hpad, nbx * bs + 2 * hpad + 160
-    nj = 2
-    logp = pel.bit_length() - 1
-    ref = rng.integers(0, 256, (nj, pel * pel, ph, pw), np.uint8)
-    src = rng.integers(0, 256, (nj, nby * nbx, bs, bs), np.uint8)
-    stack = probe_ops.pad_stack(torch.from_numpy(ref), pad)
-    idx = np.arange(nby * nbx)
-    base_y = (hpad + bs * (idx // nbx) + pad) << logp
-    base_x = (hpad + bs * (idx % nbx) + pad) << logp
-    vy = rng.integers(-5, 6, (nj, nby * nbx, kk))
-    vx = rng.integers(-5, 6, (nj, nby * nbx, kk))
-    far = rng.random((nj, nby * nbx, kk)) < 0.1
-    vx = np.where(far, vx + 140 * pel, vx)
-    vy = np.where(far, vy + 30 * pel, vy)
-    cy = (base_y[None, :, None] + vy).astype(np.int32)
-    cx = (base_x[None, :, None] + vx).astype(np.int32)
-    args = (stack, torch.from_numpy(cy), torch.from_numpy(cx),
-            torch.from_numpy(src), offsets, bs, bs, pel)
-    got = probe_ops.probe_sads_tiled(*args, row_len=nbx, pitch_x=bs,
-                                     stats=STATS).numpy()
-    assert got.dtype == np.int32
-    assert got.shape == cy.shape + (len(offsets), 3)
-    np.testing.assert_array_equal(
-        got[..., 0],
-        probe_ops.probe_sads_tiled(*args, row_len=nbx, pitch_x=bs).numpy())
-    invalid = got[..., 0] == INVALID
-    assert 0 < invalid.sum() < invalid.size
-    assert (got[invalid] == INVALID).all()
-    assert (got[~invalid] != INVALID).all()
-    for j in range(nj):
-        want = np.asarray(jax_probe.probe_sads_tiled(
-            jnp.asarray(stack[j].numpy()), jnp.asarray(cy[j]),
-            jnp.asarray(cx[j]), jnp.asarray(src[j].astype(np.int32)),
-            offsets, bs, bs, pel, row_len=nbx, pitch_x=bs, stats=STATS))
-        np.testing.assert_array_equal(got[j], want)
-
-
 def _block_probe_inputs(seed, pel, bs, kk, nj=2, nbx=3, nby=2, pad=8, hpad=8):
     """A small level whose stack is under the tile window; four candidates
     sit at the corners of the stack or past its bottom/right edges."""
@@ -156,34 +110,6 @@ def _block_probe_inputs(seed, pel, bs, kk, nj=2, nbx=3, nby=2, pad=8, hpad=8):
     cy[1, 0, 0], cx[1, 0, 0] = 2 * pel, far_x + 5 * pel    # past the right
     cy[1, 1, 0], cx[1, 1, 0] = far_y + 4 * pel, 3 * pel    # past the bottom
     return stack, cy.astype(np.int32), cx.astype(np.int32), src
-
-
-@pytest.mark.parametrize("pel,bs,kk,offsets", [
-    (1, 16, 1, HEXAGON),
-    (1, 16, 6, ((0, 0),)),
-    (2, 8, 1, RING),
-    (2, 16, 1, ((0, 0),)),
-], ids=["p1-b16-hex", "p1-b16-k6", "p2-b8-ring", "p2-b16-one"])
-def test_probe_sads_stats_plain_matches_jax(pel, bs, kk, offsets):
-    stack, cy, cx, src = _block_probe_inputs(70 + pel + bs + kk, pel, bs, kk)
-    args = (torch.from_numpy(stack), torch.from_numpy(cy),
-            torch.from_numpy(cx), torch.from_numpy(src), offsets, bs, bs, pel)
-    got = probe_ops.probe_sads(*args, stats=STATS).numpy()
-    assert got.dtype == np.int32
-    assert got.shape == cy.shape + (len(offsets), 3)
-    np.testing.assert_array_equal(got[..., 0],
-                                  probe_ops.probe_sads(*args).numpy())
-    assert (got != INVALID).all()
-    # the tiled wrapper hands a stack under its window to this probe
-    np.testing.assert_array_equal(
-        probe_ops.probe_sads_tiled(*args, row_len=3, pitch_x=bs,
-                                   stats=STATS).numpy(), got)
-    for j in range(stack.shape[0]):
-        want = np.asarray(jax_probe.probe_sads_xla(
-            jnp.asarray(stack[j]), jnp.asarray(cy[j]), jnp.asarray(cx[j]),
-            jnp.asarray(src[j].astype(np.int32)), offsets, bs, bs, pel,
-            stats=STATS))
-        np.testing.assert_array_equal(got[j], want)
 
 
 def test_stats_guards_raise_value_errors():
@@ -236,37 +162,3 @@ def test_stats_forms_count_launches_of_their_own():
     assert (dict(probe_ops.launches), probe_ops.plain_calls_on_cuda) == before
 
 
-@pytest.mark.parametrize("dctmode", [5, 7])
-def test_field_prober_check_with_a_mask_keeps_the_satd_state(dctmode):
-    """With the SATD costs the masked check goes through the three-stat
-    tiled probe (K2'), whose inactive entries report INVALID_SAD triples;
-    the state equals the one the unmasked probes give.  Mode 7 mixes in the
-    reference sums (the adaptive weight)."""
-    tpr.check_masked_state("GRAY", dctmode, tpr.WALK, tpr.entry_mask)
-
-
-def test_probe3_launch_geom_covers_every_satd_size():
-    """The three-stat tiled probe kernel's launch geometry
-    (ops/probe.py::probe3_launch_geom): every block size the SATD admits
-    gets lanes an offset that divide a warp, and a lane's tiles in
-    registers (tpl) where they are g * tpl, the generic body (tpl 0, 32
-    lanes) elsewhere; a warp's candidates share its offset slots, the most
-    that fit a power of two."""
-    from mvtools_tpu_torch.core.config import _VALID_BLOCK_SIZES
-    from mvtools_tpu_torch.ops import sad as sad_ops
-    sizes = sorted((bw, bh) for bw, bh in _VALID_BLOCK_SIZES
-                   if sad_ops.satd_supported(bw, bh))
-    assert len(sizes) == 11
-    for bw, bh in sizes:
-        g = probe_ops.probe3_launch_geom(bh, bw, 6)
-        n = (bh // 4) * (bw // 4)
-        assert g["g"] in (1, 2, 4, 8, 16, 32) and 32 % g["g"] == 0
-        if g["tpl"]:
-            assert g["tpl"] in probe_ops.PROBE3_TPL and g["g"] * g["tpl"] == n
-        else:
-            assert g["g"] == 32 and n > 32 * max(probe_ops.PROBE3_TPL)
-        for d in (1, 2, 3, 6, 8, 16, 32, 49):
-            c = probe_ops.probe3_launch_geom(bh, bw, d)["cpw"]
-            slots = 32 // g["g"]
-            assert c & (c - 1) == 0 and (c == 1 or c * d <= slots)
-            assert 2 * c * d > slots

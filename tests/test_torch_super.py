@@ -2,7 +2,11 @@
 clip of the shared JAX reference run: test_torch_super_shared_clip.py).
 
 Inputs are made with numpy from a seed and handed to both sides; every
-comparison is assert_array_equal (tolerance 0 — the pipeline is integer)."""
+comparison is assert_array_equal (tolerance 0 — the pipeline is integer).
+
+Some of its checks live in test_torch_super_refusals.py, files of at most
+six tests that pytest-xdist's loadfile scheduling hands out after the
+suite's longest file."""
 import os
 import sys
 
@@ -24,7 +28,6 @@ from mvtools_tpu.ops import probe as jax_probe
 
 from mvtools_tpu_torch import convert
 from mvtools_tpu_torch.core.config import SuperConfig
-from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
 from mvtools_tpu_torch.ops import probe as probe_ops
 from mvtools_tpu_torch.super import build_super
 
@@ -49,21 +52,6 @@ def test_pad_stack_matches_jax():
     np.testing.assert_array_equal(
         probe_ops.pad_stack(torch.from_numpy(s), 5).numpy(),
         np.asarray(jax_probe.pad_stack(jnp.asarray(s), 5)))
-
-
-@pytest.mark.parametrize("cfg,fmt,what", [
-    (dict(pel=4), (64, 48, 8, ColorFamily.GRAY), "pel"),
-    (dict(sharp=1), (64, 48, 8, ColorFamily.GRAY), "sharp"),
-    (dict(rfilter=0, levels=2), (64, 48, 8, ColorFamily.GRAY), "rfilter"),
-    (dict(), (64, 48, 16, ColorFamily.GRAY), "16-bit"),
-])
-def test_super_unported_options_raise(cfg, fmt, what):
-    """Options outside the slice raise NotImplementedError; a deep-bit spec
-    (ported) given uint8 planes raises ValueError naming the depth."""
-    spec = SuperConfig(**cfg).validate(VideoFormat(*fmt))
-    exc = ValueError if fmt[2] > 8 else NotImplementedError
-    with pytest.raises(exc, match=what):
-        build_super([torch.zeros((48, 64), dtype=torch.uint8)], spec)
 
 
 def test_entry_points_default_to_the_card():

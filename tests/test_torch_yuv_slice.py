@@ -11,7 +11,11 @@ holding the jobs of both directions, degrain per frame with the clip-edge
 validity — the composition that the JAX package's staged degrain_clip is),
 are in test_torch_yuv_slice_{super,levels,coarse,degrain,clip}.py: files
 that wait for a JAX reference hold at most six tests, so that pytest-xdist
-hands them out after the suite's longest file."""
+hands them out after the suite's longest file.
+
+Some of its checks live in test_torch_yuv_slice_refusals{,2}.py, files of at
+most six tests that pytest-xdist's loadfile scheduling hands out after the
+suite's longest file."""
 import os
 import subprocess
 import sys
@@ -28,7 +32,6 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from mvtools_tpu_torch.core.config import AnalyseConfig, SuperConfig
 from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
 from mvtools_tpu_torch.models.denoise import (degrain_clip, edge_validity,
                                               make_test_clip_yuv,
@@ -77,26 +80,6 @@ def _tiny_clip(bits=8):
     return [torch.zeros((2, 48, 64), dtype=dt),
             torch.zeros((2, 24, 32), dtype=dt),
             torch.zeros((2, 24, 32), dtype=dt)]
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(engine="exact"), "exact"),
-    (dict(mesh=object()), "mesh"),
-    (dict(spatial="space"), "mesh"),
-    (dict(acfg=AnalyseConfig(fields=True, tff=True)), "fields"),
-    (dict(scfg=SuperConfig(pel=4)), "pel"),
-    (dict(bits=16, acfg=AnalyseConfig(dct=5)), "16-bit"),
-    (dict(acfg=AnalyseConfig(dct=1), scfg=SuperConfig(pel=4)), "dct"),
-    (dict(acfg=AnalyseConfig(trymany=True)), "trymany"),
-], ids=["exact", "mesh", "spatial", "fields", "pel4", "16bit", "dct",
-        "trymany"])
-def test_degrain_clip_refusals(kw, what):
-    """Nothing outside the slice falls back silently: each option names
-    itself in a NotImplementedError."""
-    bits = kw.pop("bits", 8)
-    fmt = VideoFormat(64, 48, bits, ColorFamily.YUV420)
-    with pytest.raises(NotImplementedError, match=what):
-        degrain_clip(_tiny_clip(bits), fmt, **kw)
 
 
 def test_degrain_clip_unknown_engine_raises():
