@@ -13,7 +13,10 @@ that leaves about 30 % of the entries live, its uint16 form also at the
 coarser levels' shapes and with the walk's offsets, the SAD map also at block
 pitches 14 and 6 and at pel 1, its three-stat form also with 8x8 and 32x32
 blocks and at pel 1, the tiled fetch also on the DCT path's map rows, at
-origins outside the plane and with 8x8 blocks; the uint16 forms of K1-K5
+origins outside the plane and with 8x8 blocks; the per-block probe also with
+masks that leave about 30 %, 3 % and none of its entries live and at a
+block size of each of its width classes, 2x2, 4x2, 8x1, 64x64 and 128x128,
+at 8 and 10 bits; the uint16 forms of K1-K5
 at the deep-bit YUV420 path's shapes on 16-bit and on 10-bit data, with
 blocks of 0 against the pixel maximum; the three-stat tiled probe also on
 blocks of 0 against 255 and with 8x8, 32x32 and 64x64 blocks; the maps and
@@ -66,24 +69,28 @@ result.  The last line is {"ok": true, "device": {...}}.
 additionally traces one more full-width run of each of the eleven clips
 with torch.profiler and prints where the device time went (busy share,
 kernels by time, and the summed device time of every kernel form; for the
-16-bit flash clip also the uint16 tiled probe's time by launch grid, which
-names the plane and the pyramid level).
+two flash clips also the per-block probe's time by launch grid, and for the
+16-bit one the uint16 tiled probe's, which name the plane and the pyramid
+level).
 
     python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
                           [--sass-out FILE] [--sass-reference FILE]
 
-times the 8-bit kernels at the YUV420 and DCT paths' shapes, the uint16
-tiled probe and map at theirs (phase redesigned_kernel_times), and drives
+times the 8-bit kernels at the YUV420 and DCT paths' shapes, the per-block
+probe at 8, 16 and 10 bits at theirs and at its width classes (phase
+redesigned_kernel_times), and drives
 the full-width paths (no other kernel comparison, no small runs, no
 kernels line and no "ok" line), with the package of the checkout at DIR if
 given: the way to compare two trees' kernels, paths and kernel sums in one
 call.  DIR must hold a package that has the uint16 kernel forms and
 Super.take.  --sass-out writes the sass phase's opcode counts as JSON;
 --sass-reference reads such a file (another tree's) and fails unless every
-kernel form but the uint16 tiled probe counts the same opcodes.
+kernel form of SASS_HELD (all but the per-block probe's uint8 and uint16
+forms) counts the same opcodes.
 """
 
 import dataclasses
+import inspect
 import json
 import os
 import re
@@ -140,6 +147,15 @@ K2P_BEFORE = (0.158, 0.139, 0.176, 0.094)
 # and chroma (unmasked, masked) shapes (PERF.md, H100 80GB HBM3, 700 W)
 K2_U16_BEFORE = {16: (0.585, 0.343, 0.832, 0.391),
                  10: (0.591, 0.348, 0.827, 0.388)}
+# K4's and K4 u16's previous body at k4_cases's shapes, in its order (the
+# nine YUV420-path shapes, then the three masked ones), by bit depth
+# (CUDA-event ms, PERF.md, H100 80GB HBM3, 700 W)
+K4_BEFORE = {8: (0.0672, 0.0570, 0.0531, 0.0611, 0.0649, 0.0352, 0.0480,
+                 0.0402, 0.0542, 0.1719, 0.0854, 0.1484),
+             16: (0.0543, 0.0582, 0.0512, 0.0403, 0.0545, 0.0544, 0.0579,
+                  0.0518, 0.0621, 0.1152, 0.0918, 0.1208),
+             10: (0.0566, 0.0388, 0.0423, 0.0679, 0.0460, 0.0379, 0.0446,
+                  0.0746, 0.1051, 0.0929, 0.1110, 0.0799)}
 FLASH = (416, 832, 256, 256)
 SMALL_W, SMALL_H, SMALL_FLASH = 256, 192, (32, 64, 96, 128)
 # the YUV420 path: 14 frames, flash over most of the frame, noise of +-4 per
@@ -489,10 +505,118 @@ def k2_case(ctx, stacks, gen, offsets, kk, label, plane=0, stats="sad",
     return res
 
 
-def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad"):
+def k4_touched_pixels(stack, cy, cx, offsets, bsy, bsx, pel, active):
+    """The stack pixels the live entries of a per-block probe read (each
+    counted once), by the window rule of probe_sads_plain."""
+    logp = pel.bit_length() - 1
+    nj, n_sub, hp, wp = stack.shape
+    min_dx, min_dy, wy, wx = probe._window_geom(offsets, bsy, bsx, pel)
+    dev = stack.device
+    wb_y = (cy + min_dy) >> logp
+    wb_x = (cx + min_dx) >> logp
+    sh_y = probe.wrap_clamp(wb_y, hp, wy) - wb_y
+    sh_x = probe.wrap_clamp(wb_x, wp, wx) - wb_x
+    seen = torch.zeros(stack.numel(), dtype=torch.bool, device=dev)
+    job = torch.arange(nj, device=dev).reshape(nj, 1, 1)
+    rows = torch.arange(bsy, device=dev)[:, None]
+    cols = torch.arange(bsx, device=dev)
+    for d, (dx, dy) in enumerate(offsets):
+        ay, ax = cy + dy, cx + dx
+        sub = (ax & (pel - 1)) | ((ay & (pel - 1)) << logp)
+        fy = (ay >> logp) + sh_y
+        fx = (ax >> logp) + sh_x
+        base = ((job * n_sub + sub) * hp + fy) * wp + fx      # [J, nblk, K]
+        if active is not None:
+            base = base[active[..., d]]
+        idx = base.reshape(-1, 1, 1).long() + rows * wp + cols
+        seen[idx.reshape(-1)] = True
+    return int(seen.sum())
+
+
+def k4_bound(stack, cy, cx, src_blocks, offsets, bsy, bsx, pel, out,
+             active, stats="sad"):
+    """(bound ms, "bytes" or "operations", bytes, operations) of a
+    per-block probe call: the live entries' block sums at OPS_PER_PIXEL
+    operations a pixel; bytes: each stack pixel they read and each source
+    block and candidate they need once, the offsets, the mask and the
+    output."""
+    d = len(offsets)
+    eb = stack.element_size()
+    live = (torch.ones(out.shape[:4], dtype=torch.bool, device=out.device)
+            if active is None else active)
+    n_live = int(live.sum())
+    items = live.any(dim=-1)                             # [J, nblk, K]
+    n_bytes = (k4_touched_pixels(stack, cy, cx, offsets, bsy, bsx, pel,
+                                 active) * eb
+               + int(items.any(dim=-1).sum()) * bsy * bsx * eb
+               + 8 * int(items.sum()) + 8 * d
+               + (0 if active is None else active.numel())
+               + 4 * out.numel())
+    n_ops = n_live * bsy * bsx * OPS_PER_PIXEL[stats]
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return b_ms, b_by, n_bytes, n_ops
+
+
+def k4_direct_case(label, stack, cy, cx, src_blocks, offsets, bsy, bsx, pel,
+                   stats="sad", active=None, before_ms=None):
+    """probe_sads (the per-block probe) at one shape against its plain
+    version (tolerance 0); with `active` (a bool [J, nblk, K, D] mask) the
+    output must hold INVALID_SAD on exactly the inactive entries.  Timed by
+    CUDA events and by its device time; the bound counts what this run's
+    live entries need (k4_bound)."""
+    args = (stack, cy, cx, src_blocks, offsets, bsy, bsx, pel, stats)
+    name = kernel_name("probe_sads", stack, stats)
+    takes_mask = "active" in inspect.signature(probe.probe_sads).parameters
+
+    def run():
+        if active is None:
+            return probe.probe_sads(*args)
+        if takes_mask:
+            return probe.probe_sads(*args, active=active)
+        # a package from before the kernel took the mask: masked after it
+        return probe._invalid_where(active, probe.probe_sads(*args))
+
+    def plain():
+        out = probe.probe_sads_plain(*args)
+        return out if active is None else probe._invalid_where(active, out)
+
+    before = probe.launches[name]
+    out = run()
+    if probe.launches[name] != before + 1:
+        raise AssertionError(f"{name} {label}: the kernel did not launch")
+    want, plain_ms = time_plain(plain)
+    err = compare(f"probe_sads {label}", out, want)
+    if active is not None:
+        sads = out if stats == "sad" else out[..., 0]
+        if not torch.equal(sads == probe.INVALID_SAD, ~active):
+            raise AssertionError(f"probe_sads {label}: INVALID_SAD is not "
+                                 "on exactly the inactive entries")
+    ms = time_cuda(run, 20)
+    device_ms = time_device(run, 20, KERNEL_NAMES[name])
+    b_ms, b_by, n_bytes, n_ops = k4_bound(stack, cy, cx, src_blocks, offsets,
+                                          bsy, bsx, pel, out, active, stats)
+    res = dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=n_bytes, ops=n_ops)
+    if active is not None:
+        res["live_share"] = float(active.float().mean())
+    if stats == "sad" and hasattr(probe, "probe_block_launch_geom"):
+        res["launch"] = probe.probe_block_launch_geom(
+            bsy, bsx, out.numel(), stack.dtype == torch.uint16,
+            torch.cuda.get_device_properties(stack.device)
+            .multi_processor_count)
+    if before_ms is not None:
+        res["before_ms"] = before_ms
+    return res
+
+
+def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad",
+            live=None, before_ms=None):
     """probe_sads (the per-block probe) on a plane under the tile window;
     candidates reach a few pixels past the stack's bottom/right edges, where
-    the window is shifted in."""
+    the window is shifted in.  live: None, or (block share, entry share) of
+    an `active` mask (live_mask; (0, 0): every entry dead); before_ms: the
+    previous body's time at this shape."""
     stack, cy, cx, src_blocks, bsy, bsx, _ = probe_inputs(
         ctx, stacks, gen, plane, kk, spread=10, far_share=0.0)
     logp = ctx.log_pel
@@ -501,21 +625,139 @@ def k4_case(ctx, stacks, gen, offsets, kk, plane=0, stats="sad"):
     cx.clamp_(min=-min_dx)
     cy[:, -1, 0] = (stack.shape[2] - bsy + 3) << logp
     cx[:, -1, 0] = (stack.shape[3] - bsx + 2) << logp
-    args = (stack, cy, cx, src_blocks, offsets, bsy, bsx, ctx.pel, stats)
     label = case_label(ctx, plane, f" pel {ctx.pel} K={kk} D={len(offsets)}"
                        + stats_tag(stats))
-    name = kernel_name("probe_sads", stack, stats)
-    before = probe.launches[name]
-    out = probe.probe_sads(*args)
-    if probe.launches[name] != before + 1:
-        raise AssertionError(f"{name} {label}: the kernel did not launch")
-    want, plain_ms = time_plain(lambda: probe.probe_sads_plain(*args))
-    err = compare(f"probe_sads {label}", out, want)
-    ms = time_cuda(lambda: probe.probe_sads(*args), 20)
-    b_ms, b_by = probe_bound(stack, cy, src_blocks, out, cy.numel(),
-                             len(offsets), bsy, bsx, stats)
-    return dict(case=label, shape=list(out.shape), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    active = None
+    if live is not None:
+        active = live_mask(tuple(cy.shape) + (len(offsets),), gen,
+                           stack.device, *live)
+        label += " masked %d %%" % round(100 * live[0] * live[1])
+    return k4_direct_case(label, stack, cy, cx, src_blocks, offsets, bsy,
+                          bsx, ctx.pel, stats, active, before_ms)
+
+
+# the masks of the masked per-block probe cases: (block share, entry share)
+# of live_mask, about 30 % and 3 % of the entries live, and none
+K4_MASKS = ((0.5, 0.6), (0.1, 0.3), (0.0, 0.0))
+
+
+def k4_cases(cfgs, gen, dev, bits):
+    """K4 (8 bits) or K4 u16 at the nine shapes the YUV420 path at `bits`
+    bits gives it: level-4 chroma (8x8; D=16 and D=8 with K=1, D=1 with
+    K=6), level-5 luma (16x16; D=6, D=8 and D=1 with K=1, D=1 with K=6), the
+    finest level of a 256x192 clip at pel 2 (luma walk D=8 K=1, chroma
+    hexagon K=6); then level-4 chroma D=16 with masks that leave about 30 %,
+    about 3 % and none of its entries live.  The deep-bit clip holds a
+    region of 0 against 2^bits - 1."""
+    scfg, acfg, _, _ = cfgs
+    fmt = VideoFormat(W, H, bits, ColorFamily.YUV420)
+    sspec = scfg.validate(fmt)
+    aspec = dataclasses.replace(acfg, isb=True).validate(sspec)
+    n = KERNEL_JOBS // 2 + 1
+    clip = make_test_clip_yuv(n, W, H, seed=1, flash=YUV_FLASH,
+                              noise=YUV_NOISE, pan=YUV_PAN, bits=bits,
+                              device=dev)
+    if bits > 8:
+        clip = with_extremes(clip, bits)
+    sups = build_super(clip, sspec)
+    src_idx = torch.arange(KERNEL_JOBS, device=dev) // 2
+    ref_idx = (src_idx + 1 - 2 * (torch.arange(KERNEL_JOBS, device=dev) % 2)
+               ).clamp(0, n - 1)
+    ring = tuple(fe._ring_offsets(1, 1))
+    walk = tuple(fe._HEXP)
+    grid16 = tuple((dx, dy) for dy in range(-2, 2) for dx in range(-2, 2))
+    before = iter(K4_BEFORE[bits])
+    cases = []
+    for lv, plane, sets in ((4, 1, ((grid16, 1), (ring, 1), (((0, 0),), 6))),
+                            (5, 0, ((HEXAGON, 1), (walk, 1),
+                                    (((0, 0),), 6), (((0, 0),), 1)))):
+        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
+        for offsets, kk in sets:
+            cases.append(k4_case(ctx, stacks, gen, offsets, kk, plane,
+                                 before_ms=next(before)))
+        if lv == 4:
+            masked = [k4_case(ctx, stacks, gen, grid16, 1, plane, live=m)
+                      for m in K4_MASKS]
+        del ctx, stacks
+    del sups, clip
+    # pel 2: the finest level of a small clip, both planes
+    small_fmt = VideoFormat(SMALL_W, SMALL_H, bits, ColorFamily.YUV420)
+    s_sspec = scfg.validate(small_fmt)
+    s_aspec = dataclasses.replace(acfg, isb=True).validate(s_sspec)
+    small = make_test_clip_yuv(3, SMALL_W, SMALL_H, seed=3, noise=YUV_NOISE,
+                               bits=bits, device=dev)
+    s_sups = build_super(small, s_sspec)
+    ctx, stacks = level_inputs(s_sspec, s_aspec, s_sups,
+                               torch.tensor([1, 1], device=dev),
+                               torch.tensor([2, 0], device=dev), 0)
+    cases.append(k4_case(ctx, stacks, gen, walk, 1, 0,
+                         before_ms=next(before)))
+    cases.append(k4_case(ctx, stacks, gen, HEXAGON, 6, 1,
+                         before_ms=next(before)))
+    del ctx, stacks, s_sups, small
+    for case in masked:
+        case["before_ms"] = next(before)
+    torch.cuda.empty_cache()
+    return cases + masked
+
+
+# the block sizes of the per-block probe's width-class cases: (bs_y, bs_x,
+# pel, offsets, K): 2x2 chroma (a 4x4 block at 4:2:0; half a word a row at
+# 8 bits), 4x2 (8x4 at 4:2:0: one word a row, or two at 16 bits), 8x1
+# (16x2 at 4:2:0: one lane an entry), 64x64 and 128x128 luma (several
+# parts a lane)
+K4_WIDTHS = ((2, 2, 2, HEXAGON, 1), (2, 4, 2, HEXAGON, 6),
+             (1, 8, 2, tuple((dx, dy) for dy in range(-2, 2)
+                             for dx in range(-2, 2)), 1),
+             (64, 64, 1, HEXAGON, 1), (128, 128, 1, ((0, 0),), 6))
+
+
+def k4_width_cases(gen, dev, bits):
+    """K4 (8 bits) or K4 u16 at a block size of each width class of the
+    kernel (K4_WIDTHS), on random `bits`-bit stacks of four jobs whose
+    planes are a few blocks wide; candidates spread round each block, a
+    few past the stack's bottom and right edges and before its top and
+    left; the 2x2 case also with a mask that leaves about 30 % of the
+    entries live."""
+    from mvtools_tpu_torch.ops import pixels
+    top = (1 << bits) - 1
+    dtype = pixels.dtype_of(bits)
+    cases = []
+    for bsy, bsx, pel, offsets, kk in K4_WIDTHS:
+        nj, pad = 4, 8
+        nbx, nby = (4, 3) if bsx >= 64 else (40, 30)
+        hp, wp = nby * bsy + 2 * pad + 3, nbx * bsx + 2 * pad + 5
+        stack = pixels.narrow(torch.randint(
+            0, top + 1, (nj, pel * pel, hp, wp), generator=gen, device=dev,
+            dtype=torch.int32), dtype)
+        src = pixels.narrow(torch.randint(
+            0, top + 1, (nj, nbx * nby, bsy, bsx), generator=gen, device=dev,
+            dtype=torch.int32), dtype)
+        idx = torch.arange(nbx * nby, device=dev, dtype=torch.int32)
+        base_y = (pad + bsy * (idx // nbx)) * pel
+        base_x = (pad + bsx * (idx % nbx)) * pel
+        spread = 6 * pel
+        cy = (base_y[None, :, None] + torch.randint(
+            -spread, spread + 1, (nj, nbx * nby, kk), generator=gen,
+            device=dev, dtype=torch.int32)).contiguous()
+        cx = (base_x[None, :, None] + torch.randint(
+            -spread, spread + 1, (nj, nbx * nby, kk), generator=gen,
+            device=dev, dtype=torch.int32)).contiguous()
+        cy[:, -1, 0] = (hp - bsy + 3) * pel + 1
+        cx[:, -2, 0] = (wp - bsx + 4) * pel
+        cy[0, 0, 0], cx[0, 0, 0] = -3 * pel, -5 * pel + 1
+        label = (f"{bsx}x{bsy} pel {pel} K={kk} D={len(offsets)}"
+                 + ("" if bits == 8 else f" {bits}-bit"))
+        cases.append(k4_direct_case(label, stack, cy, cx, src, offsets, bsy,
+                                    bsx, pel))
+        if bsx == 2:
+            active = live_mask(tuple(cy.shape) + (len(offsets),), gen, dev)
+            cases.append(k4_direct_case(label + " masked", stack, cy, cx,
+                                        src, offsets, bsy, bsx, pel,
+                                        active=active))
+        del stack, src
+    torch.cuda.empty_cache()
+    return cases
 
 
 def gather_index(stack, cy, cx, bsy, bsx, pel):
@@ -721,9 +963,10 @@ def kernel_split(prof, kernel):
     return dict(sorted(split.items(), key=lambda kv: -kv[1]["ms"]))
 
 
-def profile_run(label, fn, split=None):
+def profile_run(label, fn, split=()):
     """One traced run of fn(): device-busy share and the kernels by time;
-    with `split` (a KERNEL_NAMES key) that kernel's time by launch grid."""
+    with `split` (KERNEL_NAMES keys) those kernels' time by kernel form and
+    launch grid."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -753,7 +996,8 @@ def profile_run(label, fn, split=None):
                           for name, kernel in KERNEL_NAMES.items()},
           "top_kernels": [{"name": k[:60], "count": c, "ms": ms}
                           for k, c, ms in rows[:12]],
-          **({"split": {split: kernel_split(prof, KERNEL_NAMES[split])}}
+          **({"split": kernel_split(prof, "|".join(KERNEL_NAMES[name]
+                                                   for name in split))}
              if split else {})})
 
 
@@ -763,14 +1007,15 @@ def profile_run(label, fn, split=None):
 KERNEL_NAMES = {
     "sad_map": r"sadmap_kernel<(unsigned char, )?\d",
     "probe_sads_tiled": r"probe_kernel<(unsigned char, )?\d",
-    "probe_sads": r"probe_block_kernel(<unsigned char>)?\(",
+    "probe_sads": r"probe_block_kernel(<unsigned char[,>]|\()",
     "sad_map[stats3]": r"sadmap(3|_stats3)_kernel[<(]",
     "probe_sads_tiled[stats3]": r"probe_stats3_kernel[<(]",
+    "probe_sads[stats3]": r"probe_block_stats3_kernel\(",
     "fetch_blocks_tiled": r"fetch_kernel<(unsigned char, )?-?\d+, 1>",
     "fetch_blocks": r"fetch_kernel<(unsigned char, )?-?\d+, 0>",
     "sad_map[u16]": r"sadmap(16_kernel<|_kernel<unsigned short)",
     "probe_sads_tiled[u16]": r"probe(16_kernel<|_kernel<unsigned short)",
-    "probe_sads[u16]": r"probe_block_kernel<unsigned short>",
+    "probe_sads[u16]": r"probe_block_kernel<unsigned short[,>]",
     "fetch_blocks_tiled[u16]": r"fetch_kernel<unsigned short, -?\d+, 1>",
     "fetch_blocks[u16]": r"fetch_kernel<unsigned short, -?\d+, 0>",
 }
@@ -782,11 +1027,11 @@ KERNEL_NAMES = {
 SASS_FORMS = {
     "sad_map": ("sadmap", r"13sadmap_kernelI(h|Li)"),
     "probe_sads_tiled": ("probe", r"12probe_kernelI(h|Li)"),
-    "probe_sads": ("probe_block", r"18probe_block_kernel(IhE|EPKh)"),
+    "probe_sads": ("probe_block", r"18probe_block_kernel(Ih|EPKh)"),
     "fetch_blocks_tiled/fetch_blocks": ("fetch", r"12fetch_kernelI(h|Li)"),
     "sad_map[u16]": ("sadmap", r"(13sadmap_kernelIt|15sadmap16_kernel)"),
     "probe_sads_tiled[u16]": ("probe", r"(12probe_kernelIt|14probe16_kernel)"),
-    "probe_sads[u16]": ("probe_block", r"18probe_block_kernelItE"),
+    "probe_sads[u16]": ("probe_block", r"18probe_block_kernelIt"),
     "fetch_blocks_tiled/fetch_blocks[u16]": ("fetch",
                                              r"12fetch_kernelIt"),
     "sad_map[stats3]": ("sadmap", r"sadmap3_kernel"),
@@ -796,8 +1041,9 @@ SASS_FORMS = {
 
 
 # the forms whose SASS must stay another tree's (--sass-reference): all but
-# the one this tree redesigned
-SASS_HELD = tuple(f for f in SASS_FORMS if f != "probe_sads_tiled[u16]")
+# the ones this tree redesigned
+SASS_HELD = tuple(f for f in SASS_FORMS
+                  if f not in ("probe_sads", "probe_sads[u16]"))
 
 
 def arg_value(flag):
@@ -953,9 +1199,8 @@ def run_yuv_clip(phase, clip, cfgs, bits=8):
 
 
 def yuv_kernel_cases(cfgs, gen, dev):
-    """K1-K4 at the shapes the YUV420 path gives them: K1/K2/K3 at level 0,
-    luma (16x16, pitch 8) and chroma (8x8, pitch 4); K4 on the small planes
-    of levels 4 and 5, and once at pel 2."""
+    """K1-K3 at the shapes the YUV420 path gives them: level 0, luma
+    (16x16, pitch 8) and chroma (8x8, pitch 4).  (K4: k4_cases.)"""
     scfg, acfg, _, _ = cfgs
     fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
     sspec = scfg.validate(fmt)
@@ -967,10 +1212,8 @@ def yuv_kernel_cases(cfgs, gen, dev):
     src_idx = torch.arange(KERNEL_JOBS, device=dev) // 2
     ref_idx = (src_idx + 1 - 2 * (torch.arange(KERNEL_JOBS, device=dev) % 2)
                ).clamp(0, n - 1)
-    ring = tuple(fe._ring_offsets(1, 1))
-    walk = tuple(fe._HEXP)
     grid16 = tuple((dx, dy) for dy in range(-2, 2) for dx in range(-2, 2))
-    k1, k2, k3, k4 = [], [], [], []
+    k1, k2, k3 = [], [], []
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
     for plane in (0, 1):
         k1.append(k1_case(ctx, stacks, gen, plane,
@@ -983,29 +1226,9 @@ def yuv_kernel_cases(cfgs, gen, dev):
                           masked=True))
         k3.append(k3_case(sspec, aspec.meta, sups, gen, plane, frames=n,
                           before_ms=0.332 if plane == 0 else 0.095))
-    del ctx, stacks
-    for lv, plane, sets in ((4, 1, ((grid16, 1), (ring, 1), (((0, 0),), 6))),
-                            (5, 0, ((HEXAGON, 1), (walk, 1),
-                                    (((0, 0),), 6), (((0, 0),), 1)))):
-        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
-        for offsets, kk in sets:
-            k4.append(k4_case(ctx, stacks, gen, offsets, kk, plane))
-        del ctx, stacks
-    del sups, clip
-    # pel 2: the finest level of a small clip, both planes
-    small_fmt = VideoFormat(SMALL_W, SMALL_H, 8, ColorFamily.YUV420)
-    s_sspec = scfg.validate(small_fmt)
-    s_aspec = dataclasses.replace(acfg, isb=True).validate(s_sspec)
-    small = make_test_clip_yuv(3, SMALL_W, SMALL_H, seed=3, noise=YUV_NOISE,
-                               device=dev)
-    s_sups = build_super(small, s_sspec)
-    ctx, stacks = level_inputs(s_sspec, s_aspec, s_sups,
-                               torch.tensor([1, 1], device=dev),
-                               torch.tensor([2, 0], device=dev), 0)
-    k4.append(k4_case(ctx, stacks, gen, walk, 1, 0))
-    k4.append(k4_case(ctx, stacks, gen, HEXAGON, 6, 1))
+    del ctx, stacks, sups, clip
     torch.cuda.empty_cache()
-    return k1, k2, k3, k4
+    return k1, k2, k3
 
 
 def with_extremes(clip, bits):
@@ -1026,10 +1249,10 @@ def with_extremes(clip, bits):
 
 
 def deep_kernel_cases(cfgs, gen, dev, bits):
-    """K1-K5 in their uint16 forms at the shapes the deep-bit YUV420 path
-    gives them (K1/K2/K3 at level 0, luma 16x16 pitch 8 and chroma 8x8
-    pitch 4; K4 on the small planes of levels 4 and 5; K5 as the tiled
-    fetch's hand-over at level 5 and at origins past every edge), on a clip
+    """K1, K2, K3 and K5 in their uint16 forms at the shapes the deep-bit
+    YUV420 path gives them (K1/K2/K3 at level 0, luma 16x16 pitch 8 and
+    chroma 8x8 pitch 4; K5 as the tiled fetch's hand-over at level 5 and at
+    origins past every edge; K4 u16: k4_cases), on a clip
     of `bits` bits whose samples use the low bits too, with a region of 0
     against 2^bits - 1.  At 10 bits also K1 with 128x128 blocks, the
     largest staging of any map the search admits.  K1's cases print its first
@@ -1050,10 +1273,9 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
     src_idx = torch.arange(KERNEL_JOBS, device=dev) // 2
     ref_idx = (src_idx + 1 - 2 * (torch.arange(KERNEL_JOBS, device=dev) % 2)
                ).clamp(0, n - 1)
-    ring = tuple(fe._ring_offsets(1, 1))
     walk = tuple(fe._HEXP)
     grid16 = tuple((dx, dy) for dy in range(-2, 2) for dx in range(-2, 2))
-    k1, k2, k3, k4, k5 = [], [], [], [], []
+    k1, k2, k3, k5 = [], [], [], []
     ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 0)
     for plane in (0, 1):
         k1.append(k1_case(ctx, stacks, gen, plane,
@@ -1115,40 +1337,31 @@ def deep_kernel_cases(cfgs, gen, dev, bits):
                     ctx, plane, f" K=1 D={len(offsets)}"), plane,
                     masked=True))
         del ctx, stacks
-    for lv, plane, sets in ((4, 1, ((grid16, 1), (ring, 1), (((0, 0),), 6))),
-                            (5, 0, ((HEXAGON, 1), (walk, 1),
-                                    (((0, 0),), 6), (((0, 0),), 1)))):
-        ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, lv)
-        for offsets, kk in sets:
-            k4.append(k4_case(ctx, stacks, gen, offsets, kk, plane))
-        if lv == 5:
-            # K5 as the tiled fetch's hand-over: a map row on level 5's
-            # stack, which is under the tiled fetch's window
-            stack = stacks[0]
-            _, cy, cx, _, _, _, _ = probe_inputs(ctx, stacks, gen, 0, 1,
-                                                 spread=4, far_share=0.0)
-            row = torch.arange(-7, 8, device=dev, dtype=torch.int32)
-            rcx = (cx + row).contiguous()
-            rcy = (cy + 3).expand_as(rcx).contiguous()
-            before = read_counts()
-            probe.fetch_blocks_tiled(stack, rcy, rcx, 16, 16, ctx.pel,
-                                     row_len=ctx.nblk[0], pitch_x=8)
-            after = read_counts()
-            if (after["fetch_blocks[u16]"] != before["fetch_blocks[u16]"] + 1
-                    or after["fetch_blocks_tiled[u16]"]
-                    != before["fetch_blocks_tiled[u16]"]):
-                raise AssertionError("fetch_blocks_tiled: the level-5 "
-                                     f"{bits}-bit stack was not handed to "
-                                     "fetch_blocks")
-            k5.append(k5_case(f"level 5 map row K=15 (the tiled fetch's "
-                              f"hand-over) {bits}-bit", stack, rcy, rcx, 16,
-                              16, ctx.pel))
-        del ctx, stacks
-    del sups, clip
+    # K5 as the tiled fetch's hand-over: a map row on level 5's stack,
+    # which is under the tiled fetch's window
+    ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 5)
+    stack = stacks[0]
+    _, cy, cx, _, _, _, _ = probe_inputs(ctx, stacks, gen, 0, 1, spread=4,
+                                         far_share=0.0)
+    row = torch.arange(-7, 8, device=dev, dtype=torch.int32)
+    rcx = (cx + row).contiguous()
+    rcy = (cy + 3).expand_as(rcx).contiguous()
+    before = read_counts()
+    probe.fetch_blocks_tiled(stack, rcy, rcx, 16, 16, ctx.pel,
+                             row_len=ctx.nblk[0], pitch_x=8)
+    after = read_counts()
+    if (after["fetch_blocks[u16]"] != before["fetch_blocks[u16]"] + 1
+            or after["fetch_blocks_tiled[u16]"]
+            != before["fetch_blocks_tiled[u16]"]):
+        raise AssertionError(f"fetch_blocks_tiled: the level-5 {bits}-bit "
+                             "stack was not handed to fetch_blocks")
+    k5.append(k5_case(f"level 5 map row K=15 (the tiled fetch's hand-over) "
+                      f"{bits}-bit", stack, rcy, rcx, 16, 16, ctx.pel))
+    del ctx, stacks, stack, sups, clip
     if bits == 10:
         k1.append(k1_largest_blocks_case(gen, dev))
     torch.cuda.empty_cache()
-    return k1, k2, k3, k4, k5
+    return k1, k2, k3, k5
 
 
 def k1_largest_blocks_case(gen, dev):
@@ -1773,19 +1986,20 @@ def kernels_vs_plain(dev):
     k3_cases = [k3_case(sspec, aspec.meta, sups, gen, before_ms=0.109)]
     del sups, clip
     torch.cuda.empty_cache()
-    y1, y2, y3, k4_cases = yuv_kernel_cases(cfgs, gen, dev)
+    y1, y2, y3 = yuv_kernel_cases(cfgs, gen, dev)
+    k4_list = k4_cases(cfgs, gen, dev, 8) + k4_width_cases(gen, dev, 8)
     k1_cases += k1_geometry_cases(gen, dev)
     s1, s2, s4 = satd_kernel_cases(gen, dev)
     k5_cases, k3_dct = dct_kernel_cases(gen, dev)
     k3_cases += k3_dct + [k3_blk8_case(gen, dev)]
     cases = {"sad_map": k1_cases + y1, "probe_sads_tiled": k2_cases + y2,
-             "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_cases,
+             "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_list,
              "sad_map[stats3]": s1, "probe_sads_tiled[stats3]": s2,
              "probe_sads[stats3]": s4, "fetch_blocks": k5_cases}
     emit({"phase": "kernels_vs_plain", "tolerance": 0, **cases})
     # the cases the kernels line reports: the main paths' shapes
     return {"sad_map": y1[0], "probe_sads_tiled": y2[0],
-            "fetch_blocks_tiled": y3[0], "probe_sads": k4_cases[0],
+            "fetch_blocks_tiled": y3[0], "probe_sads": k4_list[0],
             "sad_map[stats3]": s1[0], "probe_sads_tiled[stats3]": s2[0],
             "probe_sads[stats3]": s4[0], "fetch_blocks": k5_cases[0]}
 
@@ -1793,19 +2007,21 @@ def kernels_vs_plain(dev):
 def deep_kernels_vs_plain(cfgs, dev):
     """The uint16 forms of K1-K5 against their plain versions on the card
     (tolerance 0) at the deep-bit YUV420 path's shapes, on 16-bit and on
-    10-bit data; prints the phase and returns the 16-bit cases that the
-    kernels line reports."""
+    10-bit data (K4 u16 also at its width classes on 10-bit data); prints
+    the phase and returns the 16-bit cases that the kernels line
+    reports."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     by_bits = {bits: deep_kernel_cases(cfgs, gen, dev, bits)
                for bits in (DEEP_BITS, 10)}
+    k4 = (k4_cases(cfgs, gen, dev, DEEP_BITS) + k4_cases(cfgs, gen, dev, 10)
+          + k4_width_cases(gen, dev, 10))
     names = ("sad_map[u16]", "probe_sads_tiled[u16]",
-             "fetch_blocks_tiled[u16]", "probe_sads[u16]",
-             "fetch_blocks[u16]")
+             "fetch_blocks_tiled[u16]", "fetch_blocks[u16]")
     emit({"phase": "kernels_vs_plain_u16", "tolerance": 0,
           **{name: by_bits[DEEP_BITS][i] + by_bits[10][i]
-             for i, name in enumerate(names)}})
-    k1, k2, k3, k4, k5 = by_bits[DEEP_BITS]
+             for i, name in enumerate(names)}, "probe_sads[u16]": k4})
+    k1, k2, k3, k5 = by_bits[DEEP_BITS]
     return {"sad_map[u16]": k1[0], "probe_sads_tiled[u16]": k2[0],
             "fetch_blocks_tiled[u16]": k3[0], "probe_sads[u16]": k4[0],
             "fetch_blocks[u16]": k5[-1]}
@@ -1817,32 +2033,33 @@ def u8_kernel_times(cfgs, dev):
     other tree's kernels, so that one call times both trees in turns."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    k1, k2, k3, k4 = yuv_kernel_cases(cfgs, gen, dev)
+    k1, k2, k3 = yuv_kernel_cases(cfgs, gen, dev)
     k5, k3_dct = dct_kernel_cases(gen, dev)
     emit({"phase": "u8_kernel_times",
           **{name: [{k: c[k] for k in ("case", "ms", "bound_ms", "plain_ms")}
                     for c in cases]
              for name, cases in (("sad_map", k1), ("probe_sads_tiled", k2),
                                  ("fetch_blocks_tiled", k3 + k3_dct),
-                                 ("probe_sads", k4), ("fetch_blocks", k5))}})
+                                 ("fetch_blocks", k5))}})
 
 
 def redesigned_kernel_times(cfgs, dev):
-    """K2 u16 (redesigned in this tree) and K1 u16 beside it at the shapes
-    PERF.md records them at, 16 and 10 bits, against their plain versions,
+    """K4 and K4 u16 (redesigned in this tree) at the nine shapes of the
+    YUV420 paths and the masked ones (k4_cases), at 8, 16 and 10 bits, and
+    at their width classes (k4_width_cases), against their plain versions,
     for --paths-only: with --package-root the other tree's kernels, so that
     one call times both trees in turns."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    by_bits = [deep_kernel_cases(cfgs, gen, dev, bits)
-               for bits in (DEEP_BITS, 10)]
-    keys = ("case", "ms", "device_ms", "bound_ms", "plain_ms", "before_ms",
-            "live_share", "launch")
+    keys = ("case", "ms", "device_ms", "bound_ms", "bound_by", "bytes",
+            "ops", "plain_ms", "before_ms", "live_share", "launch")
+    k4 = {bits: k4_cases(cfgs, gen, dev, bits) for bits in (8, DEEP_BITS, 10)}
+    width = {bits: k4_width_cases(gen, dev, bits) for bits in (8, 10)}
     emit({"phase": "redesigned_kernel_times",
-          **{name: [{k: c[k] for k in keys if k in c}
-                    for cases in by_bits for c in cases[i]]
-             for i, name in ((1, "probe_sads_tiled[u16]"),
-                             (0, "sad_map[u16]"))}})
+          **{name: [{k: c[k] for k in keys if k in c} for c in cases]
+             for name, cases in (
+                 ("probe_sads", k4[8] + width[8]),
+                 ("probe_sads[u16]", k4[DEEP_BITS] + k4[10] + width[10]))}})
 
 
 def run_yuv16_paths(cfgs, dev, profile):
@@ -1879,7 +2096,7 @@ def run_yuv16_paths(cfgs, dev, profile):
     if profile:
         profile_run("yuv16_main_path",
                     lambda: degrain_clip(flash_clip, fmt, *cfgs),
-                    split="probe_sads_tiled[u16]")
+                    split=("probe_sads[u16]", "probe_sads_tiled[u16]"))
         profile_run("yuv16_main_path_calm",
                     lambda: degrain_clip(calm_clip, fmt, *cfgs))
     del flash_clip, calm_clip
@@ -2012,7 +2229,8 @@ def main():
                              f"ran {yuv_calm['launches']}")
     if profile:
         profile_run("yuv_main_path",
-                    lambda: degrain_clip(flash_clip, fmt, *cfgs))
+                    lambda: degrain_clip(flash_clip, fmt, *cfgs),
+                    split=("probe_sads",))
         profile_run("yuv_main_path_calm",
                     lambda: degrain_clip(calm_clip, fmt, *cfgs))
 

@@ -7,8 +7,8 @@
 // out[job, block, k, d] = SAD of the source block against the reference
 // block at pel position (cand_x + dx_d, cand_y + dy_d), for K candidate
 // centres per block and D static pel offsets.  Every (block, candidate) has
-// a window of its own, so there is no validity rule and no sentinel: every
-// entry is a real SAD.
+// a window of its own, so there is no validity rule: every active entry is
+// a real SAD.
 //
 //   ax = cand_x + dx,  ay = cand_y + dy
 //   sub = (ax & (pel-1)) | ((ay & (pel-1)) << logp)
@@ -29,25 +29,50 @@
 // one.  The search bounds keep every candidate of the motion search inside
 // the padded stack, where the shift is zero.
 //
-// Bound on this card: bytes for a handful of offsets, operations for a large
-// offset set (bs_y*bs_x abs-diff accumulates per output).  This kernel serves
-// the planes that are too small for the tiled probe's shared window: tens to
-// hundreds of blocks per job.  Design: one warp per (job, block, candidate);
-// its lanes stride the block's pixels for each offset and reduce with
-// shuffles.  Nothing is staged: a window is a few hundred bytes and stays in
-// L1/L2 between offsets.
+// `active` (optional, bool [J, nblk, K, D]) names the entries the caller
+// will look at: an inactive entry reads no pixel and reports INVALID_SAD
+// (int32 max).  The three-stat form computes every entry; its wrapper masks
+// the output.
+//
+// Bound on this card: neither bytes nor operations.  The kernel serves the
+// planes too small for the tiled probe's shared window (the coarse levels
+// 4-6 of a 1080p pyramid: 18 or 98 blocks a job), where a call needs well
+// under a microsecond of either (a byte bound of 0.02-0.5 us at the paths'
+// shapes, PERF.md) and its time is the launch and one chain of dependent
+// loads.  The first body gave each (job, block, candidate) one warp, which
+// walked the D offsets one after another, each a strided pixel loop with a
+// runtime division by the block width, byte loads and a five-step shuffle
+// sum: D rounds of load latency in a row, on a handful of warps an SM
+// (0.0094 device ms at level-4 chroma D=16; 0.32 ms over a 1080p YUV flash
+// clip's 28 launches, H100 80GB HBM3, 700 W).
+//
+// Design (probe_block_kernel<T, CW, HALF>): every (job, block, candidate,
+// offset) entry gets G lanes of its own (a power of two up to 32; the
+// launch geometry is ops/probe.py::probe_block_launch_geom), so every
+// offset of every item is in flight at once and a lane waits for one round
+// of loads: the entry's flag, candidate and offset (independent), then its
+// source and reference words.  A lane takes `parts` parts of the block,
+// each CW (4, 2 or 1) 32-bit words of one block row: the source part by one
+// vector load, the reference part by CW + 1 aligned 32-bit loads joined by
+// funnel shifts; the part's row and column come from shifts and masks (no
+// division after the entry's own indices).  Packed sums: VABSDIFF4 + IDP.4A
+// a word for uint8, sum S + sum R - 2 sum min(S, R) (min.u16x2, IDP.2A) for
+// uint16; the G lanes add by xor shuffles.  HALF: a uint8 block 2 pixels
+// wide, whose row is half a word (the funnel-shifted word masked to two
+// bytes).  A dead entry costs its flag, candidate and offset loads and one
+// store.  CTAs of 256 lanes, fewer where a small launch would leave SMs
+// without one.  Device time 0.0017-0.0073 ms a launch at the paths'
+// shapes, 0.090 ms over the 8-bit clip's 28 launches (PERF.md): the
+// launch itself is most of it.
 //
 // The three-stat form writes the triple (SAD, SATD, sum of the reference
 // block) per entry, out[job, block, k, d, 0..2] (satd.cuh says what the SATD
 // is), with the same rule for a window that leaves the stack.  A group of
 // lanes owns one (job, block, candidate, offset) and splits the block's 8x4
-// partitions.
-//
-// The SAD form serves uint16 stacks (9- to 16-bit clips) too: the pixel type
-// is a template parameter and nothing else changes (a lane's sum stays in 32
-// bits); the three-stat form is defined for 8-bit stacks only.
+// partitions; it is defined for 8-bit stacks only.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "satd.cuh"
@@ -73,49 +98,137 @@ __device__ __forceinline__ int window_start(int start, int size, int n) {
     return clampi(start < 0 ? start + size : start, 0, size - n);
 }
 
-// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).
-template <typename T>
-__global__ void probe_block_kernel(const T* __restrict__ stack,
-                                   const int* __restrict__ cand_y,
-                                   const int* __restrict__ cand_x,
-                                   const T* __restrict__ src,
-                                   const int* __restrict__ offs,  // [D, 2]
-                                   int* __restrict__ out,
-                                   BlockProbeParams p) {
-    const int lane = threadIdx.x & 31;
-    const long long w = (long long)blockIdx.x * (blockDim.x >> 5)
-                        + (threadIdx.x >> 5);
-    if (w >= p.total) return;
-    const long long jb = w / p.k;            // (job, block) flat
-    const int job = (int)(jb / p.nblk);
+// The SAD form's launch, set by the wrapper (ops/probe.py::probe_sads) from
+// ops/probe.py::probe_block_launch_geom.
+struct K4Params {
+    int n_sub, hp, wp;     // stack [J, n_sub, hp, wp]
+    int nblk, k, d;        // blocks per job, K, D
+    int bs_y, bs_x, logp;
+    int min_dy, min_dx;    // most negative offsets of the set
+    int wy, wx;            // window of the offset set, full-pel pixels
+    int lg;                // log2 of G, the lanes of an entry
+    int parts;             // parts (CW words of one block row) a lane takes
+    int lppr;              // log2 of the parts of a block row
+    unsigned n_lanes;      // entries * G
+};
 
-    const int cy = cand_y[w], cx = cand_x[w];
+// CW words of source pixels from an address aligned to 4 * CW bytes (HALF:
+// the two bytes of a 2-pixel uint8 row, aligned to 2), one load.
+template <typename T, int CW, bool HALF>
+__device__ __forceinline__ void source_words(const T* a, uint32_t* v) {
+    if (HALF) {
+        v[0] = *(const uint16_t*)a;
+    } else if (CW == 4) {
+        const uint4 q = *(const uint4*)a;
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else if (CW == 2) {
+        const uint2 q = *(const uint2*)a;
+        v[0] = q.x; v[1] = q.y;
+    } else {
+        v[0] = *(const uint32_t*)a;
+    }
+}
+
+// The CW reference words at byte address a (any alignment for uint8, even
+// for uint16): CW + 1 aligned 32-bit loads, each holding a byte of the
+// part (so none leaves the stack's allocation), joined by one funnel shift
+// a word (HALF: the two bytes of a 2-pixel row, the upper half cleared).
+template <int CW, bool HALF>
+__device__ __forceinline__ void reference_words(uintptr_t a, uint32_t* r) {
+    const unsigned sh = (unsigned)(a & 3) * 8u;
+    const uint32_t* a4 = (const uint32_t*)(a & ~(uintptr_t)3);
+    uint32_t v[CW + 1];
+#pragma unroll
+    for (int j = 0; j < CW; ++j) v[j] = __ldg(a4 + j);
+    v[CW] = __ldg((const uint32_t*)((a + (HALF ? 1 : 4 * CW - 1))
+                                    & ~(uintptr_t)3));
+#pragma unroll
+    for (int j = 0; j < CW; ++j) r[j] = __funnelshift_r(v[j], v[j + 1], sh);
+    if (HALF) r[0] &= 0xffffu;
+}
+
+// The SAD of CW words added into acc: VABSDIFF4.U8 + IDP.4A a word for
+// uint8; for uint16 sum S + sum R - 2 sum min(S, R), one min.u16x2 and three
+// IDP.2A a word (acc wraps modulo 2^32; the whole sum is exact).
+template <typename T, int CW>
+__device__ __forceinline__ unsigned words_sad(const uint32_t* s,
+                                              const uint32_t* r,
+                                              unsigned acc) {
+#pragma unroll
+    for (int j = 0; j < CW; ++j) {
+        if (sizeof(T) == 1) {
+            acc = __dp4a(__vabsdiffu4(r[j], s[j]), 0x01010101u, acc);
+        } else {
+            acc = __dp2a_lo(s[j], 0x0101u, acc);
+            acc = __dp2a_lo(r[j], 0x0101u, acc);
+            acc -= 2u * __dp2a_lo(mvt::min_u16x2(s[j], r[j]), 0x0101u, 0u);
+        }
+    }
+    return acc;
+}
+
+// T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips); CW:
+// words a part (1, 2, 4); HALF: a uint8 block 2 pixels wide (a part is half
+// a word).  G lanes take one entry (job, block, candidate, offset), each
+// `parts` parts of the block (part q: block row q >> lppr, word column
+// (q & (2^lppr - 1)) * CW), and sum over G lanes by xor shuffles.
+template <typename T, int CW, bool HALF>
+__global__ void __launch_bounds__(256)
+probe_block_kernel(const T* __restrict__ stack,
+                   const int* __restrict__ cand_y,
+                   const int* __restrict__ cand_x,
+                   const T* __restrict__ src,
+                   const int2* __restrict__ offs,     // [D] (dx, dy)
+                   const uint8_t* __restrict__ active,
+                   int* __restrict__ out, K4Params p) {
+    constexpr int PB = (int)sizeof(T);               // bytes a pixel
+    constexpr int PPP = HALF ? 2 : 4 * CW / PB;      // pixels a part
+    const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= p.n_lanes) return;                      // whole entries only
+    const int lane = threadIdx.x & 31;
+    const int G = 1 << p.lg;
+    const int g = lane & (G - 1);                    // lane inside its entry
+    const unsigned e = t >> p.lg;                    // (job, block, k, d)
+    const unsigned w = e / (unsigned)p.d;            // (job, block, k)
+    const int d = (int)(e - w * (unsigned)p.d);
+    // the entry's flag, candidate and offset: independent loads
+    const bool live = active == nullptr || active[e] != 0;
+    const int cy = __ldg(cand_y + w), cx = __ldg(cand_x + w);
+    const int2 o = __ldg(offs + d);
+    if (!live) {                                     // reads no pixel
+        if (g == 0) out[e] = INT_MAX;
+        return;
+    }
+    const unsigned jb = w / (unsigned)p.k;           // (job, block)
+    const unsigned job = jb / (unsigned)p.nblk;
     const int wb_y = (cy + p.min_dy) >> p.logp;
     const int wb_x = (cx + p.min_dx) >> p.logp;
-    const int shift_y = window_start(wb_y, p.hp, p.wy) - wb_y;
-    const int shift_x = window_start(wb_x, p.wp, p.wx) - wb_x;
-
+    const int ax = cx + o.x, ay = cy + o.y;
     const int pelm = (1 << p.logp) - 1;
+    const int sub = (ax & pelm) | ((ay & pelm) << p.logp);
+    const int oy = (ay >> p.logp) + window_start(wb_y, p.hp, p.wy) - wb_y;
+    const int ox = (ax >> p.logp) + window_start(wb_x, p.wp, p.wx) - wb_x;
     const size_t plane = (size_t)p.hp * p.wp;
-    const T* stack_j = stack + (size_t)job * p.n_sub * plane;
-    const int npix = p.bs_y * p.bs_x;
-    const T* s = src + (size_t)jb * npix;
-    int* o = out + (size_t)w * p.d;
-    for (int d = 0; d < p.d; ++d) {
-        const int ax = cx + offs[2 * d], ay = cy + offs[2 * d + 1];
-        const int sub = (ax & pelm) | ((ay & pelm) << p.logp);
-        const int oy = (ay >> p.logp) + shift_y;
-        const int ox = (ax >> p.logp) + shift_x;
-        const T* r = stack_j + sub * plane + (size_t)oy * p.wp + ox;
-        int acc = 0;
-        for (int i = lane; i < npix; i += 32) {
-            const int y = i / p.bs_x, x = i % p.bs_x;
-            acc += abs((int)r[(size_t)y * p.wp + x] - (int)s[i]);
-        }
-        for (int sh = 16; sh > 0; sh >>= 1)
-            acc += __shfl_down_sync(0xffffffffu, acc, sh);
-        if (lane == 0) o[d] = acc;
+    const uintptr_t r0 = (uintptr_t)(stack + ((size_t)job * p.n_sub + sub)
+                                     * plane + (size_t)oy * p.wp + ox);
+    const T* s0 = src + (size_t)jb * p.bs_y * p.bs_x;
+    const int pmask = (1 << p.lppr) - 1;
+    unsigned acc = 0;
+#pragma unroll 4
+    for (int i = 0; i < p.parts; ++i) {
+        const int q = g + (i << p.lg);
+        const int row = q >> p.lppr, col = (q & pmask) * PPP;
+        uint32_t s[CW], r[CW];
+        source_words<T, CW, HALF>(s0 + row * p.bs_x + col, s);
+        reference_words<CW, HALF>(
+            r0 + (uintptr_t)(row * p.wp + col) * PB, r);
+        acc = words_sad<T, CW>(s, r, acc);
     }
+    const unsigned gmask = G == 32 ? 0xffffffffu
+                                   : ((1u << G) - 1u) << (lane & ~(G - 1));
+    for (int sh = G >> 1; sh > 0; sh >>= 1)
+        acc += __shfl_xor_sync(gmask, acc, sh);
+    if (g == 0) out[e] = (int)acc;
 }
 
 // The three-stat form: `group` lanes per (job, block, candidate, offset).
@@ -158,30 +271,68 @@ __global__ void probe_block_stats3_kernel(
 
 }  // namespace
 
-// u16: 1 for uint16 stack and source blocks, 0 for uint8.
+// The ints of a launch, in the order of ops/probe.py::_PROBE_BLOCK_ARGS.
+enum K4Arg {
+    A_JOBS, A_SUB, A_HP, A_WP, A_NBLK, A_K, A_D, A_BSY, A_BSX, A_LOGP,
+    A_MINDY, A_MINDX, A_WY, A_WX, A_U16, A_CW, A_HALF, A_LG, A_PARTS,
+    A_LPPR, A_THREADS, A_COUNT
+};
+
+// a: the launch's A_COUNT ints (u16: 1 for uint16 stack and source blocks,
+// 0 for uint8; cw, half, lg, parts, lppr, threads: the geometry of
+// ops/probe.py::probe_block_launch_geom).  active: bool [J, nblk, K, D] or
+// null for all.
 extern "C" int mvt_probe_sads(
         const void* stack, const void* cand_y, const void* cand_x,
-        const void* src, const void* offs, void* out, int n_jobs, int n_sub,
-        int hp, int wp, int nblk, int k, int d, int bs_y, int bs_x, int logp,
-        int min_dy, int min_dx, int wy, int wx, int u16, void* stream) {
-    BlockProbeParams p;
-    p.n_sub = n_sub; p.hp = hp; p.wp = wp; p.nblk = nblk; p.k = k; p.d = d;
-    p.bs_y = bs_y; p.bs_x = bs_x; p.logp = logp; p.min_dy = min_dy;
-    p.min_dx = min_dx; p.wy = wy; p.wx = wx;
-    p.total = (long long)n_jobs * nblk * k;
-    if (p.total == 0 || d == 0) return 0;
-    const int warps = 4;
-    const long long blocks = (p.total + warps - 1) / warps;
-    if (u16)
-        probe_block_kernel<uint16_t><<<(unsigned)blocks, warps * 32, 0,
-                                       (cudaStream_t)stream>>>(
-            (const uint16_t*)stack, (const int*)cand_y, (const int*)cand_x,
-            (const uint16_t*)src, (const int*)offs, (int*)out, p);
-    else
-        probe_block_kernel<uint8_t><<<(unsigned)blocks, warps * 32, 0,
-                                      (cudaStream_t)stream>>>(
-            (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,
-            (const uint8_t*)src, (const int*)offs, (int*)out, p);
+        const void* src, const void* offs, const void* active, void* out,
+        const int* a, void* stream) {
+    K4Params p;
+    p.n_sub = a[A_SUB]; p.hp = a[A_HP]; p.wp = a[A_WP]; p.nblk = a[A_NBLK];
+    p.k = a[A_K]; p.d = a[A_D]; p.bs_y = a[A_BSY]; p.bs_x = a[A_BSX];
+    p.logp = a[A_LOGP]; p.min_dy = a[A_MINDY]; p.min_dx = a[A_MINDX];
+    p.wy = a[A_WY]; p.wx = a[A_WX]; p.lg = a[A_LG]; p.parts = a[A_PARTS];
+    p.lppr = a[A_LPPR];
+    const int u16 = a[A_U16], cw = a[A_CW], half = a[A_HALF];
+    const int threads = a[A_THREADS];
+    const long long entries = (long long)a[A_JOBS] * p.nblk * p.k * p.d;
+    if (entries == 0) return 0;
+    // whole words a row (half a word: a 2-pixel uint8 row), rows of whole
+    // parts, the parts of a row a power of two, G lanes an entry that take
+    // all of the block's parts, 32-bit lane indices
+    const int ppw = u16 ? 2 : 4;
+    const int wpr = half ? 1 : p.bs_x / ppw;
+    if ((u16 != 0 && u16 != 1) || (cw != 1 && cw != 2 && cw != 4)
+        || (half && (u16 || cw != 1 || p.bs_x != 2 || p.lppr != 0))
+        || (!half && (p.bs_x % ppw || wpr % cw || wpr / cw != 1 << p.lppr))
+        || p.lg < 0 || p.lg > 5 || p.parts < 1
+        || (long long)p.bs_y * (wpr / cw) != (long long)p.parts << p.lg
+        || threads < 32 || threads > 256 || threads % 32
+        || (entries << p.lg) > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    p.n_lanes = (unsigned)(entries << p.lg);
+    const unsigned blocks = (p.n_lanes + threads - 1) / threads;
+    cudaStream_t st = (cudaStream_t)stream;
+#define MVT_K4(T, C, H)                                                     \
+    probe_block_kernel<T, C, H><<<blocks, threads, 0, st>>>(                \
+        (const T*)stack, (const int*)cand_y, (const int*)cand_x,            \
+        (const T*)src, (const int2*)offs, (const uint8_t*)active,           \
+        (int*)out, p)
+    if (u16) {
+        switch (cw) {
+            case 4: MVT_K4(uint16_t, 4, false); break;
+            case 2: MVT_K4(uint16_t, 2, false); break;
+            default: MVT_K4(uint16_t, 1, false); break;
+        }
+    } else if (half) {
+        MVT_K4(uint8_t, 1, true);
+    } else {
+        switch (cw) {
+            case 4: MVT_K4(uint8_t, 4, false); break;
+            case 2: MVT_K4(uint8_t, 2, false); break;
+            default: MVT_K4(uint8_t, 1, false); break;
+        }
+    }
+#undef MVT_K4
     return (int)cudaGetLastError();
 }
 

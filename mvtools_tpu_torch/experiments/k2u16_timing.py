@@ -534,7 +534,7 @@ def split(dev):
     cs.degrain_clip(clip, fmt, *cfgs)                         # warm-up
     cs.profile_run("yuv16_main_path",
                    lambda: cs.degrain_clip(clip, fmt, *cfgs),
-                   split="probe_sads_tiled[u16]")
+                   split=("probe_sads_tiled[u16]",))
 
 
 def main():

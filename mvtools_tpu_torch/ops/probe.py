@@ -124,6 +124,14 @@ def tile_params(offsets, bs_y: int, bs_x: int, pel: int, tile: int,
     return wy_total, wx_total, center_y, center_x
 
 
+@functools.lru_cache(maxsize=None)
+def _tile_window(offsets: tuple, bs_y: int, bs_x: int, pel: int, tile: int,
+                 pitch_x: int, margin_y: int, margin_x: int):
+    """tile_params of a canonical offset set (_offset_window), made once."""
+    return tile_params(offsets, bs_y, bs_x, pel, tile, pitch_x, margin_y,
+                       margin_x)
+
+
 def _med3(a, b, c):
     return torch.maximum(torch.minimum(a, b),
                          torch.minimum(torch.maximum(a, b), c))
@@ -215,13 +223,34 @@ def _gather_blocks_plain(stack, pos_y, pos_x, bs_y: int, bs_x: int, logp: int):
 # K4: per-block probe
 
 
+@functools.lru_cache(maxsize=None)
+def _offset_window(offsets: tuple, bs_y: int, bs_x: int, pel: int):
+    """(offsets as a tuple of int pairs, min_dx, min_dy, wy, wx): an offset
+    set made canonical once, with its window (_window_geom)."""
+    offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
+    return (offsets,) + _window_geom(offsets, bs_y, bs_x, pel)
+
+
+def _offset_set(offsets, bs_y: int, bs_x: int, pel: int):
+    """_offset_window of any offset sequence (a tuple is looked up as it
+    is)."""
+    try:
+        return _offset_window(offsets, bs_y, bs_x, pel)
+    except TypeError:                   # unhashable: a list, or lists in it
+        return _offset_window(tuple(tuple(o) for o in offsets), bs_y, bs_x,
+                              pel)
+
+
 def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
-                     bs_x: int, pel: int, stats: str = "sad") -> torch.Tensor:
+                     bs_x: int, pel: int, stats: str = "sad",
+                     active=None) -> torch.Tensor:
     """Plain PyTorch version of the per-block probe (same contract as the
     kernel, either form).  Out-of-range rule: the window of the whole offset set is
     shifted as a whole into the plane and each offset's block keeps its
     place inside it — what a window slice (wrap_clamp) followed by an
-    in-window slice does."""
+    in-window slice does.  active: None, or a bool tensor that broadcasts
+    to [J, nblk, K, D]; an inactive entry reports INVALID_SAD (in all
+    three)."""
     global plain_calls_on_cuda
     if stack.is_cuda:
         plain_calls_on_cuda += 1
@@ -243,17 +272,111 @@ def probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
         ref = _gather_at(stack, sub, (ay >> logp) + shift_y,
                          (ax >> logp) + shift_x, bs_y, bs_x)
         cols.append(_block_costs(ref, src, stats3))
-    return torch.stack(cols, dim=3).to(I32)
+    out = torch.stack(cols, dim=3).to(I32)
+    return out if active is None else _invalid_where(active, out)
 
 
-def _probe_block_lib(stats3: bool):
-    lib = cuda_build.load("probe_block")
-    fn = lib.mvt_probe_sads_stats3 if stats3 else lib.mvt_probe_sads
-    if not fn.argtypes:
+# CTA sizes of the per-block probe, largest first
+PROBE_BLOCK_THREADS = (256, 128, 64, 32)
+
+
+def probe_block_launch_geom(bs_y: int, bs_x: int, n_entries: int, u16: bool,
+                            n_sm: int) -> dict:
+    """Launch geometry of the per-block probe (K4,
+    csrc/probe_block.cu::probe_block_kernel<T, CW, HALF>) for a block size,
+    n_entries (job, block, candidate, offset) entries and a card of n_sm
+    SMs.
+
+    A block row is `wpr` 32-bit words (half a word where a uint8 block is
+    2 pixels wide: `half`), cut in parts of `cw` words (the most of 4, 2, 1
+    that divide the row; 2**lppr parts a row).  `g` = 2**lg lanes take one
+    entry, `parts` parts each (part q of the block: lane q % g), so every
+    offset of an item is in flight at once.  CTAs of `threads` lanes, the
+    largest of PROBE_BLOCK_THREADS that still gives each SM a CTA (32 where
+    none does), `ctas` of them.  Widths the kernel does not take raise."""
+    ppw = 2 if u16 else 4
+    half = not u16 and bs_x == 2
+    if bs_y < 1 or bs_x < 1 or (not half and bs_x % ppw):
+        raise ValueError(f"probe_sads: no kernel for {bs_x}-pixel-wide "
+                         f"{'uint16' if u16 else 'uint8'} blocks")
+    wpr = 1 if half else bs_x // ppw
+    cw = next(c for c in (4, 2, 1) if wpr % c == 0)
+    ppr = wpr // cw
+    if ppr & (ppr - 1):
+        raise ValueError(f"probe_sads: no kernel for {bs_x}-pixel-wide "
+                         "blocks (the parts of a row must be a power of 2)")
+    n_parts = bs_y * ppr
+    g = min(32, n_parts & -n_parts)
+    lanes = n_entries * g
+    threads = next((t for t in PROBE_BLOCK_THREADS
+                    if -(-lanes // t) >= n_sm), PROBE_BLOCK_THREADS[-1])
+    return dict(cw=cw, half=half, g=g, lg=g.bit_length() - 1,
+                parts=n_parts // g, lppr=ppr.bit_length() - 1,
+                threads=threads, ctas=-(-lanes // threads))
+
+
+# the ints of a per-block probe launch, in the order mvt_probe_sads reads
+# them (csrc/probe_block.cu::K4Arg)
+_PROBE_BLOCK_ARGS = ("n_jobs", "n_sub", "hp", "wp", "nblk", "k", "d", "bs_y",
+                     "bs_x", "logp", "min_dy", "min_dx", "wy", "wx", "u16",
+                     "cw", "half", "lg", "parts", "lppr", "threads")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _probe_block_launch(offsets: tuple, bs_y: int, bs_x: int, pel: int,
+                        u16: bool, stack_shape, cand_shape, device):
+    """(offsets table, the launch's ints as a ctypes array) of a per-block
+    probe call: everything but the pointers, made once per offset set,
+    block size, shapes and device."""
+    _, min_dx, min_dy, wy, wx = _offset_window(offsets, bs_y, bs_x, pel)
+    nj, n_sub, hp, wp = stack_shape
+    _, nblk, kk = cand_shape
+    g = probe_block_launch_geom(bs_y, bs_x, nj * nblk * kk * len(offsets),
+                                u16, _sm_count(device.index))
+    vals = dict(n_jobs=nj, n_sub=n_sub, hp=hp, wp=wp, nblk=nblk, k=kk,
+                d=len(offsets), bs_y=bs_y, bs_x=bs_x,
+                logp=pel.bit_length() - 1, min_dy=min_dy, min_dx=min_dx,
+                wy=wy, wx=wx, u16=int(u16), **{k: int(v) for k, v in g.items()
+                                               if k != "ctas"})
+    args = (ctypes.c_int * len(_PROBE_BLOCK_ARGS))(
+        *(vals[k] for k in _PROBE_BLOCK_ARGS))
+    return _offsets_tensor(offsets, device), args
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_block_fn(stats3: bool):
+    fn = getattr(cuda_build.load("probe_block"),
+                 "mvt_probe_sads_stats3" if stats3 else "mvt_probe_sads")
+    if stats3:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _on_device(dev, fn, *args):
+    """fn(*args) with `dev` the current CUDA device (a kernel launches on
+    the current device's stream)."""
+    if torch.cuda.current_device() == dev.index:
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
+def _stream(dev) -> int:
+    """The handle of CUDA device dev's current stream: what
+    torch.cuda.current_stream(dev).cuda_stream gives, without making a
+    Stream object (a tenth of its host time; the call Triton's launcher
+    makes)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _launch_name(name: str, stack) -> str:
@@ -285,7 +408,8 @@ def _check_probe_args(what, stack, cand_y, cand_x, src_blocks, bs_y, bs_x,
 
 
 def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
-               bs_x: int, pel: int, stats: str = "sad") -> torch.Tensor:
+               bs_x: int, pel: int, stats: str = "sad",
+               active=None) -> torch.Tensor:
     """[J, nblk, K, D] int32 SADs, one window per (block, candidate); with
     stats="sad_satd_luma" [J, nblk, K, D, 3] triples (SAD, SATD, sum of the
     reference block).
@@ -293,37 +417,70 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     stack: [J, pel^2, Hp, Wp] uint8 or uint16 pad_stack output;
     cand_y/cand_x: [J, nblk, K] int32 candidate pel positions (see module
     doc); src_blocks: [J, nblk, bs_y, bs_x] of the stack's dtype; offsets:
-    static [(dx, dy), ...] pel offsets evaluated per candidate.  The kernel
-    serves every call on CUDA tensors, however few the blocks."""
-    offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
+    static [(dx, dy), ...] pel offsets evaluated per candidate; active:
+    optional bool tensor that broadcasts to [J, nblk, K, D] (None: all): an
+    inactive entry reads no pixel and reports INVALID_SAD (in all three;
+    the three-stat kernel computes it and the wrapper masks it).  The
+    kernel serves every call on CUDA tensors, however few the blocks."""
+    offsets, _, _, wy, wx = _offset_set(offsets, bs_y, bs_x, pel)
     stats3 = _check_stats("probe_sads", stats, stack)
     _check_probe_args("probe_sads", stack, cand_y, cand_x, src_blocks, bs_y,
                       bs_x, pel, stats3)
-    min_dx, min_dy, wy, wx = _window_geom(offsets, bs_y, bs_x, pel)
     if stack.shape[2] < wy or stack.shape[3] < wx:
         raise ValueError("probe_sads: the plane is smaller than the window "
                          "of the offset set")
-    if not stack.is_cuda:
-        return probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets,
-                                bs_y, bs_x, pel, stats)
     dev = stack.device
     nj, nblk, kk = cand_y.shape
-    offs = _offsets_tensor(offsets, dev)
+    active = _active_mask(active, (nj, nblk, kk, len(offsets)), dev)
+    if not stack.is_cuda:
+        return probe_sads_plain(stack, cand_y, cand_x, src_blocks, offsets,
+                                bs_y, bs_x, pel, stats, active)
     name = "probe_sads[stats3]" if stats3 else "probe_sads"
     name = _launch_name(name, stack)
-    out = torch.empty((nj, nblk, kk, len(offsets)) + ((3,) if stats3 else ()),
-                      dtype=I32, device=dev)
-    with torch.cuda.device(dev):
-        err = _probe_block_lib(stats3)(
-            stack.data_ptr(), cand_y.data_ptr(), cand_x.data_ptr(),
-            src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
-            nj, pel * pel, stack.shape[2], stack.shape[3], nblk, kk,
-            len(offsets), bs_y, bs_x, pel.bit_length() - 1, min_dy, min_dx,
-            wy, wx, int(stack.dtype == torch.uint16),
-            torch.cuda.current_stream().cuda_stream)
+    if src_blocks.data_ptr() % 16:
+        src_blocks = src_blocks.clone()     # the kernel reads 4-16 B words
+    launch = _launch_block_stats3 if stats3 else _launch_block
+    out, err = launch(stack, cand_y, cand_x, src_blocks, offsets, bs_y, bs_x,
+                      pel, active)
     cuda_build.check_launch(err, name)
     launches[name] += 1
+    if stats3 and active is not None:       # K4' computes every entry
+        out = _invalid_where(active, out)
     return out
+
+
+def _launch_block(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
+                  bs_x: int, pel: int, active):
+    """(output, CUDA error) of a launch of the per-block probe (K4)."""
+    dev = stack.device
+    offs, args = _probe_block_launch(offsets, bs_y, bs_x, pel,
+                                     stack.dtype == torch.uint16,
+                                     stack.shape, cand_y.shape, dev)
+    out = torch.empty(cand_y.shape + (len(offsets),), dtype=I32, device=dev)
+    err = _on_device(dev, _probe_block_fn(False), stack.data_ptr(),
+                     cand_y.data_ptr(), cand_x.data_ptr(),
+                     src_blocks.data_ptr(), offs.data_ptr(),
+                     None if active is None else active.data_ptr(),
+                     out.data_ptr(), args, _stream(dev))
+    return out, err
+
+
+def _launch_block_stats3(stack, cand_y, cand_x, src_blocks, offsets,
+                         bs_y: int, bs_x: int, pel: int, active):
+    """(output, CUDA error) of a launch of the three-stat per-block probe
+    (K4'), which computes every entry (`active` is applied after it)."""
+    dev = stack.device
+    nj, nblk, kk = cand_y.shape
+    min_dx, min_dy, wy, wx = _window_geom(offsets, bs_y, bs_x, pel)
+    offs = _offsets_tensor(offsets, dev)
+    out = torch.empty((nj, nblk, kk, len(offsets), 3), dtype=I32, device=dev)
+    err = _on_device(dev, _probe_block_fn(True), stack.data_ptr(),
+                     cand_y.data_ptr(), cand_x.data_ptr(),
+                     src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
+                     nj, pel * pel, stack.shape[2], stack.shape[3], nblk, kk,
+                     len(offsets), bs_y, bs_x, pel.bit_length() - 1, min_dy,
+                     min_dx, wy, wx, 0, _stream(dev))
+    return out, err
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +554,8 @@ def _active_mask(active, shape, device):
         raise ValueError(f"active: need a bool tensor, got {active.dtype}")
     if active.device != device:
         raise ValueError(f"active: on {active.device}, expected {device}")
+    if active.shape == shape and active.is_contiguous():
+        return active
     return torch.broadcast_to(active, shape).contiguous()
 
 
@@ -513,24 +672,19 @@ def probe_sads_tiled(stack, cand_y, cand_x, src_blocks, offsets,
     nothing and reports INVALID_SAD (in all three).  Block rows are treated
     as edge-padded to a multiple of `tile` (the kernel clamps member indices
     instead of materialising the padding).  A plane smaller than the tile
-    window is served by probe_sads: every candidate is then valid, and the
-    mask is applied to its output."""
-    offsets = tuple((int(dx), int(dy)) for dx, dy in offsets)
+    window is served by probe_sads: every candidate is then valid, and it
+    takes the mask as this kernel does."""
+    offsets = _offset_set(offsets, bs_y, bs_x, pel)[0]
     nj, nblk, kk = cand_y.shape
     active = _active_mask(active, (nj, nblk, kk, len(offsets)), stack.device)
     if tile <= 0:
         tile = 8 if kk <= 2 else 4
-    wy_total, wx_total, center_y, center_x = tile_params(
-        offsets, bs_y, bs_x, pel, tile, pitch_x,
-        margin_y=margin_y, margin_x=margin_x)
+    wy_total, wx_total, center_y, center_x = _tile_window(
+        offsets, bs_y, bs_x, pel, tile, pitch_x, margin_y, margin_x)
     if (stack.shape[-2] < wy_total or stack.shape[-1] < wx_total
             or nblk % row_len != 0):
-        if active is None:
-            return probe_sads(stack, cand_y, cand_x, src_blocks, offsets,
-                              bs_y, bs_x, pel, stats)
-        return _invalid_where(active, probe_sads(
-            stack, cand_y, cand_x, src_blocks, offsets, bs_y, bs_x, pel,
-            stats))
+        return probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y,
+                          bs_x, pel, stats, active)
     stats3 = _check_stats("probe_sads_tiled", stats, stack)
     _check_probe_args("probe_sads_tiled", stack, cand_y, cand_x, src_blocks,
                       bs_y, bs_x, pel, stats3)
