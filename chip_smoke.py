@@ -16,15 +16,16 @@ blocks and at pel 1, the tiled fetch also on the DCT path's map rows, at
 origins outside the plane and with 8x8 blocks; the per-block probe also with
 masks that leave about 30 %, 3 % and none of its entries live and at a
 block size of each of its width classes, 2x2, 4x2, 8x1, 64x64 and 128x128,
-at 8 and 10 bits; the uint16 forms of K1-K5
+at 8 and 10 bits, and its three-stat form also with masks that leave
+about 30 %, 3 % and none of its entries live; the uint16 forms of K1-K5
 at the deep-bit YUV420 path's shapes on 16-bit and on 10-bit data, with
 blocks of 0 against the pixel maximum; the three-stat tiled probe also on
 blocks of 0 against 255 and with 8x8, 32x32 and 64x64 blocks; the maps and
 the tiled probes also timed by their device time in a torch.profiler
 trace), prints the SASS opcode counts of every kernel form, checks small end-to-end runs on the card against the
 same code on CPU tensors (at 8 and at 16 bits, degrain_clip and the gray
-degrain_window), and drives six main paths
-at full width:
+degrain_window; flowfps_clip and every motion-compensated consumer), and
+drives seven main paths at full width:
 
 * the gray headline path (1920x1080 gray, blk 16, pel 2, 3 levels, Degrain1,
   batch 8) through degrain_window: first on a clip with a flashing region,
@@ -54,7 +55,12 @@ at full width:
   Analyse and in Recalculate, 4 frame pairs): the candidates' blocks come
   from the per-block fetch and, for the dense map of every level whose stack
   is wide enough, the tiled fetch; no SAD map or probe kernel may launch.
-  First with the flash (the rescue must run), then without it (it must not).
+  First with the flash (the rescue must run), then without it (it must not);
+* the frame-rate conversion path (bench.py config 5: 1920x1080 gray, pel 2,
+  blk 16, the full pyramid, FlowFPS maskmode 2, 30 -> 60 fps) through
+  flowfps_clip on 9 frames, with the flashing region (the SAD map and the
+  tiled probe must launch) and without it (the SAD map must, neither probe
+  may).
 
 It also holds the block DCT on the card against the CPU on more than a
 million blocks (dct_vs_cpu: not one coefficient may differ) and runs the
@@ -66,7 +72,7 @@ result.  The last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-additionally traces one more full-width run of each of the eleven clips
+additionally traces one more full-width run of each of the thirteen clips
 with torch.profiler and prints where the device time went (busy share,
 kernels by time, and the summed device time of every kernel form; for the
 two flash clips also the per-block probe's time by launch grid, and for the
@@ -75,18 +81,20 @@ level).
 
     python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
                           [--sass-out FILE] [--sass-reference FILE]
+                          [--paths gray,yuv,yuv16,satd,dct,fps]
 
-times the 8-bit kernels at the YUV420 and DCT paths' shapes, the per-block
-probe at 8, 16 and 10 bits at theirs and at its width classes (phase
-redesigned_kernel_times), and drives
-the full-width paths (no other kernel comparison, no small runs, no
+times the 8-bit kernels at the YUV420 and DCT paths' shapes, the
+three-stat per-block probe at the SATD path's level-5 shapes, masked and
+not (phase redesigned_kernel_times), and drives the full-width paths (no other kernel comparison, no small runs, no
 kernels line and no "ok" line), with the package of the checkout at DIR if
 given: the way to compare two trees' kernels, paths and kernel sums in one
-call.  DIR must hold a package that has the uint16 kernel forms and
-Super.take.  --sass-out writes the sass phase's opcode counts as JSON;
+call; --paths runs only the named paths (satd: the Recalculate and the
+SATD Analyse paths; fps: the frame-rate conversion path, skipped for a
+package that has none).  DIR must hold a package that has the uint16
+kernel forms and Super.take.  --sass-out writes the sass phase's opcode counts as JSON;
 --sass-reference reads such a file (another tree's) and fails unless every
-kernel form of SASS_HELD (all but the per-block probe's uint8 and uint16
-forms) counts the same opcodes.
+kernel form of SASS_HELD (all but the three-stat per-block probe) counts
+the same opcodes.
 """
 
 import dataclasses
@@ -150,6 +158,9 @@ K2_U16_BEFORE = {16: (0.585, 0.343, 0.832, 0.391),
 # K4's and K4 u16's previous body at k4_cases's shapes, in its order (the
 # nine YUV420-path shapes, then the three masked ones), by bit depth
 # (CUDA-event ms, PERF.md, H100 80GB HBM3, 700 W)
+# K4''s previous body at k4p_cases's three unmasked shapes (CUDA-event ms,
+# PERF.md, H100 80GB HBM3, 700 W)
+K4P_BEFORE = (0.039, 0.039, 0.027)
 K4_BEFORE = {8: (0.0672, 0.0570, 0.0531, 0.0611, 0.0649, 0.0352, 0.0480,
                  0.0402, 0.0542, 0.1719, 0.0854, 0.1484),
              16: (0.0543, 0.0582, 0.0512, 0.0403, 0.0545, 0.0544, 0.0579,
@@ -600,11 +611,13 @@ def k4_direct_case(label, stack, cy, cx, src_blocks, offsets, bsy, bsx, pel,
                bound_by=b_by, bytes=n_bytes, ops=n_ops)
     if active is not None:
         res["live_share"] = float(active.float().mean())
+    n_sm = torch.cuda.get_device_properties(stack.device).multi_processor_count
     if stats == "sad" and hasattr(probe, "probe_block_launch_geom"):
         res["launch"] = probe.probe_block_launch_geom(
-            bsy, bsx, out.numel(), stack.dtype == torch.uint16,
-            torch.cuda.get_device_properties(stack.device)
-            .multi_processor_count)
+            bsy, bsx, out.numel(), stack.dtype == torch.uint16, n_sm)
+    elif stats != "sad" and hasattr(probe, "probe_block3_launch_geom"):
+        res["launch"] = probe.probe_block3_launch_geom(
+            bsy, bsx, out.shape[:4].numel(), n_sm)
     if before_ms is not None:
         res["before_ms"] = before_ms
     return res
@@ -1010,7 +1023,7 @@ KERNEL_NAMES = {
     "probe_sads": r"probe_block_kernel(<unsigned char[,>]|\()",
     "sad_map[stats3]": r"sadmap(3|_stats3)_kernel[<(]",
     "probe_sads_tiled[stats3]": r"probe_stats3_kernel[<(]",
-    "probe_sads[stats3]": r"probe_block_stats3_kernel\(",
+    "probe_sads[stats3]": r"probe_block_stats3_kernel[<(]",
     "fetch_blocks_tiled": r"fetch_kernel<(unsigned char, )?-?\d+, 1>",
     "fetch_blocks": r"fetch_kernel<(unsigned char, )?-?\d+, 0>",
     "sad_map[u16]": r"sadmap(16_kernel<|_kernel<unsigned short)",
@@ -1041,9 +1054,8 @@ SASS_FORMS = {
 
 
 # the forms whose SASS must stay another tree's (--sass-reference): all but
-# the ones this tree redesigned
-SASS_HELD = tuple(f for f in SASS_FORMS
-                  if f not in ("probe_sads", "probe_sads[u16]"))
+# the one this tree redesigned
+SASS_HELD = tuple(f for f in SASS_FORMS if f != "probe_sads[stats3]")
 
 
 def arg_value(flag):
@@ -1683,10 +1695,8 @@ def satd_kernel_cases(gen, dev):
     k2.append(k2_case(ctx, stacks, gen, HEXAGON, 1, "level 0 K=1 hexagon D=6",
                       stats=STATS3, masked=True, before_ms=K2P_BEFORE[3]))
     del ctx, stacks
-    ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 5)
-    for offsets in (HEXAGON, tuple(fe._HEXP), ((0, 0),)):
-        k4.append(k4_case(ctx, stacks, gen, offsets, 1, stats=STATS3))
-    del ctx, stacks, sups
+    k4 += k4p_cases(sspec, aspec, sups, src_idx, ref_idx, gen)
+    del sups
     # K1' at the geometries the two paths do not reach: 8x8 and 32x32
     # blocks, pitch 8 and 16, pel 1 (level 0 of the same clip, 4 jobs)
     fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
@@ -1709,6 +1719,22 @@ def satd_kernel_cases(gen, dev):
     del clip
     torch.cuda.empty_cache()
     return k1, k2, k4
+
+
+def k4p_cases(sspec, aspec, sups, src_idx, ref_idx, gen):
+    """K4' on the SATD Analyse path's level-5 plane (under the tile window)
+    at the rescue's shapes [8, 6, 1, D, 3], D = 6 (hexagon), 8 (walk) and 1,
+    then the hexagon with masks that leave about 30 %, 3 % and none of its
+    entries live."""
+    ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, ref_idx, 5)
+    before = iter(K4P_BEFORE)
+    cases = [k4_case(ctx, stacks, gen, offsets, 1, stats=STATS3,
+                     before_ms=next(before))
+             for offsets in (HEXAGON, tuple(fe._HEXP), ((0, 0),))]
+    cases += [k4_case(ctx, stacks, gen, HEXAGON, 1, stats=STATS3, live=m)
+              for m in K4_MASKS]
+    del ctx, stacks
+    return cases
 
 
 def small_end_to_end_satd(dev):
@@ -2043,23 +2069,26 @@ def u8_kernel_times(cfgs, dev):
                                  ("fetch_blocks", k5))}})
 
 
-def redesigned_kernel_times(cfgs, dev):
-    """K4 and K4 u16 (redesigned in this tree) at the nine shapes of the
-    YUV420 paths and the masked ones (k4_cases), at 8, 16 and 10 bits, and
-    at their width classes (k4_width_cases), against their plain versions,
-    for --paths-only: with --package-root the other tree's kernels, so that
-    one call times both trees in turns."""
+def redesigned_kernel_times(dev):
+    """K4' (redesigned in this tree) at the SATD Analyse path's level-5
+    shapes and the masked ones (k4p_cases), against its plain version, for
+    --paths-only: with --package-root the other tree's kernel, so that one
+    call times both trees in turns."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     keys = ("case", "ms", "device_ms", "bound_ms", "bound_by", "bytes",
             "ops", "plain_ms", "before_ms", "live_share", "launch")
-    k4 = {bits: k4_cases(cfgs, gen, dev, bits) for bits in (8, DEEP_BITS, 10)}
-    width = {bits: k4_width_cases(gen, dev, bits) for bits in (8, 10)}
+    sspec, aspec, _, _ = chain_specs(W, H, 5)
+    clip = satd_clip(RECALC_PAIRS + 1, W, H, 1, YUV_FLASH, SATD_CLEAN, dev)
+    sups = build_super([clip], sspec)
+    src_idx = torch.arange(1, RECALC_PAIRS, 2, device=dev).repeat_interleave(2)
+    ref_idx = src_idx + 1 - 2 * (torch.arange(RECALC_PAIRS, device=dev) % 2)
+    cases = k4p_cases(sspec, aspec, sups, src_idx, ref_idx, gen)
+    del clip, sups
+    torch.cuda.empty_cache()
     emit({"phase": "redesigned_kernel_times",
-          **{name: [{k: c[k] for k in keys if k in c} for c in cases]
-             for name, cases in (
-                 ("probe_sads", k4[8] + width[8]),
-                 ("probe_sads[u16]", k4[DEEP_BITS] + k4[10] + width[10]))}})
+          "probe_sads[stats3]": [{k: c[k] for k in keys if k in c}
+                                 for c in cases]})
 
 
 def run_yuv16_paths(cfgs, dev, profile):
@@ -2135,6 +2164,295 @@ def small_end_to_end(dev):
           "frames": 6, "bit_equal_to_cpu": True, "launches": small_counts})
 
 
+# the frame-rate conversion path (bench.py config 5): 9 input frames of
+# 1920x1080 gray -> 17 output frames at twice the rate
+FPS_T = 9
+
+
+def has_fps():
+    """Whether the package driven has the frame-rate conversion entry point
+    (a tree given by --package-root may predate it)."""
+    import importlib.util
+    return importlib.util.find_spec("mvtools_tpu_torch.models.frc") \
+        is not None
+
+
+def run_fps_clip(phase, clip, cfgs):
+    """Drive flowfps_clip over a full-width gray clip [T, H, W] once, with
+    every count set to 0 just before and read just after; check the output
+    (2T - 1 frames on the card, the even ones the sources, every
+    interpolated one unlike both of its sources); print and return the
+    phase's numbers."""
+    from fractions import Fraction
+
+    from mvtools_tpu_torch.core.thscd import is_usable, scale_thscd
+    from mvtools_tpu_torch.models.frc import flowfps_clip, frame_plan
+    scfg, acfg, fcfg, fps_in, fps_out = cfgs
+    fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    info = {}
+    t0 = time.perf_counter()
+    out = flowfps_clip([clip], fmt, fps_in, fps_out, scfg, acfg, fcfg,
+                       info=info)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    syncs = fe.host_syncs
+    plain_on_cuda = plain_calls_on_cuda()
+    peak = torch.cuda.max_memory_allocated()
+    t_in = clip.shape[0]
+    plan, _, _ = frame_plan(t_in, Fraction(fps_in) / Fraction(fps_out),
+                            len(out), fcfg.maskmode)
+    if len(out) != 2 * t_in - 1:
+        raise AssertionError(f"{phase}: {len(out)} output frames")
+    for n, ((nl, nr, time256, _), planes) in enumerate(zip(plan, out)):
+        got = planes[0]
+        if (tuple(got.shape) != (H, W) or got.dtype != torch.uint8
+                or got.device.type != "cuda"):
+            raise AssertionError(f"{phase}: frame {n} {tuple(got.shape)} "
+                                 f"{got.dtype} {got.device}")
+        if time256 == 0:
+            if not torch.equal(got, clip[nl]):
+                raise AssertionError(f"{phase}: passthrough frame {n} is "
+                                     "not its source")
+        elif torch.equal(got, clip[nl]) or torch.equal(got, clip[nr]):
+            raise AssertionError(f"{phase}: interpolated frame {n} equals "
+                                 "a source")
+    if plain_on_cuda:
+        raise AssertionError(f"{phase}: {plain_on_cuda} plain-version "
+                             "calls on CUDA tensors")
+    meta = info["fields_b"].meta
+    n1, n2 = scale_thscd(fcfg.thscd1, fcfg.thscd2, meta)
+    usable = (is_usable(info["fields_b"], n1, n2)
+              & is_usable(info["fields_f"], n1, n2))
+    ev = info["events"]
+    res = {"phase": phase, "size": [W, H], "format": "GRAY",
+           "frames_in": t_in, "frames_out": len(out),
+           "interpolated": sum(1 for p in plan if p[2]),
+           "fps_in": str(fps_in), "fps_out": str(fps_out),
+           "maskmode": fcfg.maskmode, "levels": len(meta.level_blocks()),
+           "analyse_jobs": 2 * len(info["keys_b"]),
+           "scene_change_intervals": int((~usable).sum()),
+           "output_frames_per_s": len(out) / seconds, "seconds": seconds,
+           "stage_ms": {k: ev[k][0].elapsed_time(ev[k][1]) for k in ev},
+           "host_syncs": syncs, "launches": counts,
+           "peak_memory_bytes": peak, "plain_calls_on_cuda": plain_on_cuda}
+    emit(res)
+    return res
+
+
+def run_fps_paths(dev, profile):
+    """The frame-rate conversion path (bench.py config 5: gray, pel 2, blk
+    16, truemotion, the full pyramid, FlowFPS maskmode 2, 30 -> 60 fps) at
+    full width through flowfps_clip: first on a clip with the flashing
+    region (the SAD map and the tiled probe must launch), then without it
+    (the SAD map must, neither probe may)."""
+    from mvtools_tpu_torch.models.frc import flowfps_clip, fps_configs
+    cfgs = fps_configs()
+    fmt = VideoFormat(W, H, 8, ColorFamily.GRAY)
+    res = []
+    for phase, flash in (("fps_main_path", FLASH),
+                         ("fps_main_path_calm", None)):
+        clip = make_test_clip(FPS_T, W, H, seed=0, flash=flash, device=dev)
+        flowfps_clip([clip], fmt, *cfgs[3:], *cfgs[:3])      # warm-up
+        r = run_fps_clip(phase, clip, cfgs)
+        c = r["launches"]
+        if c["sad_map"] < 1:
+            raise AssertionError(f"{phase}: the SAD map never launched {c}")
+        if flash and c["probe_sads_tiled"] < 1:
+            raise AssertionError(f"{phase}: the flash sent no block to the "
+                                 f"rescue's tiled probe {c}")
+        if not flash and (c["probe_sads_tiled"] or c["probe_sads"]):
+            raise AssertionError(f"{phase}: the rescue ran on the clip "
+                                 f"without the flash {c}")
+        other = {k: v for k, v in c.items()
+                 if v and ("[" in k or k.startswith("fetch"))}
+        if other:
+            raise AssertionError(f"{phase}: a kernel off the path ran "
+                                 f"{other}")
+        if profile:
+            profile_run(phase, lambda: flowfps_clip(
+                [clip], fmt, *cfgs[3:], *cfgs[:3]),
+                split=("probe_sads",) if flash else ())
+        res.append(r)
+        del clip
+    torch.cuda.empty_cache()
+    return res
+
+
+def fields_equal(name, a, b):
+    """a (on the card) and b (on the CPU): MVFields equal level by level."""
+    for lv, (la, lb) in enumerate(zip(a.levels, b.levels)):
+        for key in ("x", "y", "sad"):
+            if not torch.equal(getattr(la, key).cpu(), getattr(lb, key)):
+                raise AssertionError(f"{name}: level {lv} {key} differs "
+                                     "between the card and the CPU")
+    if not torch.equal(a.validity.cpu(), b.validity):
+        raise AssertionError(f"{name}: validity differs")
+
+
+def planes_equal(name, a, b):
+    for p, (x, y) in enumerate(zip(a, b)):
+        if x.device.type != "cuda":
+            raise AssertionError(f"{name}: plane {p} not on the card")
+        if not torch.equal(x.cpu(), y):
+            raise AssertionError(f"{name}: plane {p} differs between the "
+                                 "card and the CPU")
+
+
+def consumers_card_vs_cpu(dev, clip, fields, scfg, acfg):
+    """The motion-compensated consumers of the frame-rate conversion slice
+    on the small gray clip [5, H, W] (CPU) and the fields of its
+    flowfps_clip run (fields: (card info, CPU info)), on the card against
+    the same code on CPU tensors (torch.equal); returns the modules
+    checked.  Mask also at gamma 2 and 0.5 and the occlusion mask at gamma
+    2: float64 pow, where the card's and the CPU's libm may differ."""
+    import dataclasses as dc
+
+    from mvtools_tpu_torch import (blockfps, compensate, flow, flowblur,
+                                   flowinter, mask, scdetect)
+    from mvtools_tpu_torch.models.denoise import (degrain1_clip,
+                                                  degrain1_frame,
+                                                  degrain_n_frame, field_job)
+    fmt = VideoFormat(SMALL_W, SMALL_H, 8, ColorFamily.GRAY)
+    sspec = scfg.validate(fmt)
+    aspec_b = dc.replace(acfg, isb=True).validate(sspec)
+    aspec_f = dc.replace(acfg, isb=False).validate(sspec)
+    sups = {"cuda": build_super([clip.to(dev)], sspec),
+            "cpu": build_super([clip], sspec)}
+
+    def job(info, name, key):
+        return field_job(info["fields_" + name],
+                         info["keys_" + name].index(key))
+
+    def both(fn):
+        """fn(device kind, its tensors) on the card and on the CPU."""
+        out = []
+        for k, info in zip(("cuda", "cpu"), fields):
+            d = dev if k == "cuda" else torch.device("cpu")
+            sup = sups[k]
+            out.append(fn(
+                lambda n: [clip[n].to(d)],
+                lambda n: sup.map(lambda a, n=n: a[n]),
+                lambda name, key: job(info, name, key), d))
+        return out
+
+    checked = []
+
+    def check(name, fn):
+        reset_counts()
+        card, cpu = both(fn)
+        if plain_calls_on_cuda():
+            raise AssertionError(f"small end-to-end fps: {name} ran a plain "
+                                 "version on CUDA tensors")
+        if isinstance(card, torch.Tensor):
+            card, cpu = [card], [cpu]
+        planes_equal(f"small end-to-end fps: {name}", card, cpu)
+        checked.append(name)
+
+    mb, mf = aspec_b.meta, aspec_f.meta
+    check("flowinter", lambda fr, sp, f, d: flowinter.flowinter(
+        fr(1), fr(2), sp(1), sp(2), f("b", 1), f("f", 1), mb,
+        flowinter.FlowInterConfig(time=40.0), f("b", 2), f("f", 0)))
+    for mode in (0, 1):
+        check(f"flow mode {mode}", lambda fr, sp, f, d, mode=mode: flow.flow(
+            fr(1), sp(2), f("b", 1), mb, flow.FlowConfig(time=70.0,
+                                                         mode=mode)))
+    check("flowblur", lambda fr, sp, f, d: flowblur.flowblur(
+        fr(2), sp(2), f("b", 2), f("f", 1), mb,
+        flowblur.FlowBlurConfig(blur=100.0, thscd1=16320, thscd2=255)))
+    for mode in range(9):
+        check(f"blockfps mode {mode}", lambda fr, sp, f, d, mode=mode:
+              blockfps.blockfps_frame(
+                  fr(2), fr(3), sp(2), sp(3), f("b", 2), f("f", 2), mb,
+                  blockfps.BlockFPSConfig(mode=mode), 96))
+    for shift in (0, 1):
+        check(f"compensate field shift {shift}",
+              lambda fr, sp, f, d, shift=shift: compensate.compensate(
+                  sp(0), sp(1), f("b", 0), mb,
+                  compensate.CompensateConfig(thsad=300, time=60.0), shift))
+    check("scdetect", lambda fr, sp, f, d: torch.stack([
+        scdetect.scdetect(f(n, k), mb) for n in ("b", "f")
+        for k in (0, 1, 2, 3)]))
+    for kind in range(6):
+        for gamma in (1.0, 2.0, 0.5):
+            check(f"mask kind {kind} gamma {gamma}",
+                  lambda fr, sp, f, d, kind=kind, gamma=gamma: mask.mask(
+                      fr(2), f("f", 1), mf, mask.MaskConfig(
+                          kind=kind, gamma=gamma, ml=60.0, time=70.0)))
+    dcfg = DegrainConfig(thsad=400)
+    check("degrain1_frame", lambda fr, sp, f, d: degrain1_frame(
+        fr(2), fr(1), fr(3), sspec, aspec_b, aspec_f, dcfg))
+    check("degrain_n_frame radius 2", lambda fr, sp, f, d: degrain_n_frame(
+        fr(1), [fr(0), fr(0)], [fr(2), fr(3)], sspec, aspec_b, aspec_f, dcfg,
+        valid_b=[True, True], valid_f=[True, False]))
+    check("degrain1_clip", lambda fr, sp, f, d: degrain1_clip(
+        [clip.to(d)], fmt, scfg, acfg, dcfg))
+    return checked
+
+
+def small_end_to_end_fps(dev):
+    """Every module of the frame-rate conversion slice and of its sibling
+    consumers at 256x192 on the card against the same code on CPU tensors
+    (torch.equal): flowfps_clip on a gray clip with a flash (maskmode 0, 1
+    and 2) and on a YUV420 clip (chroma, overlap 8, maskmode 2); then the
+    consumers on the gray run's fields (consumers_card_vs_cpu)."""
+    from fractions import Fraction
+
+    from mvtools_tpu_torch.flowfps import FlowFPSConfig
+    from mvtools_tpu_torch.models.frc import flowfps_clip, fps_configs
+    scfg, acfg, fcfg, fps_in, fps_out = fps_configs()
+    gray = make_test_clip(5, SMALL_W, SMALL_H, seed=2, flash=SMALL_FLASH,
+                          device="cpu")
+    yuv = make_test_clip_yuv(5, SMALL_W, SMALL_H, seed=3,
+                             flash=SMALL_YUV_FLASH, noise=YUV_NOISE,
+                             pan=YUV_PAN, device="cpu")
+    runs = [(f"gray maskmode {m}", [gray], ColorFamily.GRAY, scfg, acfg,
+             FlowFPSConfig(maskmode=m)) for m in (2, 1, 0)]
+    runs.append(("yuv420 maskmode 2", yuv, ColorFamily.YUV420,
+                 SuperConfig(pel=2, levels=0, chroma=True),
+                 AnalyseConfig(blksize=16, levels=0, overlap=8,
+                               truemotion=True, chroma=True),
+                 FlowFPSConfig(maskmode=2)))
+    launches = {}
+    for name, clip, family, sc, ac, fc in runs:
+        fmt = VideoFormat(SMALL_W, SMALL_H, 8, family)
+        reset_counts()
+        info_gpu, info_cpu = {}, {}
+        out_gpu = flowfps_clip([p.to(dev) for p in clip], fmt, fps_in,
+                               fps_out, sc, ac, fc, info=info_gpu)
+        counts = read_counts()
+        if plain_calls_on_cuda():
+            raise AssertionError(f"small end-to-end fps {name}: a plain "
+                                 "version ran on CUDA tensors")
+        out_cpu = flowfps_clip(clip, fmt, fps_in, fps_out, sc, ac, fc,
+                               info=info_cpu)
+        for d in ("fields_b", "fields_f"):
+            fields_equal(f"small end-to-end fps {name} {d}", info_gpu[d],
+                         info_cpu[d])
+        if len(out_gpu) != len(out_cpu) or len(out_cpu) != 9:
+            raise AssertionError(f"small end-to-end fps {name}: frames")
+        for n, (a, b) in enumerate(zip(out_gpu, out_cpu)):
+            planes_equal(f"small end-to-end fps {name} frame {n}", a, b)
+        if counts["sad_map"] < 1:
+            raise AssertionError(f"small end-to-end fps {name}: the SAD map "
+                                 f"never launched {counts}")
+        launches[name] = counts
+        if name == "gray maskmode 2":
+            fields = (info_gpu, info_cpu)
+    modules = consumers_card_vs_cpu(dev, gray, fields, scfg, acfg)
+    emit({"phase": "small_end_to_end_fps", "size": [SMALL_W, SMALL_H],
+          "frames_in": 5, "frames_out": 9, "bit_equal_to_cpu": True,
+          "runs": list(launches), "launches": launches,
+          "modules_bit_equal_to_cpu": modules})
+
+
+# the full-width paths --paths may choose (with --paths-only)
+PATHS = ("gray", "yuv", "yuv16", "satd", "dct", "fps")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2148,6 +2466,16 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t_start = time.perf_counter()
     paths_only = "--paths-only" in sys.argv[1:]
+    profile = "--profile" in sys.argv[1:]
+    chosen = arg_value("--paths")
+    if chosen is not None and not paths_only:
+        sys.exit("chip_smoke: --paths needs --paths-only")
+    chosen = None if chosen is None else chosen.split(",")
+    if chosen is not None and not set(chosen) <= set(PATHS):
+        sys.exit(f"chip_smoke: --paths takes names of {PATHS}")
+
+    def wants(name):
+        return chosen is None or name in chosen
 
     # ---- build ------------------------------------------------------------
     build_s = cuda_build.build_all(verbose=True)
@@ -2172,146 +2500,172 @@ def main():
         small_end_to_end_yuv16(cfgs, dev)
         small_end_to_end_satd(dev)
         small_end_to_end_dct(dev)
+        small_end_to_end_fps(dev)
     else:
         u8_kernel_times(cfgs, dev)
-        redesigned_kernel_times(cfgs, dev)
+        redesigned_kernel_times(dev)
 
     # ---- gray main path at full width ---------------------------------------
-    n_windows = 2
-    frames = make_test_clip(BATCH * (n_windows + 1) + 2 * RADIUS, W, H,
-                            seed=0, flash=FLASH, device=dev)
-    windows = [frames[i * BATCH:i * BATCH + BATCH + 2 * RADIUS]
-               for i in range(n_windows + 1)]
-    degrain_window(windows[0], sspec, aspec, dcfg, RADIUS)    # warm-up
-    hot = run_windows("main_path", windows[1:], sspec, aspec, dcfg,
-                      changes_pixels=True)
-    gray_counts = hot["launches"]
-    if min(gray_counts[k] for k in gray_kernels) < 1:
-        raise AssertionError(f"main path: a kernel never launched "
-                             f"{gray_counts}")
+    if wants("gray"):
+        n_windows = 2
+        frames = make_test_clip(BATCH * (n_windows + 1) + 2 * RADIUS, W, H,
+                                seed=0, flash=FLASH, device=dev)
+        windows = [frames[i * BATCH:i * BATCH + BATCH + 2 * RADIUS]
+                   for i in range(n_windows + 1)]
+        degrain_window(windows[0], sspec, aspec, dcfg, RADIUS)    # warm-up
+        hot = run_windows("main_path", windows[1:], sspec, aspec, dcfg,
+                          changes_pixels=True)
+        gray_counts = hot["launches"]
+        if min(gray_counts[k] for k in gray_kernels) < 1:
+            raise AssertionError(f"main path: a kernel never launched "
+                                 f"{gray_counts}")
 
-    # the same path on the clip without the flashing region: no block is
-    # bad, so the rescue (and the probe kernel) must stay out of it
-    plain_clip = make_test_clip(BATCH * n_windows + 2 * RADIUS, W, H, seed=0,
-                                device=dev)
-    calm = run_windows(
-        "main_path_no_rescue",
-        [plain_clip[i * BATCH:i * BATCH + BATCH + 2 * RADIUS]
-         for i in range(n_windows)], sspec, aspec, dcfg,
-        changes_pixels=False)
-    if calm["launches"]["probe_sads_tiled"] != 0:
-        raise AssertionError("main path without bad blocks: the rescue ran")
-    profile = "--profile" in sys.argv[1:]
-    if profile:
-        profile_run("main_path", lambda: degrain_window(
-            windows[1], sspec, aspec, dcfg, RADIUS))
-        profile_run("main_path_no_rescue", lambda: degrain_window(
-            plain_clip[:BATCH + 2 * RADIUS], sspec, aspec, dcfg, RADIUS))
-    del frames, windows, plain_clip
-    torch.cuda.empty_cache()
+        # the same path on the clip without the flashing region: no block is
+        # bad, so the rescue (and the probe kernel) must stay out of it
+        plain_clip = make_test_clip(BATCH * n_windows + 2 * RADIUS, W, H,
+                                    seed=0, device=dev)
+        calm = run_windows(
+            "main_path_no_rescue",
+            [plain_clip[i * BATCH:i * BATCH + BATCH + 2 * RADIUS]
+             for i in range(n_windows)], sspec, aspec, dcfg,
+            changes_pixels=False)
+        if calm["launches"]["probe_sads_tiled"] != 0:
+            raise AssertionError("main path without bad blocks: the rescue "
+                                 "ran")
+        if profile:
+            profile_run("main_path", lambda: degrain_window(
+                windows[1], sspec, aspec, dcfg, RADIUS))
+            profile_run("main_path_no_rescue", lambda: degrain_window(
+                plain_clip[:BATCH + 2 * RADIUS], sspec, aspec, dcfg, RADIUS))
+        del frames, windows, plain_clip
+        torch.cuda.empty_cache()
 
     # ---- YUV420 main path at full width ------------------------------------
-    fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
-    flash_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, flash=YUV_FLASH,
-                                    noise=YUV_NOISE, pan=YUV_PAN, device=dev)
-    degrain_clip(flash_clip, fmt, *cfgs)                      # warm-up
-    yuv = run_yuv_clip("yuv_main_path", flash_clip, cfgs)
-    counts = yuv["launches"]
-    if min(counts[k] for k in PLAIN_KERNELS) < 1:
-        raise AssertionError(f"yuv main path: a kernel never launched "
-                             f"{counts}")
-    calm_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, noise=YUV_NOISE,
-                                   pan=YUV_PAN, device=dev)
-    yuv_calm = run_yuv_clip("yuv_main_path_calm", calm_clip, cfgs)
-    if (yuv_calm["launches"]["probe_sads_tiled"]
-            or yuv_calm["launches"]["probe_sads"]):
-        raise AssertionError("yuv main path without the flash: the rescue "
-                             f"ran {yuv_calm['launches']}")
-    if profile:
-        profile_run("yuv_main_path",
-                    lambda: degrain_clip(flash_clip, fmt, *cfgs),
-                    split=("probe_sads",))
-        profile_run("yuv_main_path_calm",
-                    lambda: degrain_clip(calm_clip, fmt, *cfgs))
+    if wants("yuv"):
+        fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
+        flash_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, flash=YUV_FLASH,
+                                        noise=YUV_NOISE, pan=YUV_PAN,
+                                        device=dev)
+        degrain_clip(flash_clip, fmt, *cfgs)                      # warm-up
+        yuv = run_yuv_clip("yuv_main_path", flash_clip, cfgs)
+        counts = yuv["launches"]
+        if min(counts[k] for k in PLAIN_KERNELS) < 1:
+            raise AssertionError(f"yuv main path: a kernel never launched "
+                                 f"{counts}")
+        calm_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, noise=YUV_NOISE,
+                                       pan=YUV_PAN, device=dev)
+        yuv_calm = run_yuv_clip("yuv_main_path_calm", calm_clip, cfgs)
+        if (yuv_calm["launches"]["probe_sads_tiled"]
+                or yuv_calm["launches"]["probe_sads"]):
+            raise AssertionError("yuv main path without the flash: the rescue "
+                                 f"ran {yuv_calm['launches']}")
+        if profile:
+            profile_run("yuv_main_path",
+                        lambda: degrain_clip(flash_clip, fmt, *cfgs),
+                        split=("probe_sads",))
+            profile_run("yuv_main_path_calm",
+                        lambda: degrain_clip(calm_clip, fmt, *cfgs))
 
-    del flash_clip, calm_clip
-    torch.cuda.empty_cache()
+        del flash_clip, calm_clip
+        torch.cuda.empty_cache()
 
     # ---- the YUV420 path at 16 bits, full width ---------------------------
-    yuv16, yuv16_calm = run_yuv16_paths(cfgs, dev, profile)
+    if wants("yuv16"):
+        yuv16, yuv16_calm = run_yuv16_paths(cfgs, dev, profile)
 
     # ---- Recalculate path at full width -------------------------------------
-    recalc_specs = chain_specs(W, H, 0)
-    recalc_clip = satd_clip(RECALC_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
-    satd_chain(recalc_clip, recalc_specs, {})                 # warm-up
-    recalc = run_satd_path("recalc_main_path", recalc_clip, recalc_specs,
-                           calm=True)
-    rc = recalc["launches"]
-    needed = ("sad_map", "sad_map[stats3]", "probe_sads_tiled[stats3]",
-              "fetch_blocks_tiled")
-    if min(rc[k] for k in needed) < 1:
-        raise AssertionError(f"recalc main path: a kernel never launched {rc}")
-    if min(recalc["blocks_over_thsad"], recalc["blocks_under_thsad"]) < 1:
-        raise AssertionError("recalc main path: the clip must leave blocks "
-                             "on both sides of thsad")
+    if wants("satd"):
+        recalc_specs = chain_specs(W, H, 0)
+        recalc_clip = satd_clip(RECALC_PAIRS + 1, W, H, 0, None, SATD_CLEAN,
+                                dev)
+        satd_chain(recalc_clip, recalc_specs, {})                 # warm-up
+        recalc = run_satd_path("recalc_main_path", recalc_clip, recalc_specs,
+                               calm=True)
+        rc = recalc["launches"]
+        needed = ("sad_map", "sad_map[stats3]", "probe_sads_tiled[stats3]",
+                  "fetch_blocks_tiled")
+        if min(rc[k] for k in needed) < 1:
+            raise AssertionError(f"recalc main path: a kernel never "
+                                 f"launched {rc}")
+        if min(recalc["blocks_over_thsad"], recalc["blocks_under_thsad"]) < 1:
+            raise AssertionError("recalc main path: the clip must leave "
+                                 "blocks on both sides of thsad")
 
-    # ---- SATD Analyse path at full width ------------------------------------
-    sa_specs = chain_specs(W, H, 5)
-    sa_flash = satd_clip(SATD_PAIRS + 1, W, H, 0, YUV_FLASH, SATD_CLEAN, dev)
-    satd_chain(sa_flash, sa_specs, {})                        # warm-up
-    satd = run_satd_path("satd_analyse_path", sa_flash, sa_specs,
-                         calm=False)
-    sc = satd["launches"]
-    needed = ("sad_map[stats3]", "probe_sads_tiled[stats3]",
-              "probe_sads[stats3]", "fetch_blocks_tiled")
-    if min(sc[k] for k in needed) < 1:
-        raise AssertionError(f"satd analyse path: a kernel never launched "
-                             f"{sc}")
-    if sc["sad_map"] or sc["probe_sads_tiled"] or sc["probe_sads"]:
-        raise AssertionError(f"satd analyse path: a plain-SAD luma kernel "
-                             f"ran on a gray dct 5 path {sc}")
-    sa_calm = satd_clip(SATD_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
-    satd_calm = run_satd_path("satd_analyse_path_calm", sa_calm, sa_specs,
-                              calm=True)
-    after = satd_calm["launches_after_analyse"]
-    if any(after[k] for k in after if k.startswith("probe_sads")):
-        raise AssertionError("satd analyse path without the flash: the "
-                             f"rescue ran in Analyse {after}")
-    if satd_calm["launches"]["probe_sads_tiled[stats3]"] != 1:
-        raise AssertionError("satd analyse path without the flash: "
-                             "Recalculate probes the predictor's cost once "
-                             f"{satd_calm['launches']}")
-    if profile:
-        profile_run("recalc_main_path",
-                    lambda: satd_chain(recalc_clip, recalc_specs, {}))
-        profile_run("satd_analyse_path",
-                    lambda: satd_chain(sa_flash, sa_specs, {}))
-        profile_run("satd_analyse_path_calm",
-                    lambda: satd_chain(sa_calm, sa_specs, {}))
-    del recalc_clip, sa_flash, sa_calm
-    torch.cuda.empty_cache()
+        # ---- SATD Analyse path at full width --------------------------------
+        sa_specs = chain_specs(W, H, 5)
+        sa_flash = satd_clip(SATD_PAIRS + 1, W, H, 0, YUV_FLASH, SATD_CLEAN,
+                             dev)
+        satd_chain(sa_flash, sa_specs, {})                        # warm-up
+        satd = run_satd_path("satd_analyse_path", sa_flash, sa_specs,
+                             calm=False)
+        sc = satd["launches"]
+        needed = ("sad_map[stats3]", "probe_sads_tiled[stats3]",
+                  "probe_sads[stats3]", "fetch_blocks_tiled")
+        if min(sc[k] for k in needed) < 1:
+            raise AssertionError(f"satd analyse path: a kernel never launched "
+                                 f"{sc}")
+        if sc["sad_map"] or sc["probe_sads_tiled"] or sc["probe_sads"]:
+            raise AssertionError(f"satd analyse path: a plain-SAD luma kernel "
+                                 f"ran on a gray dct 5 path {sc}")
+        sa_calm = satd_clip(SATD_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
+        satd_calm = run_satd_path("satd_analyse_path_calm", sa_calm, sa_specs,
+                                  calm=True)
+        after = satd_calm["launches_after_analyse"]
+        if any(after[k] for k in after if k.startswith("probe_sads")):
+            raise AssertionError("satd analyse path without the flash: the "
+                                 f"rescue ran in Analyse {after}")
+        if satd_calm["launches"]["probe_sads_tiled[stats3]"] != 1:
+            raise AssertionError("satd analyse path without the flash: "
+                                 "Recalculate probes the predictor's cost "
+                                 f"once {satd_calm['launches']}")
+        if profile:
+            profile_run("recalc_main_path",
+                        lambda: satd_chain(recalc_clip, recalc_specs, {}))
+            profile_run("satd_analyse_path",
+                        lambda: satd_chain(sa_flash, sa_specs, {}))
+            profile_run("satd_analyse_path_calm",
+                        lambda: satd_chain(sa_calm, sa_specs, {}))
+        del recalc_clip, sa_flash, sa_calm
+        torch.cuda.empty_cache()
 
     # ---- DCT Analyse path at full width -------------------------------------
-    dct_specs = chain_specs(W, H, 1, 1)
-    dct_flash = satd_clip(SATD_PAIRS + 1, W, H, 0, YUV_FLASH, SATD_CLEAN, dev)
-    satd_chain(dct_flash, dct_specs, {})                      # warm-up
-    dct = run_satd_path("dct_analyse_path", dct_flash, dct_specs, calm=False)
-    check_dct_path("dct_analyse_path", dct)
-    if dct["rescued_blocks"] < 1:
-        raise AssertionError("dct analyse path: the flash made no block bad; "
-                             "the rescue never ran")
-    dct_calm_clip = satd_clip(SATD_PAIRS + 1, W, H, 0, None, SATD_CLEAN, dev)
-    dct_calm = run_satd_path("dct_analyse_path_calm", dct_calm_clip,
-                             dct_specs, calm=True)
-    check_dct_path("dct_analyse_path_calm", dct_calm)
-    if dct_calm["rescued_blocks"]:
-        raise AssertionError("dct analyse path without the flash: the rescue "
-                             f"took {dct_calm['rescued_blocks']} blocks")
-    if profile:
-        profile_run("dct_analyse_path",
-                    lambda: satd_chain(dct_flash, dct_specs, {}))
-        profile_run("dct_analyse_path_calm",
-                    lambda: satd_chain(dct_calm_clip, dct_specs, {}))
+    if wants("dct"):
+        dct_specs = chain_specs(W, H, 1, 1)
+        dct_flash = satd_clip(SATD_PAIRS + 1, W, H, 0, YUV_FLASH, SATD_CLEAN,
+                              dev)
+        satd_chain(dct_flash, dct_specs, {})                      # warm-up
+        dct = run_satd_path("dct_analyse_path", dct_flash, dct_specs,
+                            calm=False)
+        check_dct_path("dct_analyse_path", dct)
+        if dct["rescued_blocks"] < 1:
+            raise AssertionError("dct analyse path: the flash made no block "
+                                 "bad; the rescue never ran")
+        dct_calm_clip = satd_clip(SATD_PAIRS + 1, W, H, 0, None, SATD_CLEAN,
+                                  dev)
+        dct_calm = run_satd_path("dct_analyse_path_calm", dct_calm_clip,
+                                 dct_specs, calm=True)
+        check_dct_path("dct_analyse_path_calm", dct_calm)
+        if dct_calm["rescued_blocks"]:
+            raise AssertionError("dct analyse path without the flash: the "
+                                 f"rescue took {dct_calm['rescued_blocks']} "
+                                 "blocks")
+        if profile:
+            profile_run("dct_analyse_path",
+                        lambda: satd_chain(dct_flash, dct_specs, {}))
+            profile_run("dct_analyse_path_calm",
+                        lambda: satd_chain(dct_calm_clip, dct_specs, {}))
+
+    # ---- frame-rate conversion path at full width -------------------------
+    fps = None
+    if not wants("fps"):
+        pass
+    elif has_fps():
+        fps, fps_calm = run_fps_paths(dev, profile)
+    elif not paths_only:
+        raise AssertionError("the package has no models/frc.py")
+    else:
+        emit({"phase": "fps_main_path", "skipped": "the package driven "
+              "(--package-root) has no frame-rate conversion path"})
 
     if paths_only:
         emit({"phase": "done", "paths_only": True,
@@ -2323,7 +2677,9 @@ def main():
                "recalc_main_path": rc, "satd_analyse_path": sc,
                "dct_analyse_path": dct["launches"],
                "yuv16_main_path": yuv16["launches"],
-               "yuv16_main_path_calm": yuv16_calm["launches"]}
+               "yuv16_main_path_calm": yuv16_calm["launches"],
+               "fps_main_path": fps["launches"],
+               "fps_main_path_calm": fps_calm["launches"]}
 
     def entry(name, source, replaces, case, path="yuv_main_path"):
         return dict(name=name, route="cuda", source=source,

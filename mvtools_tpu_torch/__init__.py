@@ -14,18 +14,32 @@ lockstep Analyse -> Recalculate -> Degrain for 8-bit GRAY and YUV clips (pel
 1/2, chroma, overlapped blocks, any pyramid depth and radius, searches HEX2
 and EXHAUSTIVE), with the plain-SAD cost (dct 0), the DCT costs (dct 1-4)
 and the SATD costs (dct 5-10), and the entry points analyse / analyse_batch,
-recalculate, degrain.degrain, models.denoise.degrain_window and
-models.denoise.degrain_clip; and Super -> batched lockstep Analyse (dct 0)
--> Degrain for clips of 9 to 16 bits (uint16 pixels) whose block SADs stay
-under 2^24 (16-bit: blocks up to 16x16).  Not ported: the other searches
-(UMH, ONETIME, NSTEP, LOGARITHMIC, HORIZONTAL, VERTICAL), trymany, divide,
-engine="exact", pel 4, fields; at 9 to 16 bits Recalculate, dct 1-10 and
-larger blocks.  Each raises NotImplementedError.
+recalculate, degrain.degrain, models.denoise.degrain_window,
+models.denoise.degrain_clip / degrain1_clip and the per-frame
+models.denoise.degrain1_frame / degrain_n_frame; Super -> batched lockstep
+Analyse (dct 0) -> Degrain for clips of 9 to 16 bits (uint16 pixels) whose
+block SADs stay under 2^24 (16-bit: blocks up to 16x16); frame-rate
+conversion, models.frc.flowfps_clip (Super -> Analyse in both directions ->
+FlowFPS); and the motion-compensated consumers, each one frame at a time:
+flowfps.flowfps_frame, flowinter.flowinter, flow.flow (fetch and shift),
+flowblur.flowblur, blockfps.blockfps_frame, compensate.compensate,
+scdetect.scdetect and mask.mask, over finest.finest, flowutils and
+ops/{resize,maskfun}.py.  The consumers' per-pixel gathers are plain torch
+ops; their block fetches go through the fetch kernels.  Not ported: the
+other searches (UMH, ONETIME, NSTEP, LOGARITHMIC, HORIZONTAL, VERTICAL),
+trymany, divide, engine="exact", pel 4, fields; at 9 to 16 bits
+Recalculate, dct 1-10 and larger blocks; Depan and stabilisation; the MV
+blob codec, pipelines, io and the mesh.  Each raises NotImplementedError
+or is absent.
 
 Precision: the pipeline is integer (pixels uint8 or uint16, block math
 int32, costs
 int64) with three float64 islands (lambda adaptation, degrain weights, the
-DCT of the dct 1-4 costs), kept in float64 on the device.
+DCT of the dct 1-4 costs, the mask values of the flow consumers), kept in
+float64 on the device.  The consumers whose function shares its module's
+name (flowinter, flow, flowblur, compensate, scdetect, mask) are reached
+through their modules, e.g. mvtools_tpu_torch.compensate.compensate, so
+that the modules stay importable by name.
 """
 
 from .core.types import (  # noqa: F401
@@ -38,11 +52,23 @@ from .core.config import SuperConfig, AnalyseConfig  # noqa: F401
 from .super import Super, build_super  # noqa: F401
 from .analyse import analyse, analyse_batch  # noqa: F401
 from .recalculate import RecalculateConfig, recalculate  # noqa: F401
+from .flowfps import FlowFPSConfig, flowfps_frame  # noqa: F401
+from .flowinter import FlowInterConfig  # noqa: F401
+from .flow import FlowConfig  # noqa: F401
+from .flowblur import FlowBlurConfig  # noqa: F401
+from .blockfps import BlockFPSConfig, blockfps_frame  # noqa: F401
+from .compensate import CompensateConfig  # noqa: F401
+from .scdetect import SCDetectionConfig  # noqa: F401
+from .mask import MaskConfig  # noqa: F401
+from .models.frc import flowfps_clip  # noqa: F401
 
 __all__ = [
     "AnalysisMeta", "MVField", "MVPlaneField", "SearchType", "SuperConfig",
     "AnalyseConfig", "Super", "build_super", "analyse", "analyse_batch",
-    "RecalculateConfig", "recalculate",
+    "RecalculateConfig", "recalculate", "FlowFPSConfig", "flowfps_frame",
+    "flowfps_clip", "FlowInterConfig", "FlowConfig", "FlowBlurConfig",
+    "BlockFPSConfig", "blockfps_frame", "CompensateConfig",
+    "SCDetectionConfig", "MaskConfig",
 ]
 
 __version__ = "0.1.0"

@@ -31,8 +31,7 @@
 //
 // `active` (optional, bool [J, nblk, K, D]) names the entries the caller
 // will look at: an inactive entry reads no pixel and reports INVALID_SAD
-// (int32 max).  The three-stat form computes every entry; its wrapper masks
-// the output.
+// (int32 max; in all three stats of the three-stat form).
 //
 // Bound on this card: neither bytes nor operations.  The kernel serves the
 // planes too small for the tiled probe's shared window (the coarse levels
@@ -65,11 +64,28 @@
 // shapes, 0.090 ms over the 8-bit clip's 28 launches (PERF.md): the
 // launch itself is most of it.
 //
-// The three-stat form writes the triple (SAD, SATD, sum of the reference
-// block) per entry, out[job, block, k, d, 0..2] (satd.cuh says what the SATD
-// is), with the same rule for a window that leaves the stack.  A group of
-// lanes owns one (job, block, candidate, offset) and splits the block's 8x4
-// partitions; it is defined for 8-bit stacks only.
+// The three-stat form (K4', probe_block_stats3_kernel<TILE4>) writes the
+// triple (SAD, SATD, sum of the reference block) per entry,
+// out[job, block, k, d, 0..2] (satd.cuh says what the SATD is), with the
+// same rule for a window that leaves the stack and the same `active` rule
+// (an inactive entry reads no pixel and reports INVALID_SAD in all three).
+// It is defined for 8-bit stacks only.  Its first body gave a (job, block,
+// candidate, offset) entry a group of lanes over fixed CTAs of 128 that
+// took each 4x4 tile of S - R pixel by pixel, computed every entry, and was
+// masked after the launch by its wrapper (0.0028-0.0032 device ms a launch
+// at the SATD path's level-5 shapes, H100 80GB HBM3, 700 W; PERF.md).
+// Design, after K4's: G lanes an entry (a power of two up to 32; geometry
+// ops/probe.py::probe_block3_launch_geom), a lane `parts` 8x4 partitions
+// of the block (part q: rows 4 (q >> lpx), columns 8 (q & (2^lpx - 1))),
+// or the one 4x4 tile of a 4x4 block (TILE4).  A partition is two 4x4
+// tiles: the source rows by one 8-byte load a row, the reference rows by
+// three aligned 32-bit loads and two funnel shifts a row; the SAD and the
+// reference sum by VABSDIFF4 / IDP.4A, the SATD as
+// sum |H(S) - H(R)| = sum u_S + sum u_R - 2 sum min(u_S, u_R) on biased
+// 16-bit halves (satd.cuh::tile_stats3, as K2' takes it).  The entry's
+// flag, candidate and offset are independent loads; a dead entry writes
+// INT_MAX three times.  CTAs of 256 lanes, fewer where that leaves an SM
+// without one.  The lanes of an entry add by xor shuffles.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -78,15 +94,6 @@
 #include "satd.cuh"
 
 namespace {
-
-struct BlockProbeParams {
-    int n_sub, hp, wp;     // stack [J, n_sub, hp, wp]
-    int nblk, k, d;        // blocks per job, K, D
-    int bs_y, bs_x, logp;
-    int min_dy, min_dx;    // most negative offsets of the set
-    int wy, wx;            // window of the offset set, full-pel pixels
-    long long total;       // J * nblk * K warps of work
-};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
@@ -231,41 +238,113 @@ probe_block_kernel(const T* __restrict__ stack,
     if (g == 0) out[e] = (int)acc;
 }
 
-// The three-stat form: `group` lanes per (job, block, candidate, offset).
-__global__ void probe_block_stats3_kernel(
-        const uint8_t* __restrict__ stack, const int* __restrict__ cand_y,
-        const int* __restrict__ cand_x, const uint8_t* __restrict__ src,
-        const int* __restrict__ offs, int* __restrict__ out,
-        BlockProbeParams p, int group) {
-    const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long item = gt / group;          // ((job, block), k, d) flat
-    const int g_lane = (int)(gt % group);
-    const bool active = item < p.total * p.d;
-    const long long w = active ? item / p.d : 0;       // (job, block, k)
-    const int d = active ? (int)(item % p.d) : 0;
-    const long long jb = w / p.k;
-    const int job = (int)(jb / p.nblk);
+// The three-stat form's launch, set by the wrapper (ops/probe.py::
+// probe_sads) from ops/probe.py::probe_block3_launch_geom.
+struct K4pParams {
+    int n_sub, hp, wp;     // stack [J, n_sub, hp, wp]
+    int nblk, k, d;        // blocks per job, K, D
+    int bs_y, bs_x, logp;
+    int min_dy, min_dx;    // most negative offsets of the set
+    int wy, wx;            // window of the offset set, full-pel pixels
+    int lg;                // log2 of G, the lanes of an entry
+    int parts;             // 8x4 partitions a lane takes
+    int lpx;               // log2 of the partitions of a block row
+    unsigned n_lanes;      // entries * G
+};
 
-    const int cy = cand_y[w], cx = cand_x[w];
+// One 4x4 tile of an entry: source rows s, reference rows r (pixels in byte
+// order); adds its SAD, SATD (the tile's sum of |H(S) - H(R)|, halved) and
+// reference sum.
+__device__ __forceinline__ void tile3(const uint32_t (&s)[4],
+                                      const uint32_t (&r)[4], unsigned& sad,
+                                      int& sat, unsigned& luma) {
+    uint32_t hs[8];
+    mvt::tile_hadamard(s, hs);
+    mvt::tile_stats3(r, s, hs, sad, sat, luma);
+    sat += 8 * (int)(s[0] & 0xffu) + 16 * (int)mvt::ZB;   // 8 S00 + 16 Z
+}
+
+// TILE4: the 4x4 block (one tile, G = 1).  Otherwise G lanes take one entry
+// (job, block, candidate, offset), each `parts` 8x4 partitions.
+template <bool TILE4>
+__global__ void __launch_bounds__(256)
+probe_block_stats3_kernel(const uint8_t* __restrict__ stack,
+                          const int* __restrict__ cand_y,
+                          const int* __restrict__ cand_x,
+                          const uint8_t* __restrict__ src,
+                          const int2* __restrict__ offs,    // [D] (dx, dy)
+                          const uint8_t* __restrict__ active,
+                          int* __restrict__ out, K4pParams p) {
+    const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= p.n_lanes) return;                      // whole entries only
+    const int lane = threadIdx.x & 31;
+    const int G = 1 << p.lg;
+    const int g = lane & (G - 1);                    // lane inside its entry
+    const unsigned e = t >> p.lg;                    // (job, block, k, d)
+    const unsigned w = e / (unsigned)p.d;            // (job, block, k)
+    const int d = (int)(e - w * (unsigned)p.d);
+    // the entry's flag, candidate and offset: independent loads
+    const bool live = active == nullptr || active[e] != 0;
+    const int cy = __ldg(cand_y + w), cx = __ldg(cand_x + w);
+    const int2 o = __ldg(offs + d);
+    int* oe = out + (size_t)e * 3;
+    if (!live) {                                     // reads no pixel
+        if (g == 0) oe[0] = oe[1] = oe[2] = INT_MAX;
+        return;
+    }
+    const unsigned jb = w / (unsigned)p.k;           // (job, block)
+    const unsigned job = jb / (unsigned)p.nblk;
     const int wb_y = (cy + p.min_dy) >> p.logp;
     const int wb_x = (cx + p.min_dx) >> p.logp;
-    const int shift_y = window_start(wb_y, p.hp, p.wy) - wb_y;
-    const int shift_x = window_start(wb_x, p.wp, p.wx) - wb_x;
-
+    const int ax = cx + o.x, ay = cy + o.y;
     const int pelm = (1 << p.logp) - 1;
-    const size_t plane = (size_t)p.hp * p.wp;
-    const int ax = cx + offs[2 * d], ay = cy + offs[2 * d + 1];
     const int sub = (ax & pelm) | ((ay & pelm) << p.logp);
-    const int oy = (ay >> p.logp) + shift_y;
-    const int ox = (ax >> p.logp) + shift_x;
-    const uint8_t* r = stack + ((size_t)job * p.n_sub + sub) * plane
-                       + (size_t)oy * p.wp + ox;
-    const uint8_t* s = src + (size_t)jb * p.bs_y * p.bs_x;
-    const mvt::Stats3 st = mvt::block_stats3(s, p.bs_x, r, p.wp, p.bs_y,
-                                             p.bs_x, g_lane, group, active);
-    if (active && g_lane == 0) {
-        int* o = out + (size_t)item * 3;
-        o[0] = st.sad; o[1] = st.satd; o[2] = st.luma;
+    const int oy = (ay >> p.logp) + window_start(wb_y, p.hp, p.wy) - wb_y;
+    const int ox = (ax >> p.logp) + window_start(wb_x, p.wp, p.wx) - wb_x;
+    const size_t plane = (size_t)p.hp * p.wp;
+    const uintptr_t r0 = (uintptr_t)(stack + ((size_t)job * p.n_sub + sub)
+                                     * plane + (size_t)oy * p.wp + ox);
+    const uint8_t* s0 = src + (size_t)jb * p.bs_y * p.bs_x;
+    unsigned sad = 0, luma = 0;
+    int sat = 0;
+    if (TILE4) {
+        uint32_t s[4], r[4];
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+            s[y] = *(const uint32_t*)(s0 + 4 * y);
+            reference_words<1, false>(r0 + (uintptr_t)y * p.wp, &r[y]);
+        }
+        tile3(s, r, sad, sat, luma);
+    } else {
+        const int pxm = (1 << p.lpx) - 1;
+#pragma unroll 2
+        for (int i = 0; i < p.parts; ++i) {
+            const int q = g + (i << p.lg);
+            const int row = (q >> p.lpx) << 2, col = (q & pxm) << 3;
+            uint32_t sa[4], sb[4], ra[4], rb[4];
+#pragma unroll
+            for (int y = 0; y < 4; ++y) {
+                const uint2 v = *(const uint2*)(s0 + (row + y) * p.bs_x
+                                                + col);
+                sa[y] = v.x; sb[y] = v.y;
+                uint32_t rr[2];
+                reference_words<2, false>(
+                    r0 + (uintptr_t)((row + y) * p.wp + col), rr);
+                ra[y] = rr[0]; rb[y] = rr[1];
+            }
+            tile3(sa, ra, sad, sat, luma);
+            tile3(sb, rb, sad, sat, luma);
+        }
+    }
+    const unsigned gmask = G == 32 ? 0xffffffffu
+                                   : ((1u << G) - 1u) << (lane & ~(G - 1));
+    for (int sh = G >> 1; sh > 0; sh >>= 1) {
+        sad += __shfl_xor_sync(gmask, sad, sh);
+        sat += __shfl_xor_sync(gmask, sat, sh);
+        luma += __shfl_xor_sync(gmask, luma, sh);
+    }
+    if (g == 0) {
+        oe[0] = (int)sad; oe[1] = sat; oe[2] = (int)luma;
     }
 }
 
@@ -336,26 +415,51 @@ extern "C" int mvt_probe_sads(
     return (int)cudaGetLastError();
 }
 
+// The ints of a three-stat launch, in the order of
+// ops/probe.py::_PROBE_BLOCK3_ARGS.
+enum K4pArg {
+    B_JOBS, B_SUB, B_HP, B_WP, B_NBLK, B_K, B_D, B_BSY, B_BSX, B_LOGP,
+    B_MINDY, B_MINDX, B_WY, B_WX, B_TILE4, B_LG, B_PARTS, B_LPX, B_THREADS,
+    B_COUNT
+};
+
+// a: the launch's B_COUNT ints (tile4, lg, parts, lpx, threads: the
+// geometry of ops/probe.py::probe_block3_launch_geom).  active: bool
+// [J, nblk, K, D] or null for all.  uint8 stacks and source blocks only.
 extern "C" int mvt_probe_sads_stats3(
         const void* stack, const void* cand_y, const void* cand_x,
-        const void* src, const void* offs, void* out, int n_jobs, int n_sub,
-        int hp, int wp, int nblk, int k, int d, int bs_y, int bs_x, int logp,
-        int min_dy, int min_dx, int wy, int wx, int u16, void* stream) {
-    // the three stats are defined for 8-bit stacks only
-    if (u16) return (int)cudaErrorInvalidValue;
-    BlockProbeParams p;
-    p.n_sub = n_sub; p.hp = hp; p.wp = wp; p.nblk = nblk; p.k = k; p.d = d;
-    p.bs_y = bs_y; p.bs_x = bs_x; p.logp = logp; p.min_dy = min_dy;
-    p.min_dx = min_dx; p.wy = wy; p.wx = wx;
-    p.total = (long long)n_jobs * nblk * k;
-    if (p.total == 0 || d == 0) return 0;
-    const int group = mvt::stats3_group(bs_y, bs_x);
-    const int threads = 128;
-    const long long lanes = p.total * d * group;
-    const long long blocks = (lanes + threads - 1) / threads;
-    probe_block_stats3_kernel<<<(unsigned)blocks, threads, 0,
-                                (cudaStream_t)stream>>>(
-        (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,
-        (const uint8_t*)src, (const int*)offs, (int*)out, p, group);
+        const void* src, const void* offs, const void* active, void* out,
+        const int* a, void* stream) {
+    K4pParams p;
+    p.n_sub = a[B_SUB]; p.hp = a[B_HP]; p.wp = a[B_WP]; p.nblk = a[B_NBLK];
+    p.k = a[B_K]; p.d = a[B_D]; p.bs_y = a[B_BSY]; p.bs_x = a[B_BSX];
+    p.logp = a[B_LOGP]; p.min_dy = a[B_MINDY]; p.min_dx = a[B_MINDX];
+    p.wy = a[B_WY]; p.wx = a[B_WX]; p.lg = a[B_LG]; p.parts = a[B_PARTS];
+    p.lpx = a[B_LPX];
+    const int tile4 = a[B_TILE4], threads = a[B_THREADS];
+    const long long entries = (long long)a[B_JOBS] * p.nblk * p.k * p.d;
+    if (entries == 0) return 0;
+    // the 4x4 block as one tile on one lane; otherwise rows of whole 8x4
+    // partitions, a power of two of them a row, G lanes that take them all
+    if ((tile4 != 0 && tile4 != 1)
+        || (tile4 && (p.bs_y != 4 || p.bs_x != 4 || p.lg || p.parts != 1))
+        || (!tile4 && (p.bs_y % 4 || p.bs_x % 8 || p.lpx < 0
+                       || p.bs_x / 8 != 1 << p.lpx
+                       || (long long)(p.bs_y / 4) * (p.bs_x / 8)
+                          != (long long)p.parts << p.lg))
+        || p.lg < 0 || p.lg > 5 || p.parts < 1
+        || threads < 32 || threads > 256 || threads % 32
+        || (entries << p.lg) > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    p.n_lanes = (unsigned)(entries << p.lg);
+    const unsigned blocks = (p.n_lanes + threads - 1) / threads;
+    cudaStream_t st = (cudaStream_t)stream;
+#define MVT_K4P(T4)                                                         \
+    probe_block_stats3_kernel<T4><<<blocks, threads, 0, st>>>(              \
+        (const uint8_t*)stack, (const int*)cand_y, (const int*)cand_x,      \
+        (const uint8_t*)src, (const int2*)offs, (const uint8_t*)active,     \
+        (int*)out, p)
+    if (tile4) MVT_K4P(true); else MVT_K4P(false);
+#undef MVT_K4P
     return (int)cudaGetLastError();
 }

@@ -3,10 +3,19 @@
 // wrote it, a warp per (job, block, candidate) that walks the D offsets one
 // after another.  Kept only so that k4_timing.py can time it beside the
 // committed body: that script appends this file to the text of
-// csrc/probe_block.cu (whose BlockProbeParams and window_start it uses) and
+// csrc/probe_block.cu (whose window_start it uses) and
 // builds the result with nvcc.  The port does not build it.
 
 namespace {
+
+struct BlockProbeParams {
+    int n_sub, hp, wp;     // stack [J, n_sub, hp, wp]
+    int nblk, k, d;        // blocks per job, K, D
+    int bs_y, bs_x, logp;
+    int min_dy, min_dx;    // most negative offsets of the set
+    int wy, wx;            // window of the offset set, full-pel pixels
+    long long total;       // J * nblk * K warps of work
+};
 
 // T: the pixel type (uint8_t, or uint16_t for 9- to 16-bit clips).
 template <typename T>

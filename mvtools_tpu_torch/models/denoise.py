@@ -1,8 +1,10 @@
 """Frame-batched temporal denoise (mv.Super -> mv.Analyse -> mv.Degrain).
 
 degrain_clip denoises a whole clip with temporal radius N (the canonical
-Super -> Analyse(backward + forward, radius N) -> DegrainN graph);
-degrain_window the inner frames of a window of luma frames.
+Super -> Analyse(backward + forward, radius N) -> DegrainN graph), and
+degrain1_clip with radius 1; degrain_window the inner frames of a window of
+luma frames; degrain1_frame and degrain_n_frame one frame from its
+neighbours.
 
 Clip-edge semantics match the reference: a neighbour beyond the clip is
 edge-replicated for shape uniformity but marked invalid, so Degrain gives
@@ -90,6 +92,69 @@ def degrain_window(window: torch.Tensor, sspec: SuperSpec,
             info["events"] = dict(super=(t0, t1), analyse=(t1, t2),
                                   degrain=(t2, t3))
     return out
+
+
+def field_job(mv: MVField, j: int) -> MVField:
+    """Job j of a job-batched field, as an unbatched field."""
+    return MVField(tuple(MVPlaneField(l.x[j], l.y[j], l.sad[j])
+                         for l in mv.levels), mv.validity[j], mv.meta)
+
+
+def degrain1_frame(cur_planes, prev_planes, next_planes, sspec: SuperSpec,
+                   aspec_b: AnalyseSpec, aspec_f: AnalyseSpec,
+                   dcfg: DegrainConfig, engine: str = "lockstep"):
+    """Denoise one frame given its neighbours (the JAX package's
+    degrain1_frame): degrain_n_frame with radius 1."""
+    return degrain_n_frame(cur_planes, [prev_planes], [next_planes], sspec,
+                           aspec_b, aspec_f, dcfg, engine=engine)
+
+
+def degrain_n_frame(cur_planes, prev_list, next_list, sspec: SuperSpec,
+                    aspec_b: AnalyseSpec, aspec_f: AnalyseSpec,
+                    dcfg: DegrainConfig, engine: str = "lockstep",
+                    valid_b=None, valid_f=None, field_shift_b=None,
+                    field_shift_f=None):
+    """MDegrainN: denoise one frame from `radius = len(prev_list)`
+    backward and forward neighbours (MVDegrains.cpp Degrain1-6, ref order
+    per radius: bwd r, fwd r, requests :90-109).
+
+    cur_planes / prev_list[i] / next_list[i]: the planes ([H, W] each) of
+    frame n and of frames n-(i+1) / n+(i+1).  valid_b[i] / valid_f[i]:
+    optional bools marking whether the i-th next/prev neighbour exists in
+    the clip; False gives it weight 0 (the reference's default field at clip
+    edges).  Every frame's super is built once; the backward and the
+    forward analyses are one analyse_batch call each (a job comes out as if
+    searched alone).  Only engine="lockstep" and no field shift are
+    ported."""
+    if engine != "lockstep":
+        raise NotImplementedError(
+            f"degrain_n_frame: engine={engine!r} is not ported (lockstep "
+            "is)")
+    if any(fs for fs in (field_shift_b or []) + (field_shift_f or [])):
+        raise NotImplementedError(
+            "degrain_n_frame: field shifts (interlaced input) are not ported")
+    radius = len(prev_list)
+    frames = [list(cur_planes)] + [list(p) for p in next_list] \
+        + [list(p) for p in prev_list]
+    sups = build_super([torch.stack([f[p] for f in frames])
+                        for p in range(len(cur_planes))], sspec)
+    dev = cur_planes[0].device
+    cur = torch.zeros(radius, dtype=torch.long, device=dev)
+    nxt = torch.arange(1, radius + 1, device=dev)
+    mv_b = analyse_batch(sups.take(cur), sups.take(nxt), aspec_b)
+    mv_f = analyse_batch(sups.take(cur), sups.take(nxt + radius), aspec_f)
+
+    sups_r, mvs, valid = [], [], []
+    for i in range(radius):
+        sups_r += [sups.map(lambda a, i=i: a[1 + i]),
+                   sups.map(lambda a, i=i: a[1 + radius + i])]
+        mvs += [field_job(mv_b, i), field_job(mv_f, i)]
+        valid += [True if valid_b is None else valid_b[i],
+                  True if valid_f is None else valid_f[i]]
+    if valid_b is None and valid_f is None:
+        valid = None
+    return degrain(list(cur_planes), sups_r, mvs, aspec_b.meta, dcfg,
+                   valid=valid)
 
 
 def edge_validity(total: int, radius: int, device):
@@ -208,6 +273,17 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
             info["events"] = dict(super=(t0, t1), analyse=(t1, t2),
                                   degrain=(t2, t3))
     return out
+
+
+def degrain1_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
+                  scfg: SuperConfig = SuperConfig(),
+                  acfg: AnalyseConfig = AnalyseConfig(),
+                  dcfg: DegrainConfig = DegrainConfig(),
+                  engine: str = "lockstep", mesh=None,
+                  info: Optional[dict] = None) -> List[torch.Tensor]:
+    """Radius-1 clip denoise (degrain_clip with radius 1)."""
+    return degrain_clip(clip_planes, fmt, scfg, acfg, dcfg, radius=1,
+                        engine=engine, mesh=mesh, info=info)
 
 
 def headline_specs(width: int = 1920, height: int = 1080, blksize: int = 16,

@@ -329,35 +329,65 @@ def _sm_count(device: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def _probe_block_launch(offsets: tuple, bs_y: int, bs_x: int, pel: int,
-                        u16: bool, stack_shape, cand_shape, device):
+                        u16: bool, stack_shape, cand_shape, device,
+                        stats3: bool = False):
     """(offsets table, the launch's ints as a ctypes array) of a per-block
-    probe call: everything but the pointers, made once per offset set,
-    block size, shapes and device."""
+    probe call (stats3: of the three-stat form): everything but the
+    pointers, made once per offset set, block size, shapes and device."""
     _, min_dx, min_dy, wy, wx = _offset_window(offsets, bs_y, bs_x, pel)
     nj, n_sub, hp, wp = stack_shape
     _, nblk, kk = cand_shape
-    g = probe_block_launch_geom(bs_y, bs_x, nj * nblk * kk * len(offsets),
-                                u16, _sm_count(device.index))
+    n, n_sm = nj * nblk * kk * len(offsets), _sm_count(device.index)
+    g = (probe_block3_launch_geom(bs_y, bs_x, n, n_sm) if stats3
+         else probe_block_launch_geom(bs_y, bs_x, n, u16, n_sm))
     vals = dict(n_jobs=nj, n_sub=n_sub, hp=hp, wp=wp, nblk=nblk, k=kk,
                 d=len(offsets), bs_y=bs_y, bs_x=bs_x,
                 logp=pel.bit_length() - 1, min_dy=min_dy, min_dx=min_dx,
                 wy=wy, wx=wx, u16=int(u16), **{k: int(v) for k, v in g.items()
                                                if k != "ctas"})
-    args = (ctypes.c_int * len(_PROBE_BLOCK_ARGS))(
-        *(vals[k] for k in _PROBE_BLOCK_ARGS))
+    names = _PROBE_BLOCK3_ARGS if stats3 else _PROBE_BLOCK_ARGS
+    args = (ctypes.c_int * len(names))(*(vals[k] for k in names))
     return _offsets_tensor(offsets, device), args
+
+
+def probe_block3_launch_geom(bs_y: int, bs_x: int, n_entries: int,
+                             n_sm: int) -> dict:
+    """Launch geometry of the three-stat per-block probe (K4',
+    csrc/probe_block.cu::probe_block_stats3_kernel<TILE4>) for a block size
+    with a SATD (sad.satd_supported), n_entries (job, block, candidate,
+    offset) entries and a card of n_sm SMs.
+
+    A block is (bs_y / 4) x (bs_x / 8) partitions of 8x4 pixels (2**lpx a
+    row), or one 4x4 tile (`tile4`); `g` = 2**lg lanes (at most 32) take
+    one entry, `parts` partitions each (partition q: lane q % g).  CTAs as
+    probe_block_launch_geom takes them."""
+    if not sad_ops.satd_supported(bs_x, bs_y):
+        raise ValueError(f"probe_sads: no SATD for block size {bs_x}x{bs_y}")
+    tile4 = bs_x == 4
+    ppr = 1 if tile4 else bs_x // 8
+    n_parts = 1 if tile4 else (bs_y // 4) * ppr
+    g = min(32, n_parts)
+    lanes = n_entries * g
+    threads = next((t for t in PROBE_BLOCK_THREADS
+                    if -(-lanes // t) >= n_sm), PROBE_BLOCK_THREADS[-1])
+    return dict(tile4=tile4, g=g, lg=g.bit_length() - 1,
+                parts=n_parts // g, lpx=ppr.bit_length() - 1,
+                threads=threads, ctas=-(-lanes // threads))
+
+
+# the ints of a three-stat per-block probe launch, in the order
+# mvt_probe_sads_stats3 reads them (csrc/probe_block.cu::K4pArg)
+_PROBE_BLOCK3_ARGS = ("n_jobs", "n_sub", "hp", "wp", "nblk", "k", "d",
+                      "bs_y", "bs_x", "logp", "min_dy", "min_dx", "wy", "wx",
+                      "tile4", "lg", "parts", "lpx", "threads")
 
 
 @functools.lru_cache(maxsize=None)
 def _probe_block_fn(stats3: bool):
     fn = getattr(cuda_build.load("probe_block"),
                  "mvt_probe_sads_stats3" if stats3 else "mvt_probe_sads")
-    if stats3:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 \
-            + [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 \
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -419,9 +449,9 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     doc); src_blocks: [J, nblk, bs_y, bs_x] of the stack's dtype; offsets:
     static [(dx, dy), ...] pel offsets evaluated per candidate; active:
     optional bool tensor that broadcasts to [J, nblk, K, D] (None: all): an
-    inactive entry reads no pixel and reports INVALID_SAD (in all three;
-    the three-stat kernel computes it and the wrapper masks it).  The
-    kernel serves every call on CUDA tensors, however few the blocks."""
+    inactive entry reads no pixel and reports INVALID_SAD (in all three).
+    The kernel serves every call on CUDA tensors, however few the
+    blocks."""
     offsets, _, _, wy, wx = _offset_set(offsets, bs_y, bs_x, pel)
     stats3 = _check_stats("probe_sads", stats, stack)
     _check_probe_args("probe_sads", stack, cand_y, cand_x, src_blocks, bs_y,
@@ -439,47 +469,29 @@ def probe_sads(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
     name = _launch_name(name, stack)
     if src_blocks.data_ptr() % 16:
         src_blocks = src_blocks.clone()     # the kernel reads 4-16 B words
-    launch = _launch_block_stats3 if stats3 else _launch_block
-    out, err = launch(stack, cand_y, cand_x, src_blocks, offsets, bs_y, bs_x,
-                      pel, active)
+    out, err = _launch_block(stack, cand_y, cand_x, src_blocks, offsets, bs_y,
+                             bs_x, pel, active, stats3)
     cuda_build.check_launch(err, name)
     launches[name] += 1
-    if stats3 and active is not None:       # K4' computes every entry
-        out = _invalid_where(active, out)
     return out
 
 
 def _launch_block(stack, cand_y, cand_x, src_blocks, offsets, bs_y: int,
-                  bs_x: int, pel: int, active):
-    """(output, CUDA error) of a launch of the per-block probe (K4)."""
+                  bs_x: int, pel: int, active, stats3: bool):
+    """(output, CUDA error) of a launch of the per-block probe (K4, or
+    K4' with stats3)."""
     dev = stack.device
     offs, args = _probe_block_launch(offsets, bs_y, bs_x, pel,
-                                     stack.dtype == torch.uint16,
-                                     stack.shape, cand_y.shape, dev)
-    out = torch.empty(cand_y.shape + (len(offsets),), dtype=I32, device=dev)
-    err = _on_device(dev, _probe_block_fn(False), stack.data_ptr(),
+                                     stack.dtype == torch.uint16, stack.shape,
+                                     cand_y.shape, dev, stats3)
+    out = torch.empty(cand_y.shape + (len(offsets),) + ((3,) if stats3
+                                                        else ()),
+                      dtype=I32, device=dev)
+    err = _on_device(dev, _probe_block_fn(stats3), stack.data_ptr(),
                      cand_y.data_ptr(), cand_x.data_ptr(),
                      src_blocks.data_ptr(), offs.data_ptr(),
                      None if active is None else active.data_ptr(),
                      out.data_ptr(), args, _stream(dev))
-    return out, err
-
-
-def _launch_block_stats3(stack, cand_y, cand_x, src_blocks, offsets,
-                         bs_y: int, bs_x: int, pel: int, active):
-    """(output, CUDA error) of a launch of the three-stat per-block probe
-    (K4'), which computes every entry (`active` is applied after it)."""
-    dev = stack.device
-    nj, nblk, kk = cand_y.shape
-    min_dx, min_dy, wy, wx = _window_geom(offsets, bs_y, bs_x, pel)
-    offs = _offsets_tensor(offsets, dev)
-    out = torch.empty((nj, nblk, kk, len(offsets), 3), dtype=I32, device=dev)
-    err = _on_device(dev, _probe_block_fn(True), stack.data_ptr(),
-                     cand_y.data_ptr(), cand_x.data_ptr(),
-                     src_blocks.data_ptr(), offs.data_ptr(), out.data_ptr(),
-                     nj, pel * pel, stack.shape[2], stack.shape[3], nblk, kk,
-                     len(offsets), bs_y, bs_x, pel.bit_length() - 1, min_dy,
-                     min_dx, wy, wx, 0, _stream(dev))
     return out, err
 
 
