@@ -17,15 +17,19 @@ origins outside the plane and with 8x8 blocks; the per-block probe also with
 masks that leave about 30 %, 3 % and none of its entries live and at a
 block size of each of its width classes, 2x2, 4x2, 8x1, 64x64 and 128x128,
 at 8 and 10 bits, and its three-stat form also with masks that leave
-about 30 %, 3 % and none of its entries live; the uint16 forms of K1-K5
+about 30 %, 3 % and none of its entries live; K2, K3, K4 and K5 and their
+uint16 forms also at pel 4, at the shapes bench.py config 2 gives them
+(pel4_kernel_cases); the uint16 forms of K1-K5
 at the deep-bit YUV420 path's shapes on 16-bit and on 10-bit data, with
 blocks of 0 against the pixel maximum; the three-stat tiled probe also on
 blocks of 0 against 255 and with 8x8, 32x32 and 64x64 blocks; the maps and
 the tiled probes also timed by their device time in a torch.profiler
 trace), prints the SASS opcode counts of every kernel form, checks small end-to-end runs on the card against the
 same code on CPU tensors (at 8 and at 16 bits, degrain_clip and the gray
-degrain_window; flowfps_clip and every motion-compensated consumer), and
-drives seven main paths at full width:
+degrain_window; flowfps_clip and every motion-compensated consumer; the
+pel-4 slice with every search type, trymany, the ring rescue, divide and
+Recalculate: small_end_to_end_pel4), and drives eight main paths at full
+width:
 
 * the gray headline path (1920x1080 gray, blk 16, pel 2, 3 levels, Degrain1,
   batch 8) through degrain_window: first on a clip with a flashing region,
@@ -60,7 +64,12 @@ drives seven main paths at full width:
   blk 16, the full pyramid, FlowFPS maskmode 2, 30 -> 60 fps) through
   flowfps_clip on 9 frames, with the flashing region (the SAD map and the
   tiled probe must launch) and without it (the SAD map must, neither probe
-  may).
+  may);
+* the pel-4 path (bench.py config 2: 1920x1080 gray, pel 4, the full
+  pyramid, HEX2 searchparam 2, truemotion, 8 pairs a window) through
+  build_super and analyse_batch: the level-0 search probes every candidate
+  through the tiled probe, the coarse levels ride the SAD map; with the
+  flashing region (the rescue must run) and without it (it must not).
 
 It also holds the block DCT on the card against the CPU on more than a
 million blocks (dct_vs_cpu: not one coefficient may differ) and runs the
@@ -72,7 +81,7 @@ result.  The last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-additionally traces one more full-width run of each of the thirteen clips
+additionally traces one more full-width run of each of the fifteen clips
 with torch.profiler and prints where the device time went (busy share,
 kernels by time, and the summed device time of every kernel form; for the
 two flash clips also the per-block probe's time by launch grid, and for the
@@ -81,7 +90,7 @@ level).
 
     python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
                           [--sass-out FILE] [--sass-reference FILE]
-                          [--paths gray,yuv,yuv16,satd,dct,fps]
+                          [--paths gray,yuv,yuv16,satd,dct,fps,pel4]
 
 times the 8-bit kernels at the YUV420 and DCT paths' shapes, the
 three-stat per-block probe at the SATD path's level-5 shapes, masked and
@@ -90,7 +99,8 @@ kernels line and no "ok" line), with the package of the checkout at DIR if
 given: the way to compare two trees' kernels, paths and kernel sums in one
 call; --paths runs only the named paths (satd: the Recalculate and the
 SATD Analyse paths; fps: the frame-rate conversion path, skipped for a
-package that has none).  DIR must hold a package that has the uint16
+package that has none; pel4: config 2, skipped for a package without
+pel 4).  DIR must hold a package that has the uint16
 kernel forms and Super.take.  --sass-out writes the sass phase's opcode counts as JSON;
 --sass-reference reads such a file (another tree's) and fails unless every
 kernel form of SASS_HELD (all but the three-stat per-block probe) counts
@@ -115,11 +125,11 @@ if "--package-root" in sys.argv:
 import torch
 
 from mvtools_tpu_torch import (AnalyseConfig, RecalculateConfig, SuperConfig,
-                               analyse_batch, recalculate)
+                               analyse, analyse_batch, recalculate)
 from mvtools_tpu_torch import field_engine as fe
 from mvtools_tpu_torch.analyse import _blocks_of, _level_ctx
 from mvtools_tpu_torch.core.types import (ColorFamily, MVField, MVPlaneField,
-                                          VideoFormat)
+                                          SearchType, VideoFormat)
 from mvtools_tpu_torch.degrain import DegrainConfig, degrain, gather_blocks
 from mvtools_tpu_torch.models.denoise import (degrain_clip, degrain_window,
                                               flagship_configs,
@@ -839,25 +849,28 @@ def k3_case(sspec, meta, sups, gen, plane=0, frames=BATCH, before_ms=None):
                         generator=gen, device=dev, dtype=torch.int32)
     pad_x, pad_y = (sspec.hpad >> sub) * sspec.pel, (sspec.vpad >> sub) * sspec.pel
     pitch_x = (meta.blk_size_x - meta.overlap_x) >> sub
+    lp = sspec.pel.bit_length() - 1
     name = kernel_name("fetch_blocks_tiled", stack)
     before = probe.launches[name]
-    out = gather_blocks(stack, pos_x, pos_y, mvx, mvy, bsy, bsx, 1, pad_x,
+    out = gather_blocks(stack, pos_x, pos_y, mvx, mvy, bsy, bsx, lp, pad_x,
                         pad_y, sub, sub, pitch_fp=pitch_x)
     if probe.launches[name] != before + 1:
         raise AssertionError(f"{name}: the kernel did not launch")
     # the same positions through the plain version
-    lp = 1
-    xa = (((pos_x << 1) + mvx) >> sub) + pad_x
-    ya = (((pos_y << 1) + mvy) >> sub) + pad_y
+    xa = (((pos_x << lp) + mvx) >> sub) + pad_x
+    ya = (((pos_y << lp) + mvy) >> sub) + pad_y
     fx = probe.wrap_clamp(xa >> lp, stack.shape[3], bsx)
     fy = probe.wrap_clamp(ya >> lp, stack.shape[2], bsy)
-    cx = ((fx << lp) | (xa & 1)).reshape(nb, -1, 1).contiguous()
-    cy = ((fy << lp) | (ya & 1)).reshape(nb, -1, 1).contiguous()
+    m = sspec.pel - 1
+    cx = ((fx << lp) | (xa & m)).reshape(nb, -1, 1).contiguous()
+    cy = ((fy << lp) | (ya & m)).reshape(nb, -1, 1).contiguous()
     want, plain_ms = time_plain(lambda: probe.fetch_blocks_tiled_plain(
         stack, cy, cx, bsy, bsx, sspec.pel))
     kind = "chroma" if plane else "luma"
     ov = f" overlap {meta.overlap_x}" if meta.overlap_x else ""
-    label = f"level 0 {kind} {bsy}x{bsx}{ov}, {nb} frames{bits_tag(sspec)}"
+    label = (f"level 0 {kind} {bsy}x{bsx}{ov}, {nb} frames"
+             f"{'' if sspec.pel == 2 else f' pel {sspec.pel}'}"
+             f"{bits_tag(sspec)}")
     err = compare(f"fetch_blocks_tiled {label}", out.reshape(want.shape),
                   want)
     ms = time_cuda(lambda: probe.fetch_blocks_tiled(
@@ -1973,6 +1986,81 @@ def check_dct_path(phase, res):
                              f"DCT path {c}")
 
 
+# bench.py config 2 (pel 4, the probe-only level search): 8 pairs a window
+P4_PAIRS = 8
+
+
+def pel4_specs(width, height, bits=8, family=ColorFamily.GRAY, **acfg):
+    """(SuperSpec, AnalyseSpec) of bench.py config 2 (bench.py:114-135):
+    pel 4, the full pyramid, blk 16, HEX2 searchparam 2, truemotion; gray
+    unless `family` says otherwise (then chroma and overlap 8), `acfg`
+    overriding the search's keywords."""
+    chroma = family != ColorFamily.GRAY
+    fmt = VideoFormat(width, height, bits, family)
+    sspec = SuperConfig(pel=4, levels=0, chroma=chroma).validate(fmt)
+    kw = dict(blksize=16, levels=0, search=SearchType.HEX2, searchparam=2,
+              truemotion=True, chroma=chroma, overlap=8 if chroma else 0)
+    kw.update(acfg)
+    return sspec, AnalyseConfig(**kw).validate(sspec)
+
+
+def pel4_kernel_cases(gen, dev, bits):
+    """K2, K3, K4 and K5 (uint16 forms at 16 bits) at pel 4 against their
+    plain versions: K2 at the shapes config 2's level-0 search gives it at
+    1080p (8 jobs: the hexagon, the walk, the ring, the predictor trials
+    K=6, the hexagon masked as the rescue masks it; a twentieth of the
+    candidates off its tile), K3 as Degrain fetches at level 0 (vectors
+    past the clamp on every side), K5 at origins from 40 pixels before the
+    stack to 40 past its end, K4 on the level-0 stack of a 256x192 clip
+    (candidates past its bottom and right edges; the walk, K=6, and a mask
+    that leaves about 30 % live)."""
+    sspec, aspec = pel4_specs(W, H, bits)
+    if bits == 8:
+        clip = make_test_clip(P4_PAIRS + 1, W, H, seed=1, flash=FLASH,
+                              device=dev)
+    else:
+        clip = make_test_clip_yuv(P4_PAIRS + 1, W, H, seed=1, flash=FLASH,
+                                  noise=YUV_NOISE, bits=bits, device=dev)[0]
+    sups = build_super([clip], sspec)
+    src_idx = torch.arange(P4_PAIRS, device=dev)
+    ctx, stacks = level_inputs(sspec, aspec, sups, src_idx, src_idx + 1, 0)
+    tag = bits_tag(sspec)
+    walk, ring = tuple(fe._HEXP), tuple(fe._ring_offsets(1, 1))
+    k2 = [k2_case(ctx, stacks, gen, offsets, kk,
+                  f"level 0 pel 4 K={kk} {what} D={len(offsets)}{tag}",
+                  masked=masked)
+          for offsets, kk, what, masked in (
+              (HEXAGON, 1, "hexagon", False), (walk, 1, "walk", False),
+              (ring, 1, "ring", False), (((0, 0),), 6, "trials", False),
+              (HEXAGON, 1, "hexagon", True))]
+    k3 = [k3_case(sspec, aspec.meta, sups, gen)]
+    stack, pel = stacks[0], ctx.pel
+    hp, wp = stack.shape[2:]
+    ey = torch.randint(-40 * pel, (hp + 40) * pel, (P4_PAIRS, 4096, 4),
+                       generator=gen, device=dev, dtype=torch.int32)
+    ex = torch.randint(-40 * pel, (wp + 40) * pel, ey.shape, generator=gen,
+                       device=dev, dtype=torch.int32)
+    k5 = [k5_case(f"level 0 pel 4 origins past every edge K=4{tag}", stack,
+                  ey, ex, 16, 16, pel)]
+    del ctx, stacks, stack, sups, clip
+    s_sspec, s_aspec = pel4_specs(SMALL_W, SMALL_H, bits)
+    small = make_test_clip_yuv(3, SMALL_W, SMALL_H, seed=3, noise=YUV_NOISE,
+                               bits=bits, device=dev)[0]
+    s_sups = build_super([small], s_sspec)
+    ctx, stacks = level_inputs(s_sspec, s_aspec, s_sups,
+                               torch.tensor([1, 1], device=dev),
+                               torch.tensor([2, 0], device=dev), 0)
+    grid16 = tuple((dx, dy) for dy in range(-2, 2) for dx in range(-2, 2))
+    k4 = [k4_case(ctx, stacks, gen, walk, 1),
+          k4_case(ctx, stacks, gen, ((0, 0),), 6),
+          k4_case(ctx, stacks, gen, grid16, 1, live=K4_MASKS[0])]
+    del ctx, stacks, s_sups, small
+    torch.cuda.empty_cache()
+    suffix = "" if bits == 8 else "[u16]"
+    return {"probe_sads_tiled" + suffix: k2, "fetch_blocks_tiled" + suffix: k3,
+            "fetch_blocks" + suffix: k5, "probe_sads" + suffix: k4}
+
+
 def kernels_vs_plain(dev):
     """Every kernel against its plain version on the card at the main
     paths' shapes (tolerance 0); prints the phase and returns the case of
@@ -2018,10 +2106,14 @@ def kernels_vs_plain(dev):
     s1, s2, s4 = satd_kernel_cases(gen, dev)
     k5_cases, k3_dct = dct_kernel_cases(gen, dev)
     k3_cases += k3_dct + [k3_blk8_case(gen, dev)]
-    cases = {"sad_map": k1_cases + y1, "probe_sads_tiled": k2_cases + y2,
-             "fetch_blocks_tiled": k3_cases + y3, "probe_sads": k4_list,
+    p4 = pel4_kernel_cases(gen, dev, 8)
+    cases = {"sad_map": k1_cases + y1,
+             "probe_sads_tiled": k2_cases + y2 + p4["probe_sads_tiled"],
+             "fetch_blocks_tiled": k3_cases + y3 + p4["fetch_blocks_tiled"],
+             "probe_sads": k4_list + p4["probe_sads"],
              "sad_map[stats3]": s1, "probe_sads_tiled[stats3]": s2,
-             "probe_sads[stats3]": s4, "fetch_blocks": k5_cases}
+             "probe_sads[stats3]": s4,
+             "fetch_blocks": k5_cases + p4["fetch_blocks"]}
     emit({"phase": "kernels_vs_plain", "tolerance": 0, **cases})
     # the cases the kernels line reports: the main paths' shapes
     return {"sad_map": y1[0], "probe_sads_tiled": y2[0],
@@ -2042,11 +2134,13 @@ def deep_kernels_vs_plain(cfgs, dev):
                for bits in (DEEP_BITS, 10)}
     k4 = (k4_cases(cfgs, gen, dev, DEEP_BITS) + k4_cases(cfgs, gen, dev, 10)
           + k4_width_cases(gen, dev, 10))
+    p4 = pel4_kernel_cases(gen, dev, DEEP_BITS)
     names = ("sad_map[u16]", "probe_sads_tiled[u16]",
              "fetch_blocks_tiled[u16]", "fetch_blocks[u16]")
     emit({"phase": "kernels_vs_plain_u16", "tolerance": 0,
-          **{name: by_bits[DEEP_BITS][i] + by_bits[10][i]
-             for i, name in enumerate(names)}, "probe_sads[u16]": k4})
+          **{name: by_bits[DEEP_BITS][i] + by_bits[10][i] + p4.get(name, [])
+             for i, name in enumerate(names)},
+          "probe_sads[u16]": k4 + p4["probe_sads[u16]"]})
     k1, k2, k3, k5 = by_bits[DEEP_BITS]
     return {"sad_map[u16]": k1[0], "probe_sads_tiled[u16]": k2[0],
             "fetch_blocks_tiled[u16]": k3[0], "probe_sads[u16]": k4[0],
@@ -2448,9 +2542,285 @@ def small_end_to_end_fps(dev):
           "runs": list(launches), "launches": launches,
           "modules_bit_equal_to_cpu": modules})
 
+def pel4_analyse(clip, sspec, aspec, info=None):
+    """bench.py config 2's step on a clip [P4_PAIRS + 1, H, W]: the supers
+    of every frame, then one analyse_batch over the pairs (frame i against
+    frame i + 1); with `info`, CUDA events around the two stages under
+    "events"."""
+    ev = {k: (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+          for k in ("super", "analyse")} if info is not None else None
+    dev = clip.device
+    if ev:
+        ev["super"][0].record()
+    sups = build_super([clip], sspec)
+    if ev:
+        ev["super"][1].record()
+        ev["analyse"][0].record()
+    src = torch.arange(clip.shape[0] - 1, device=dev)
+    mv = analyse_batch(sups.take(src), sups.take(src + 1), aspec)
+    if ev:
+        ev["analyse"][1].record()
+        info["events"] = ev
+    return mv
+
+
+def run_pel4_clip(phase, clip, sspec, aspec):
+    """Drive config 2 over a full-width gray clip once, with every count set
+    to 0 just before and read just after; check the fields (every level's
+    shape, on the card, SADs non-negative; on the clip without the flash,
+    nine in ten of job 0's level-0 vectors the clip's pan); print and return
+    the phase's numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    info = {}
+    t0 = time.perf_counter()
+    mv = pel4_analyse(clip, sspec, aspec, info)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    syncs, rescued = fe.host_syncs, fe.rescued_blocks
+    plain_on_cuda = plain_calls_on_cuda()
+    peak = torch.cuda.max_memory_allocated()
+    pairs = clip.shape[0] - 1
+    meta = aspec.meta
+    if len(mv.levels) != meta.lv_count:
+        raise AssertionError(f"{phase}: {len(mv.levels)} levels")
+    for lv, (nbx, nby) in enumerate(meta.level_blocks()):
+        level = mv.levels[lv]
+        for key in ("x", "y", "sad"):
+            t = getattr(level, key)
+            if tuple(t.shape) != (pairs, nby, nbx) or t.device.type != "cuda":
+                raise AssertionError(f"{phase}: level {lv} {key} "
+                                     f"{tuple(t.shape)} {t.device}")
+        if bool((level.sad < 0).any()):
+            raise AssertionError(f"{phase}: level {lv} has negative SADs")
+    # make_test_clip pans by (2, 3) pixels a frame: frame 0's content sits
+    # at (-3, -2) pixels in frame 1, (-12, -8) in quarter pels
+    pan = float(((mv.levels[0].x[0] == -12)
+                 & (mv.levels[0].y[0] == -8)).float().mean())
+    if plain_on_cuda:
+        raise AssertionError(f"{phase}: {plain_on_cuda} plain-version "
+                             "calls on CUDA tensors")
+    ev = info["events"]
+    res = {"phase": phase, "size": [W, H], "format": "GRAY", "pel": 4,
+           "search": "HEX2", "searchparam": 2, "levels": meta.lv_count,
+           "pairs": pairs, "frames_per_s": pairs / seconds,
+           "seconds": seconds,
+           "stage_ms": {k: ev[k][0].elapsed_time(ev[k][1]) for k in ev},
+           "host_syncs": syncs, "rescued_blocks": rescued,
+           "job0_level0_share_at_pan": pan, "launches": counts,
+           "peak_memory_bytes": peak, "plain_calls_on_cuda": plain_on_cuda}
+    emit(res)
+    return res
+
+
+def has_pel4():
+    """Whether the package driven builds pel-4 supers (a tree given by
+    --package-root may predate them): it builds one of a tiny CPU plane, or
+    refuses pel 4 with NotImplementedError."""
+    from mvtools_tpu_torch.core import config, types
+    from mvtools_tpu_torch.super import build_super
+    try:
+        sspec = config.SuperConfig(pel=4, levels=1, chroma=False).validate(
+            types.VideoFormat(32, 32, 8, types.ColorFamily.GRAY))
+        build_super([torch.zeros((1, 32, 32), dtype=torch.uint8)], sspec)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def run_pel4_paths(dev, profile):
+    """bench.py config 2 at full width (1920x1080 gray, pel 4, the full
+    pyramid, HEX2 searchparam 2, truemotion, 8 pairs a window) through
+    build_super and analyse_batch, after one warm-up: first on a clip with
+    the 256x256 flashing region (the rescue must run), then without it (it
+    must not).  In both the level-0 search probes through the tiled probe
+    and the coarse levels ride the SAD map: both must launch, and no
+    uint16, three-stat or fetch kernel may."""
+    sspec, aspec = pel4_specs(W, H)
+    res = []
+    for phase, flash in (("pel4_main_path", FLASH),
+                         ("pel4_main_path_calm", None)):
+        clip = make_test_clip(P4_PAIRS + 1, W, H, seed=0, flash=flash,
+                              device=dev)
+        pel4_analyse(clip, sspec, aspec)                       # warm-up
+        r = run_pel4_clip(phase, clip, sspec, aspec)
+        c = r["launches"]
+        if c["sad_map"] < 1 or c["probe_sads_tiled"] < 1:
+            raise AssertionError(f"{phase}: a kernel never launched {c}")
+        if flash and r["rescued_blocks"] < 1:
+            raise AssertionError(f"{phase}: the flash made no block bad; the "
+                                 "rescue never ran")
+        if not flash and r["rescued_blocks"]:
+            raise AssertionError(f"{phase}: the rescue took "
+                                 f"{r['rescued_blocks']} blocks")
+        if not flash and r["job0_level0_share_at_pan"] < 0.9:
+            raise AssertionError(f"{phase}: job 0's level-0 vectors miss the "
+                                 f"clip's pan {r['job0_level0_share_at_pan']}")
+        other = {k: v for k, v in c.items()
+                 if v and ("[" in k or k.startswith("fetch"))}
+        if other:
+            raise AssertionError(f"{phase}: a kernel off the path ran "
+                                 f"{other}")
+        if profile:
+            profile_run(phase, lambda: pel4_analyse(clip, sspec, aspec),
+                        split=("probe_sads_tiled", "probe_sads"))
+        res.append(r)
+        del clip
+    torch.cuda.empty_cache()
+    return res
+
+
+def small_end_to_end_pel4(dev):
+    """The pel-4 slice at 256x192 on the card against the same code on CPU
+    tensors (torch.equal throughout): config 2's analyse_batch and
+    analyse() on a gray clip with a flash; analyse_batch at pel 4 on YUV420
+    (chroma, overlap 8) at 8 and 16 bits, with dct 1 (the per-block fetch)
+    and with dct 5 (the three-stat tiled probe); 32x32 blocks at 16 bits,
+    whose levels all probe (pel 2); one run of each search type
+    (ONETIME, NSTEP, LOGARITHMIC, UMH, HORIZONTAL, VERTICAL); trymany with
+    the ring rescue and divide 2, and divide 1 at pel 4; Recalculate at pel
+    4 (HEX2 with divide 1, ONETIME on the per-block engine); degrain_clip
+    at pel 4 (8 and 16 bits) and flowfps_clip at pel 4."""
+    from mvtools_tpu_torch.flowfps import FlowFPSConfig
+    from mvtools_tpu_torch.models.frc import flowfps_clip
+    gray = make_test_clip(5, SMALL_W, SMALL_H, seed=2, flash=SMALL_FLASH,
+                          device="cpu")
+    # YUV420 clips with a flash over a 96x64 region (the rescue at pel 4),
+    # and without one for Degrain
+    yuv = {(bits, flash): make_test_clip_yuv(
+        4, SMALL_W, SMALL_H, seed=2, flash=(16, 16, 64, 96) if flash else None,
+        noise=YUV_NOISE, bits=bits, device="cpu")
+        for bits in (8, DEEP_BITS) for flash in (True, False)}
+    src, ref = torch.tensor([1, 1, 2, 2]), torch.tensor([2, 0, 3, 1])
+    launches, rescued, seconds = {}, {}, {}
+
+    def on_both(name, fn):
+        """fn(device) on the card and on the CPU: (card's, CPU's result);
+        the card's launches under `name`, the seconds of both runs."""
+        t0 = time.perf_counter()
+        reset_counts()
+        got = fn(dev)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        rescued[name] = fe.rescued_blocks
+        if plain_calls_on_cuda():
+            raise AssertionError(f"small end-to-end pel4 {name}: a plain "
+                                 "version ran on CUDA tensors")
+        want = fn("cpu")
+        seconds[name] = time.perf_counter() - t0
+        return got, want
+
+    def analysis(name, planes, sspec, aspec):
+        def fn(d):
+            sups = build_super([p.to(d) for p in planes], sspec)
+            return sups, analyse_batch(sups.take(src.to(d)),
+                                       sups.take(ref.to(d)), aspec)
+        (sg, mg), (sc, mc) = on_both(name, fn)
+        fields_equal(f"small end-to-end pel4 {name}", mg, mc)
+        return sg, mg, sc, mc
+
+    fmt = dict(width=SMALL_W, height=SMALL_H)
+    g_sspec, g_aspec = pel4_specs(**fmt)
+    sg, mg, sc, mc = analysis("gray config 2", [gray], g_sspec, g_aspec)
+    one_g, one_c = on_both("gray config 2 analyse()", lambda d: analyse(
+        (sg if d == dev else sc).map(lambda a: a[1]),
+        (sg if d == dev else sc).map(lambda a: a[2]), g_aspec))
+    fields_equal("small end-to-end pel4 analyse()", one_g, one_c)
+    for bits in (8, DEEP_BITS):
+        analysis(f"yuv420 {bits}-bit", yuv[bits, True], *pel4_specs(
+            **fmt, bits=bits, family=ColorFamily.YUV420))
+    for dct in (1, 5):
+        analysis(f"gray dct {dct}", [gray], *pel4_specs(**fmt, dct=dct))
+    # 32x32 blocks at 16 bits (a SAD can reach 2^24): no level rides the
+    # map, every one probes
+    s16 = SuperConfig(pel=2, levels=0, chroma=False).validate(
+        VideoFormat(SMALL_W, SMALL_H, DEEP_BITS, ColorFamily.GRAY))
+    analysis("gray 16-bit 32x32", [yuv[DEEP_BITS, True][0]], s16,
+             AnalyseConfig(blksize=32, levels=0,
+                           chroma=False).validate(s16))
+    sspec2 = SuperConfig(pel=2, levels=0, chroma=False).validate(
+        VideoFormat(SMALL_W, SMALL_H, 8, ColorFamily.GRAY))
+    for search, pel in ((SearchType.ONETIME, 4), (SearchType.NSTEP, 2),
+                        (SearchType.LOGARITHMIC, 2), (SearchType.UMH, 4),
+                        (SearchType.HORIZONTAL, 2), (SearchType.VERTICAL, 4)):
+        kw = dict(search=search, searchparam=3, search_coarse=search)
+        specs = (pel4_specs(**fmt, **kw) if pel == 4 else
+                 (sspec2, AnalyseConfig(blksize=16, levels=0, chroma=False,
+                                        **kw).validate(sspec2)))
+        analysis(f"{search.name} pel {pel}", [gray], *specs)
+    analysis("trymany ring rescue divide 2", [gray], sspec2, AnalyseConfig(
+        blksize=16, levels=0, search=SearchType.UMH, pelsearch=4,
+        search_coarse=SearchType.LOGARITHMIC, searchparam=4, trymany=True,
+        badrange=-6, divide=2, chroma=False).validate(sspec2))
+    analysis("divide 1 pel 4", [gray], *pel4_specs(**fmt, divide=1))
+    for rc_name, rc_kw in (("recalculate hex2 divide 1",
+                            dict(divide=1)),
+                           ("recalculate onetime",
+                            dict(search=SearchType.ONETIME, searchparam=2))):
+        rcfg = RecalculateConfig(blksize=16, overlap=8, thsad=200,
+                                 chroma=False, **rc_kw)
+        rspec = rcfg.to_analyse_config().validate(g_sspec)
+        got, want = on_both(rc_name, lambda d: recalculate(
+            (sg if d == dev else sc).take(src.to(d)),
+            (sg if d == dev else sc).take(ref.to(d)),
+            mg if d == dev else mc, rspec, rcfg))
+        fields_equal(f"small end-to-end pel4 {rc_name}", got, want)
+    scfg = SuperConfig(pel=4, levels=0, chroma=True)
+    acfg = AnalyseConfig(blksize=16, levels=0, overlap=8, truemotion=True,
+                         chroma=True)
+    for bits in (8, DEEP_BITS):
+        f = VideoFormat(SMALL_W, SMALL_H, bits, ColorFamily.YUV420)
+        # thsad 2000, thscd1 10000: the clip's fresh noise would make
+        # every pair a scene change at the defaults (weight 0)
+        got, want = on_both(f"degrain_clip {bits}-bit", lambda d: degrain_clip(
+            [p.to(d) for p in yuv[bits, False]], f, scfg, acfg,
+            DegrainConfig(thsad=2000, thscd1=10000), 1))
+        planes_equal(f"small end-to-end pel4 degrain_clip {bits}-bit", got,
+                     want)
+        if torch.equal(want[0], yuv[bits, False][0]):
+            raise AssertionError("small end-to-end pel4: degrain_clip left "
+                                 "the luma as it was")
+    f = VideoFormat(SMALL_W, SMALL_H, 8, ColorFamily.GRAY)
+    got, want = on_both("flowfps_clip", lambda d: flowfps_clip(
+        [gray.to(d)], f, 30, 60, SuperConfig(pel=4, levels=0, chroma=False),
+        AnalyseConfig(blksize=16, levels=0, truemotion=True, chroma=False),
+        FlowFPSConfig(maskmode=2)))
+    if len(got) != len(want) or len(want) != 9:
+        raise AssertionError("small end-to-end pel4 flowfps_clip: frames")
+    for n, (a, b) in enumerate(zip(got, want)):
+        planes_equal(f"small end-to-end pel4 flowfps_clip frame {n}", a, b)
+    # the pel-4 probes, the per-block fetch and the three-stat probe at
+    # pel 4 launched, and the rescue ran on the flash
+    c = launches
+    checks = {"gray config 2": ("sad_map", "probe_sads_tiled"),
+              "yuv420 16-bit": ("sad_map[u16]", "probe_sads_tiled[u16]"),
+              "gray dct 1": ("fetch_blocks",),
+              "gray dct 5": ("probe_sads_tiled[stats3]",),
+              "gray 16-bit 32x32": ("probe_sads_tiled[u16]",),
+              "degrain_clip 8-bit": ("fetch_blocks",),
+              "degrain_clip 16-bit": ("fetch_blocks[u16]",)}
+    for name, kernels in checks.items():
+        if min(c[name][k] for k in kernels) < 1:
+            raise AssertionError(f"small end-to-end pel4 {name}: a kernel "
+                                 f"never launched {c[name]}")
+    if c["gray 16-bit 32x32"]["sad_map[u16]"]:
+        raise AssertionError("small end-to-end pel4: a 32x32 16-bit level "
+                             "rode the SAD map")
+    for name in ("gray config 2", "trymany ring rescue divide 2"):
+        if rescued[name] < 1:
+            raise AssertionError(f"small end-to-end pel4 {name}: the rescue "
+                                 "never ran")
+    emit({"phase": "small_end_to_end_pel4", "size": [SMALL_W, SMALL_H],
+          "bit_equal_to_cpu": True, "runs": list(launches),
+          "rescued_blocks": rescued, "seconds": seconds,
+          "launches": launches})
+
 
 # the full-width paths --paths may choose (with --paths-only)
-PATHS = ("gray", "yuv", "yuv16", "satd", "dct", "fps")
+PATHS = ("gray", "yuv", "yuv16", "satd", "dct", "fps", "pel4")
 
 
 def main():
@@ -2501,6 +2871,7 @@ def main():
         small_end_to_end_satd(dev)
         small_end_to_end_dct(dev)
         small_end_to_end_fps(dev)
+        small_end_to_end_pel4(dev)
     else:
         u8_kernel_times(cfgs, dev)
         redesigned_kernel_times(dev)
@@ -2667,6 +3038,17 @@ def main():
         emit({"phase": "fps_main_path", "skipped": "the package driven "
               "(--package-root) has no frame-rate conversion path"})
 
+    # ---- bench.py config 2 (pel 4) at full width ---------------------------
+    if not wants("pel4"):
+        pass
+    elif has_pel4():
+        pel4, pel4_calm = run_pel4_paths(dev, profile)
+    elif not paths_only:
+        raise AssertionError("the package builds no pel-4 supers")
+    else:
+        emit({"phase": "pel4_main_path", "skipped": "the package driven "
+              "(--package-root) has no pel-4 path"})
+
     if paths_only:
         emit({"phase": "done", "paths_only": True,
               "seconds": time.perf_counter() - t_start})
@@ -2679,7 +3061,9 @@ def main():
                "yuv16_main_path": yuv16["launches"],
                "yuv16_main_path_calm": yuv16_calm["launches"],
                "fps_main_path": fps["launches"],
-               "fps_main_path_calm": fps_calm["launches"]}
+               "fps_main_path_calm": fps_calm["launches"],
+               "pel4_main_path": pel4["launches"],
+               "pel4_main_path_calm": pel4_calm["launches"]}
 
     def entry(name, source, replaces, case, path="yuv_main_path"):
         return dict(name=name, route="cuda", source=source,

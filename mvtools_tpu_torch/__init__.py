@@ -11,26 +11,26 @@ compiled with nvcc at first use.
 
 This package imports torch and numpy only.  Ported so far: Super -> batched
 lockstep Analyse -> Recalculate -> Degrain for 8-bit GRAY and YUV clips (pel
-1/2, chroma, overlapped blocks, any pyramid depth and radius, searches HEX2
-and EXHAUSTIVE), with the plain-SAD cost (dct 0), the DCT costs (dct 1-4)
+1/2/4, chroma, overlapped blocks, any pyramid depth and radius, every search
+type, trymany, the bad-SAD rescue for any badrange, divide 1/2; a level the
+dense SAD map cannot serve, such as every pel-4 level, probes each
+candidate), with the plain-SAD cost (dct 0), the DCT costs (dct 1-4)
 and the SATD costs (dct 5-10), and the entry points analyse / analyse_batch,
 recalculate, degrain.degrain, models.denoise.degrain_window,
 models.denoise.degrain_clip / degrain1_clip and the per-frame
 models.denoise.degrain1_frame / degrain_n_frame; Super -> batched lockstep
-Analyse (dct 0) -> Degrain for clips of 9 to 16 bits (uint16 pixels) whose
-block SADs stay under 2^24 (16-bit: blocks up to 16x16); frame-rate
-conversion, models.frc.flowfps_clip (Super -> Analyse in both directions ->
+Analyse (dct 0) -> Degrain for clips of 9 to 16 bits (uint16 pixels);
+frame-rate conversion, models.frc.flowfps_clip (Super -> Analyse in both directions ->
 FlowFPS); and the motion-compensated consumers, each one frame at a time:
 flowfps.flowfps_frame, flowinter.flowinter, flow.flow (fetch and shift),
 flowblur.flowblur, blockfps.blockfps_frame, compensate.compensate,
 scdetect.scdetect and mask.mask, over finest.finest, flowutils and
 ops/{resize,maskfun}.py.  The consumers' per-pixel gathers are plain torch
-ops; their block fetches go through the fetch kernels.  Not ported: the
-other searches (UMH, ONETIME, NSTEP, LOGARITHMIC, HORIZONTAL, VERTICAL),
-trymany, divide, engine="exact", pel 4, fields; at 9 to 16 bits
-Recalculate, dct 1-10 and larger blocks; Depan and stabilisation; the MV
-blob codec, pipelines, io and the mesh.  Each raises NotImplementedError
-or is absent.
+ops; their block fetches go through the fetch kernels.  Not ported:
+interlaced input (fields, field_shift), engine="exact"; Super's sharp 0/1,
+rfilter 0/1/3/4 and pelclip; at 9 to 16 bits Recalculate and dct 1-10;
+Depan and stabilisation; the MV blob codec, pipelines, io and the mesh.
+Each raises NotImplementedError or is absent.
 
 Precision: the pipeline is integer (pixels uint8 or uint16, block math
 int32, costs

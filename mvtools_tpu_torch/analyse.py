@@ -21,11 +21,13 @@ Float islands: the lambda adaptation uses C doubles (pobFetchPredictors
 PlaneOfBlocks.cpp:461-462), reproduced here in float64 on the device.
 
 Ported: luma and chroma, overlapped block grids, the plain-SAD cost (dct 0),
-the DCT costs (dct 1-4) and the SATD costs (dct 5-10), pel 1/2, 8-bit, and
-9- to 16-bit clips with dct 0 while a block's SAD stays under 2^24 (16-bit:
-blocks up to 16x16), searches HEX2 and EXHAUSTIVE, no
-trymany/divide/field_shift, every level on the dense map.  Anything else
-raises NotImplementedError.
+the DCT costs (dct 1-4) and the SATD costs (dct 5-10) at 8 bits, dct 0 at 9
+to 16 bits, pel 1/2/4, every search type, trymany, the bad-SAD rescue for
+any badrange, divide 1/2.  A level whose geometry the dense SAD map serves
+searches on the map; any other level (pel 4, blocks whose SAD can reach
+2^24) probes every candidate through field_engine.FieldProber.  field_shift,
+engine="exact" and the DCT and SATD costs at 9 to 16 bits raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -437,10 +439,7 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
     pred_in_s = vectors_in[2]
 
     bounds = (dxmin_a, dxmax_a, dymin_a, dymax_a)
-    if not fe.map_supported(ctx, fe.map_radius(ctx), dctmode):
-        raise NotImplementedError(
-            f"level {level}: the plane cannot ride the dense SAD map; the "
-            "probe-only search that serves such levels is not ported")
+    use_map = rides_map(ctx, dctmode)
     cost = fe.cost_keywords(dctmode, src_blocks[0], dctweight16, ctx.bits)
     stacks = fe.pad_stacks(ctx)
     prober = fe.FieldProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
@@ -471,9 +470,10 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
         lsad_f = float(lsad_const)
         scale = lsad_f / (lsad_f + (prs >> 1).to(torch.float64))
         lam_a = ((lam0_a * scale) * scale).to(I64)
-        p_it = fe.MapProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
-                            pnew, pred_vx=prx, pred_vy=pry, stacks=stacks,
-                            **cost)
+        # a level the map cannot serve probes every candidate
+        p_it = prober if not use_map else fe.MapProber(
+            ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds, pnew,
+            pred_vx=prx, pred_vy=pry, stacks=stacks, **cost)
         # the bad-SAD rescue runs once per reference block pass;
         # intermediate Jacobi sweeps skip it
         st = fe.field_epz(p_it, dense, level_params, gx_scaled, gy_scaled,
@@ -614,6 +614,51 @@ def interpolate_prediction(coarse, nbx2: int, nby2: int, nbx: int, nby: int,
 
 
 # ---------------------------------------------------------------------------
+# Divide-extra (gopExtraDivide GroupOfPlanes.c:206-302)
+
+
+def _get_median_xy(vx1, vy1, vx2, vy2, vx3, vy3):
+    """GetMedian (GroupOfPlanes.c:187-196): component medians if they equal
+    one of the input vectors, else the first vector."""
+    mx = _median3(vx1, vx2, vx3)
+    my = _median3(vy1, vy2, vy3)
+    is_input = (((mx == vx1) & (my == vy1)) | ((mx == vx2) & (my == vy2))
+                | ((mx == vx3) & (my == vy3)))
+    return torch.where(is_input, mx, vx1), torch.where(is_input, my, vy1)
+
+
+def divide_extra(finest: MVPlaneField, divide_mode: int) -> MVPlaneField:
+    """The divided sub-block level [J, 2*nby, 2*nbx] from the finest level
+    [J, nby, nbx]: each block's vector on its four sub-blocks, sad >> 2;
+    divide 2 gives an interior block's sub-blocks the medians of the
+    vector with its neighbours (left or right, up or down)."""
+    vx, vy, vs = finest.x, finest.y, finest.sad
+    nby, nbx = vx.shape[-2:]
+
+    def up2(a):
+        return a.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+    ox, oy = up2(vx), up2(vy)
+    if divide_mode > 1 and nby > 2 and nbx > 2:
+        left = (vx.roll(1, -1), vy.roll(1, -1))
+        right = (vx.roll(-1, -1), vy.roll(-1, -1))
+        up = (vx.roll(1, -2), vy.roll(1, -2))
+        down = (vx.roll(-1, -2), vy.roll(-1, -2))
+        by = torch.arange(nby, device=vx.device)[:, None]
+        bx = torch.arange(nbx, device=vx.device)[None, :]
+        interior = (by > 0) & (by < nby - 1) & (bx > 0) & (bx < nbx - 1)
+        quads = (_get_median_xy(vx, vy, *left, *up),
+                 _get_median_xy(vx, vy, *right, *up),
+                 _get_median_xy(vx, vy, *left, *down),
+                 _get_median_xy(vx, vy, *right, *down))
+        for out, comp in ((ox, 0), (oy, 1)):
+            for q, (sy, sx) in zip(quads, ((0, 0), (0, 1), (1, 0), (1, 1))):
+                sub = out[..., sy::2, sx::2]
+                sub.copy_(torch.where(interior, q[comp], sub))
+    return MVPlaneField(ox, oy, up2(vs >> 2))
+
+
+# ---------------------------------------------------------------------------
 # Top level (gopSearchMVs GroupOfPlanes.c:69-125, mvanalyseGetFrame)
 
 
@@ -699,26 +744,32 @@ def _level_plan(spec: AnalyseSpec, lv: int) -> dict:
         lambda_level=lambda_level, pnew=spec.pnew, verybig=verybig)
 
 
+def rides_map(ctx: LevelCtx, dctmode: int) -> bool:
+    """Whether a level's search runs on the dense SAD map (MapProber
+    lookups); else its FieldProber probes every candidate, as at pel 4 and
+    for 16-bit blocks whose SAD can reach 2^24."""
+    return fe.map_supported(ctx, fe.map_radius(ctx), dctmode)
+
+
 def batch_supported(spec: AnalyseSpec, sspec) -> bool:
-    """Static predicate: every pyramid level of this config rides the
-    dense-map search."""
-    for lv in range(spec.meta.lv_count):
-        ctx = _level_ctx(sspec, spec, lv)
-        if not fe.map_supported(ctx, fe.map_radius(ctx), spec.dct):
-            return False
-    return True
+    """Static predicate: every pyramid level of this config rides the dense
+    map (rides_map, the choice search_level_lockstep makes per level).
+    analyse_batch serves either kind of level in one batch; this says
+    which kind a configuration gets."""
+    return all(rides_map(_level_ctx(sspec, spec, lv), spec.dct)
+               for lv in range(spec.meta.lv_count))
 
 
 def _unported_costs(spec: AnalyseSpec):
     """(condition, what) pairs of the luma costs that are not ported."""
     m = spec.meta
     return [
-        (1 <= spec.dct <= 4 and (m.bits_per_sample != 8 or m.pel == 4),
+        (1 <= spec.dct <= 4 and m.bits_per_sample != 8,
          f"dct={spec.dct} with {m.bits_per_sample}-bit input at pel={m.pel} "
-         "(the DCT costs dct 1-4 are ported for 8-bit input at pel 1 and 2)"),
+         "(the DCT costs dct 1-4 are ported for 8-bit input)"),
         (spec.dct >= 5 and m.bits_per_sample != 8,
-         f"dct={spec.dct} with {m.bits_per_sample}-bit input (the SATD "
-         "costs dct 5-10 are ported for 8-bit input)"),
+         f"dct={spec.dct} with {m.bits_per_sample}-bit input at pel={m.pel} "
+         "(the SATD costs dct 5-10 are ported for 8-bit input)"),
         (spec.dct >= 5 and not sad_ops.satd_supported(m.blk_size_x,
                                                       m.blk_size_y),
          f"dct={spec.dct} with {m.blk_size_x}x{m.blk_size_y} blocks (no SATD "
@@ -726,12 +777,8 @@ def _unported_costs(spec: AnalyseSpec):
 
 
 def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
-    m = spec.meta
     unported = _unported_costs(spec) + [
-        (sspec.pel == 4, "pel=4"),
-        (spec.trymany, "trymany=True"),
-        (spec.divide != 0, "divide != 0"),
-        (field_shift != 0, "field_shift != 0"),
+        (field_shift != 0, "field_shift != 0 (interlaced input)"),
     ]
     for bad, what in unported:
         if bad:
@@ -739,16 +786,6 @@ def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
     if spec.chroma and not sspec.chroma:
         raise ValueError("Analyse: chroma=True needs a super clip with "
                          "chroma planes")
-    for lv in range(m.lv_count):
-        search = _level_plan(spec, lv)["search"]
-        if search not in (SearchType.HEX2, SearchType.EXHAUSTIVE):
-            raise NotImplementedError(
-                f"Analyse: search={SearchType(search).name} is not ported "
-                "(HEX2 and EXHAUSTIVE are)")
-    if not batch_supported(spec, sspec):
-        raise NotImplementedError(
-            "Analyse: some pyramid level cannot ride the dense SAD map; the "
-            "probe-only search for such levels is not ported")
 
 
 def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,
@@ -757,10 +794,12 @@ def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,
     -> MVField with [J]-leading tensors, on the device the supers live on.
 
     Every whole-field op serves all J jobs at once and each level builds
-    its dense SAD map for the whole batch in one kernel launch.  The
-    bad-SAD rescue runs for the batch behind one host read per level; it
-    is gated per block, so a job without bad blocks comes out exactly as
-    if it had been searched alone."""
+    its dense SAD map for the whole batch in one kernel launch (a level the
+    map cannot serve probes its candidates for the whole batch).  The
+    bad-SAD rescue runs for the batch behind one host read per level, and
+    a search's walk runs while any block of any job walks; both are gated
+    per block, so a job comes out exactly as if it had been searched
+    alone.  With spec.divide the divided sub-block level comes first."""
     if not src_supers.batched or not ref_supers.batched:
         raise ValueError("analyse_batch: supers need a leading job axis")
     _check_ported(spec, src_supers.spec, field_shift)
@@ -804,8 +843,12 @@ def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,
         levels_out.append(MVPlaneField(vx.reshape(nj, nby, nbx),
                                        vy.reshape(nj, nby, nbx),
                                        vs.reshape(nj, nby, nbx)))
+    meta = m
+    if spec.divide:
+        levels_out.insert(0, divide_extra(levels_out[0], spec.divide))
+        meta = spec.divided_meta
     return MVField(tuple(levels_out),
-                   torch.ones((nj,), dtype=I32, device=dev), m)
+                   torch.ones((nj,), dtype=I32, device=dev), meta)
 
 
 def analyse(src_super: Super, ref_super: Super, spec: AnalyseSpec,

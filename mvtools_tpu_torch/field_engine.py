@@ -13,21 +13,25 @@ an explicit leading job axis: [J, nblk].  Every stage is one of:
   mixed cost, built row by row from fetched blocks).
 * `FieldProber.check`: per-block candidates probed with the probe kernels
   (ops/probe.py: tiled, or per block on planes too small for a tile
-  window) — the bad-SAD rescue, which walks far from the map anchor.
+  window) — the bad-SAD rescue, which walks far from the map anchor, and
+  every search of a level the map cannot serve (pel 4, 16-bit blocks whose
+  SAD can reach 2^24).
 
-Data-dependent search trajectories (hex2's direction walk) become
-field-level loops whose candidate sets are static supersets gated by
-per-block masks; the loop condition is one host read per iteration
-(counted in `host_syncs`).  Candidate EVALUATION ORDER within a batch
-matches the reference's enumeration: the first candidate that reaches the
-batch minimum wins, as the reference's strict `cost < mincost` update does.
+Data-dependent search trajectories (hex2's direction walk, ONETIME's axis
+walks, the diamond search's direction cases) become field-level loops
+whose candidate sets are static supersets gated by per-block masks; the
+loop condition is one host read per iteration (counted in `host_syncs`).
+Candidate EVALUATION ORDER within a batch matches the reference's
+enumeration: the first candidate that reaches the batch minimum wins, as
+the reference's strict `cost < mincost` update does.
 
 Not bit-exact vs the reference's sequential engine by design: neighbour
 predictors lag one Jacobi iteration and badcount feedback is per-block.
 Ported: the plain-SAD cost (dct 0), the DCT-mixed luma costs (dct 1-4,
 from blocks fetched by ops/probe.py's fetches and transformed by
 ops/dct.py) and the SATD-mixed luma costs (dct 5-10, from the three-stat
-forms of the map and the probes), chroma and overlapped block grids.
+forms of the map and the probes), chroma and overlapped block grids, every
+search type, trymany and the rescue for any badrange.
 """
 
 from __future__ import annotations
@@ -192,12 +196,15 @@ class FieldProber:
 
     def __init__(self, ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds, pnew,
                  stacks=None, dctmode: int = 0, src_luma=None,
-                 dctweight16=None, dct_src=None):
+                 dctweight16=None, dct_src=None, tiled: bool = True):
         """src_blocks: per color plane [J, nblk, bs_y, bs_x] pixels, uint8
         or uint16 (luma, or luma, U, V with ctx.chroma); stacks: the padded
-        stacks of pad_stacks(ctx), made here when not given.  dctmode 1-4
-        makes the luma cost the DCT mix of the source blocks' requantised
-        DCT dct_src [J, nblk, bs_y, bs_x] int32, dctmode 5-10 the SATD mix;
+        stacks of pad_stacks(ctx), made here when not given.  tiled=False
+        probes every candidate through the per-block probe, whose SADs are
+        exact wherever the block lies in the stack (no tile window).
+        dctmode 1-4 makes the luma cost the DCT mix of the source blocks'
+        requantised DCT dct_src [J, nblk, bs_y, bs_x] int32, dctmode 5-10
+        the SATD mix;
         both read src_luma [J, nblk] int64 (the source blocks' sums) and
         dctweight16 [J] (cost_keywords makes all four); chroma stays plain
         SAD."""
@@ -205,6 +212,7 @@ class FieldProber:
         self.src_luma = src_luma
         self.dctweight16 = dctweight16
         self.dct_src = dct_src
+        self.tiled = tiled
         self.ctx = ctx
         self.pel = ctx.pel
         self.logp = ctx.log_pel
@@ -240,8 +248,12 @@ class FieldProber:
         tile's window reports INVALID_SAD and loses every cost comparison
         (the dense zero trial guarantees a real bound), and so does an
         entry that `active` ([J, nblk, K, D] bool, None: all) leaves out.
-        A plane too small for the tile window takes the per-block probe
-        instead."""
+        A plane too small for the tile window, or a prober made with
+        tiled=False, takes the per-block probe instead."""
+        if not self.tiled:
+            return probe_ops.probe_sads(
+                stack, cy.contiguous(), cx.contiguous(), src, offsets, bs_y,
+                bs_x, self.pel, stats=stats, active=active)
         return probe_ops.probe_sads_tiled(
             stack, cy.contiguous(), cx.contiguous(), src, offsets, bs_y,
             bs_x, self.pel, row_len=self.nbx, pitch_x=pitch, stats=stats,
@@ -873,53 +885,159 @@ def _hex2_general(p: FieldProber, st, i_me_range, lam, pred, active=None):
                       active=active)
 
 
+def _umh(p, st, i_me_range, cx, cy, lam, pred, active=None):
+    """pobUMHSearch around a per-block centre (PlaneOfBlocks.cpp:742-769):
+    the cross and multi-hexagon offsets, then hex2."""
+    offs = _umh_uniform_offsets(i_me_range)
+    em = None if active is None else active[..., None]
+    st = p.check(st, cx, cy, offs, extra_mask=em, lam=lam, pred=pred)
+    return _hex2_general(p, st, i_me_range, lam, pred, active=active)
+
+
+def _nstep(p, st, stp, lam, pred):
+    """pobNStepSearch (PlaneOfBlocks.cpp:465-485), field level."""
+    for length in range(stp, 0, -1):
+        offs = [(length, length), (length, 0), (length, -length),
+                (0, -length), (0, length), (-length, length),
+                (-length, 0), (-length, -length)]
+        st = p.check(st, st["bx"], st["by"], offs, lam=lam, pred=pred)
+    return st
+
+
+def _onetime(p, st, length, lam, pred):
+    """pobOneTimeSearch (PlaneOfBlocks.cpp:488-527), field level: the walk
+    along each axis is a loop that ends on one host read of any(alive) per
+    step."""
+    st = dict(st, dir=torch.zeros_like(st["dir"]))
+    dx0, dy0 = st["bx"], st["by"]
+    st = p.check(st, dx0, dy0, [(-length, 0), (length, 0)],
+                 dir_vals=[2, 1], lam=lam, pred=pred)
+
+    def walk(st, fixed, d, axis):
+        sign = torch.where(st["dir"] == 2, -1, 1).to(I32)
+        st = dict(st, dir=(st["dir"] != 0).to(I32))
+        while any_true(st["dir"] != 0):
+            alive = st["dir"] != 0
+            s2 = dict(st, dir=torch.zeros_like(st["dir"]))
+            d = torch.where(alive, d + sign * length, d)
+            probe_c = d + sign * length
+            vx, vy = (probe_c, fixed) if axis == 0 else (fixed, probe_c)
+            s2 = p.check(s2, vx, vy, [(0, 0)], dir_vals=[1],
+                         extra_mask=alive[..., None], lam=lam, pred=pred)
+            st = {k: torch.where(alive, s2[k], st[k]) for k in s2}
+        return st, d
+
+    st, dx1 = walk(st, dy0, dx0, 0)
+    st = dict(st, dir=torch.zeros_like(st["dir"]))
+    st = p.check(st, dx1, dy0, [(0, -length), (0, length)],
+                 dir_vals=[2, 1], lam=lam, pred=pred)
+    st, _ = walk(st, dx1, dy0, 1)
+    return st
+
+
+_R, _L, _D, _U = 1, 2, 4, 8
+
+
+@functools.lru_cache(maxsize=None)
+def _diamond_table():
+    """[16, 4] bool: the diagonals (pp, mp, pm, mm) a block checks after a
+    step whose last direction set was the row's index and whose axis
+    probes found nothing (PlaneOfBlocks.cpp:570-625)."""
+    pp, mp, pm, mm = (1, 1), (-1, 1), (1, -1), (-1, -1)
+    cases = {
+        _R: (pp, pm), _L: (mp, mm), _D: (pp, mp), _U: (pm, mm),
+        _R + _D: (pp, mp, pm), _L + _D: (pp, mp, mm),
+        _R + _U: (pp, mm, pm), _L + _U: (mm, mp, pm),
+    }
+    table = np.zeros((16, 4), bool)
+    for case in range(16):
+        offs = cases.get(case, (pp, mp, pm, mm))
+        for kk, o in enumerate((pp, mp, pm, mm)):
+            table[case, kk] = o in offs
+    return table
+
+
+def _diamond(p, st, length, lam, pred):
+    """pobDiamondSearch (PlaneOfBlocks.cpp:530-632), field level with masked
+    direction cases; the loop ends on one host read of any(alive) per
+    step."""
+    diag_order = [(length, length), (-length, length), (length, -length),
+                  (-length, -length)]
+    diag_dirs = [_R + _D, _L + _D, _R + _U, _L + _U]
+    table = _diamond_table()
+    axis_offs = [(length, 0), (-length, 0), (0, length), (0, -length)]
+    perp_offs = [(0, length), (0, -length), (length, 0), (-length, 0)]
+    st = dict(st, dir=torch.full_like(st["dir"], 15))
+    while any_true(st["dir"] > 0):
+        alive = st["dir"] > 0
+        last = st["dir"]
+        st2 = dict(st, dir=torch.zeros_like(last))
+        mask = torch.stack([(last & _R) != 0, (last & _L) != 0,
+                            (last & _D) != 0, (last & _U) != 0],
+                           dim=-1) & alive[..., None]
+        st2 = p.check(st2, st["bx"], st["by"], axis_offs,
+                      dir_vals=[_R, _L, _D, _U], extra_mask=mask, lam=lam,
+                      pred=pred)
+        found = st2["dir"]
+        # improved on an axis: the perpendicular probes
+        horiz = (found & (_R + _L)) != 0
+        perp_mask = (torch.stack([horiz, horiz, ~horiz, ~horiz], dim=-1)
+                     & ((found != 0) & alive)[..., None])
+        st_imp = p.check(dict(st2), st2["bx"], st2["by"], perp_offs,
+                         dir_vals=[_D, _U, _R, _L], extra_mask=perp_mask,
+                         lam=lam, pred=pred)
+        # nothing on the axes: the diagonals of the last direction set
+        diag_mask = (_table(table, last.clamp(0, 15))
+                     & ((found == 0) & alive)[..., None])
+        st_diag = p.check(dict(st2), st["bx"], st["by"], diag_order,
+                          dir_vals=diag_dirs, extra_mask=diag_mask, lam=lam,
+                          pred=pred)
+        st3 = {k: torch.where(found != 0, st_imp[k], st_diag[k])
+               for k in st2}
+        st = {k: torch.where(alive, st3[k], st[k]) for k in st3}
+    return st
+
+
 def refine(p: FieldProber, st, search: SearchType, param: int, lam, pred,
            active=None):
-    """pobRefine (PlaneOfBlocks.cpp:772-816), field level; HEX2 and
-    EXHAUSTIVE are ported (with whichever cost the prober carries)."""
-    if search == SearchType.EXHAUSTIVE:
-        return _exhaustive(p, st, param, lam, pred, active=active)
-    if search == SearchType.HEX2:
-        return _hex2_general(p, st, param, lam, pred, active=active)
-    raise NotImplementedError(
-        f"search={SearchType(search).name} is not ported: HEX2 and "
-        "EXHAUSTIVE are (UMH, ONETIME, NSTEP, LOGARITHMIC, HORIZONTAL and "
-        "VERTICAL are not)")
+    """pobRefine (PlaneOfBlocks.cpp:772-816), field level, with whichever
+    cost the prober carries.  `active` gates EXHAUSTIVE, HEX2 and UMH per
+    block; the other searches refine every block, as the JAX package's
+    field-level refine does."""
+    search = SearchType(search)
+    if search == SearchType.ONETIME:
+        i = param
+        while i > 0:
+            st = _onetime(p, st, i, lam, pred)
+            i //= 2
+    elif search == SearchType.NSTEP:
+        st = _nstep(p, st, param, lam, pred)
+    elif search == SearchType.LOGARITHMIC:
+        i = param
+        while i > 0:
+            st = _diamond(p, st, i, lam, pred)
+            i //= 2
+    elif search == SearchType.EXHAUSTIVE:
+        st = _exhaustive(p, st, param, lam, pred, active=active)
+    elif search == SearchType.HEX2:
+        st = _hex2_general(p, st, param, lam, pred, active=active)
+    elif search == SearchType.UMH:
+        st = _umh(p, st, param, st["bx"], st["by"], lam, pred,
+                  active=active)
+    else:      # HORIZONTAL, VERTICAL
+        offs = []
+        for i in range(1, param + 1):
+            offs += ([(-i, 0), (i, 0)] if search == SearchType.HORIZONTAL
+                     else [(0, -i), (0, i)])
+        st = p.check(st, st["bx"], st["by"], offs, lam=lam, pred=pred)
+    return st
 
 
-def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
-              lam, idx, do_rescue: bool = True,
-              probe_p: Optional[FieldProber] = None):
-    """Whole-plane pseudo-EPZ for one Jacobi iteration
-    (pobPseudoEPZSearch PlaneOfBlocks.cpp:819-968, every dct mode, no
-    trymany).
-
-    pred_main: (x, y, sad) main predictor tensors [J, nblk]; preds: list of
-    4 (x, y) predictor pairs; gx/gy: [J] global vector; lam: adapted lambda
-    per block.  Returns the field state dict.  probe_p serves the bad-SAD
-    rescue: the rescue walks far from the map anchor, so it needs a
-    window-probing prober.
-    """
-    search = level_params["search"]
-    param = level_params["param"]
-    pzero = level_params["pzero"]
-    pglobal = level_params["pglobal"]
-    if level_params["trymany"]:
-        raise NotImplementedError("trymany=True is not ported")
+def _predictor_trials(p, st, pglobal, gxc, gyc, prx, pry, preds, lam,
+                      pred):
+    """The global, main and four neighbour predictor trials in one lookup
+    (probe) per plane; the zero trial's state `st` bounds them."""
     dxmin, dxmax, dymin, dymax = p.bounds
-    prx, pry, prs = pred_main
-    pred = (prx, pry)
-
-    # ---- zero trial (dense; no bounds check) ------------------------------
-    sad0 = dense.luma_sads(0, 0) + dense.chroma_sads(0, 0)
-    st = dict(bx=torch.zeros_like(prx), by=torch.zeros_like(pry),
-              bsad=sad0, mincost=sad0 + ((pzero * sad0) >> 8),
-              dir=torch.zeros_like(prx))
-
-    gxc = torch.minimum(torch.maximum(gx[:, None], dxmin), dxmax - 1)
-    gyc = torch.minimum(torch.maximum(gy[:, None], dymin), dymax - 1)
-
-    # ---- global + main + 4 neighbour predictors, one lookup ---------------
     qs = [(torch.minimum(torch.maximum(q[0], dxmin), dxmax - 1),
            torch.minimum(torch.maximum(q[1], dymin), dymax - 1))
           for q in preds]
@@ -945,11 +1063,84 @@ def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
               mincost=torch.where(take, sad_p, st["mincost"]))
     # neighbours: bounds mask + MD cost, no penaltyNew (the SAD was looked
     # up at the clamped position, exact whenever valid)
-    st = _update(p, st, sads[..., 2:], None,
-                 torch.stack([q[0] for q in preds], dim=-1),
-                 torch.stack([q[1] for q in preds], dim=-1),
-                 lam, pred, penalty_new=False)
+    return _update(p, st, sads[..., 2:], None,
+                   torch.stack([q[0] for q in preds], dim=-1),
+                   torch.stack([q[1] for q in preds], dim=-1),
+                   lam, pred, penalty_new=False)
+
+
+def _trymany(p, st, level_params, gxc, gyc, prx, pry, preds, lam, pred):
+    """trymany (PlaneOfBlocks.cpp:871-936): a refinement from each of seven
+    starts (the zero trial, the global vector, the main predictor, each
+    neighbour predictor with its mincost reset to verybig + 1); a block
+    keeps the start whose refinement reached the least cost (the first on
+    a tie) if that cost is under verybig + 1."""
+    search, param = level_params["search"], level_params["param"]
+    verybig = level_params["verybig"]
     st = refine(p, st, search, param, lam, pred)
+    results = [st]
+    sad_g = p.plain_sad(gxc, gyc)
+    cost_g = sad_g + ((level_params["pglobal"] * sad_g) >> 8)
+    st = refine(p, dict(st, bx=gxc, by=gyc, bsad=sad_g, mincost=cost_g),
+                search, param, lam, pred)
+    results.append(st)
+    sad_p = p.plain_sad(prx, pry)
+    st = refine(p, dict(st, bx=prx, by=pry, bsad=sad_p, mincost=sad_p),
+                search, param, lam, pred)
+    results.append(st)
+    for qx, qy in preds:
+        st = dict(st, mincost=torch.full_like(st["mincost"], verybig + 1))
+        st = p.check(st, qx, qy, penalty_new=False, lam=lam, pred=pred)
+        st = refine(p, st, search, param, lam, pred)
+        results.append(st)
+    costs = torch.stack([r["mincost"] for r in results], dim=-1)
+    best, k = _first_min(costs)
+    improve = best < verybig + 1
+
+    def pick(key):
+        return _pick(torch.stack([r[key] for r in results], dim=-1), k)
+
+    return dict(st, **{key: torch.where(improve, pick(key), st[key])
+                       for key in ("bx", "by", "bsad", "mincost")})
+
+
+def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
+              lam, idx, do_rescue: bool = True,
+              probe_p: Optional[FieldProber] = None):
+    """Whole-plane pseudo-EPZ for one Jacobi iteration
+    (pobPseudoEPZSearch PlaneOfBlocks.cpp:819-968, every dct mode, with or
+    without trymany).
+
+    pred_main: (x, y, sad) main predictor tensors [J, nblk]; preds: list of
+    4 (x, y) predictor pairs; gx/gy: [J] global vector; lam: adapted lambda
+    per block.  Returns the field state dict.  probe_p serves the bad-SAD
+    rescue: the rescue walks far from the map anchor, so it needs a
+    window-probing prober.
+    """
+    search = level_params["search"]
+    param = level_params["param"]
+    pzero = level_params["pzero"]
+    pglobal = level_params["pglobal"]
+    dxmin, dxmax, dymin, dymax = p.bounds
+    prx, pry, prs = pred_main
+    pred = (prx, pry)
+
+    # ---- zero trial (dense; no bounds check) ------------------------------
+    sad0 = dense.luma_sads(0, 0) + dense.chroma_sads(0, 0)
+    st = dict(bx=torch.zeros_like(prx), by=torch.zeros_like(pry),
+              bsad=sad0, mincost=sad0 + ((pzero * sad0) >> 8),
+              dir=torch.zeros_like(prx))
+
+    gxc = torch.minimum(torch.maximum(gx[:, None], dxmin), dxmax - 1)
+    gyc = torch.minimum(torch.maximum(gy[:, None], dymin), dymax - 1)
+
+    if level_params["trymany"]:
+        st = _trymany(p, st, level_params, gxc, gyc, prx, pry, preds, lam,
+                      pred)
+    else:
+        st = _predictor_trials(p, st, pglobal, gxc, gyc, prx, pry, preds,
+                               lam, pred)
+        st = refine(p, st, search, param, lam, pred)
 
     # ---- bad-SAD rescue (PlaneOfBlocks.cpp:938-963) ------------------------
     if not do_rescue:
@@ -977,8 +1168,6 @@ def field_rescue(p: FieldProber, dense, level_params, st, lam, pred,
     rescued_blocks += n_bad
     if not n_bad:
         return dict(st)
-    if badrange < 0:
-        raise NotImplementedError("badrange < 0 (ring rescue) is not ported")
     st = dict(st)
     if badrange > 0:
         # cross + hex4 around (0,0) are uniform -> dense; the hex2 tail
@@ -991,6 +1180,18 @@ def field_rescue(p: FieldProber, dense, level_params, st, lam, pred,
         st = dict(st, **stf)
         st = _hex2_general(probe_p, st, badrange * pelf, lam, pred,
                            active=bad)
+    elif badrange < 0:
+        # rings around (0,0) are uniform -> dense; a block stops once its
+        # SAD fell under a quarter of the one it came with
+        done = torch.zeros_like(bad)
+        for i in range(1, -badrange * pelf, pelf):
+            stf = dense.check_uniform(
+                {"bx": st["bx"], "by": st["by"], "bsad": st["bsad"],
+                 "mincost": st["mincost"]},
+                _ring_offsets(i, pelf), p.bounds, pred, lam, p.pnew,
+                bad & ~done)
+            st = dict(st, **stf)
+            done = done | (st["bsad"] < found_sad // 4)
     if pelf > 1:
         mvx, mvy = st["bx"], st["by"]
         for i in range(1, pelf):

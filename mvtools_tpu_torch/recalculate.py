@@ -14,11 +14,10 @@ the clipped predictor field (field_engine.MapProber), gated per block by
 `cost > thsad`.  Every tensor carries an explicit leading job axis [J, ...];
 supers and the old field may come without it (one frame pair).
 
-Ported: the lockstep engine, 8-bit, pel 1/2, the plain-SAD cost (dct 0), the
-DCT costs (dct 1-4) and the SATD costs (dct 5-10), searches HEX2 and
-EXHAUSTIVE, smooth 0 and 1, any old / new block grid.  engine="exact",
-divide, fields, field_shift, UMH and the other searches raise
-NotImplementedError.
+Ported: the lockstep engine, 8-bit, pel 1/2/4, the plain-SAD cost (dct 0),
+the DCT costs (dct 1-4) and the SATD costs (dct 5-10), every search type,
+smooth 0 and 1, divide 1/2, any old / new block grid.  engine="exact",
+clips of 9 to 16 bits, fields and field_shift raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import torch
 
 from . import field_engine as fe
 from .analyse import (_blocks_of, _clip, _level_ctx, _trunc_div,
-                      _unported_costs)
+                      _unported_costs, divide_extra, rides_map)
 from .core.config import AnalyseConfig, AnalyseSpec
 from .core.types import AnalysisMeta, MVField, MVPlaneField, SearchType
 from .super import Super
@@ -144,14 +143,9 @@ def _check_ported(spec: AnalyseSpec, cfg: RecalculateConfig, sspec,
     if engine != "lockstep":
         raise ValueError(f"recalculate: unknown engine {engine!r}")
     unported = _unported_costs(spec) + [
-        (sspec.pel == 4, "pel=4"),
         (sspec.bits != 8, f"{sspec.bits}-bit clips"),
-        (spec.divide != 0 or cfg.divide != 0, "divide != 0"),
         (spec.fields or cfg.fields, "fields=True"),
         (field_shift != 0, "field_shift != 0"),
-        (spec.search not in (SearchType.HEX2, SearchType.EXHAUSTIVE),
-         f"search={SearchType(spec.search).name} (HEX2 and EXHAUSTIVE are "
-         "ported)"),
     ]
     for bad, what in unported:
         if bad:
@@ -235,8 +229,15 @@ def recalculate(src_super: Super, ref_super: Super, old_mv: MVField,
                             torch.full((nj,), 8, dtype=I32, device=dev),
                             ctx.bits)
     stacks = fe.pad_stacks(ctx)
+    # EXHAUSTIVE, HEX2 and UMH refine the blocks over thsad on the field
+    # path (the tiled probes and the map); the other searches take the JAX
+    # package's per-block engine: exact SADs everywhere, every block
+    # refined and a block under thsad keeping its predictor
+    field_path = spec.search in (SearchType.EXHAUSTIVE, SearchType.HEX2,
+                                 SearchType.UMH)
     prober = fe.FieldProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a, bounds,
-                            spec.pnew, stacks=stacks, **cost)
+                            spec.pnew, stacks=stacks, tiled=field_path,
+                            **cost)
 
     cpx = _clip(px_a, dxmin_a, dxmax_a - 1)
     cpy = _clip(py_a, dymin_a, dymax_a - 1)
@@ -246,15 +247,22 @@ def recalculate(src_super: Super, ref_super: Super, old_mv: MVField,
     # old vector, so it runs on the dense map anchored at the predictors
     sad0 = prober.plain_sad(cpx, cpy)
     refine_p = prober
-    if fe.map_supported(ctx, fe.map_radius(ctx), spec.dct):
+    if field_path and rides_map(ctx, spec.dct):
         refine_p = fe.MapProber(ctx, src_blocks, x0_a, y0_a, xc_a, yc_a,
                                 bounds, spec.pnew, pred_vx=cpx, pred_vy=cpy,
                                 stacks=stacks, **cost)
     st = {"bx": cpx, "by": cpy, "bsad": sad0, "mincost": sad0,
           "dir": torch.zeros((nj, nblk), dtype=I32, device=dev)}
-    st = fe.refine(refine_p, st, spec.search, spec.n_search_param, lam_a,
-                   (cpx, cpy), active=sad0 > thsad)
-    level = MVPlaneField(st["bx"].reshape(nj, nby, nbx),
-                         st["by"].reshape(nj, nby, nbx),
-                         st["bsad"].reshape(nj, nby, nbx))
-    return MVField((level,), torch.ones((nj,), dtype=I32, device=dev), meta)
+    bad = sad0 > thsad
+    refined = fe.refine(refine_p, st, spec.search, spec.n_search_param,
+                        lam_a, (cpx, cpy), active=bad)
+    st = (refined if field_path else
+          {k: torch.where(bad, refined[k], st[k]) for k in st})
+    levels = [MVPlaneField(st["bx"].reshape(nj, nby, nbx),
+                           st["by"].reshape(nj, nby, nbx),
+                           st["bsad"].reshape(nj, nby, nbx))]
+    if spec.divide:
+        levels.insert(0, divide_extra(levels[0], spec.divide))
+        meta = spec.divided_meta
+    return MVField(tuple(levels), torch.ones((nj,), dtype=I32, device=dev),
+                   meta)

@@ -20,14 +20,16 @@ from mvtools_tpu_torch.core.types import ColorFamily, VideoFormat
 from mvtools_tpu_torch.super import build_super
 
 
+# pel 4 is ported (test_torch_pel4_super.py); its case keeps its id and
+# refuses pel 4 with an interpolator that is not
 @pytest.mark.parametrize("cfg,fmt,what", [
-    (dict(pel=4), (64, 48, 8, ColorFamily.GRAY), "pel"),
+    (dict(pel=4, sharp=0), (64, 48, 8, ColorFamily.GRAY), "pel"),
     (dict(sharp=1), (64, 48, 8, ColorFamily.GRAY), "sharp"),
     (dict(rfilter=0, levels=2), (64, 48, 8, ColorFamily.GRAY), "rfilter"),
     (dict(), (64, 48, 16, ColorFamily.GRAY), "16-bit"),
 ])
 def test_super_unported_options_raise(cfg, fmt, what):
-    """Options outside the slice raise NotImplementedError; a deep-bit spec
+    """Options outside the port raise NotImplementedError; a deep-bit spec
     (ported) given uint8 planes raises ValueError naming the depth."""
     spec = SuperConfig(**cfg).validate(VideoFormat(*fmt))
     exc = ValueError if fmt[2] > 8 else NotImplementedError

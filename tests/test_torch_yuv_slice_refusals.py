@@ -20,15 +20,21 @@ from mvtools_tpu_torch.models.denoise import degrain_clip
 from test_torch_yuv_slice import _tiny_clip  # noqa: E402
 
 
+# pel 4 (with dct 1-4 at 8 bits) and trymany are ported: the cases "pel4",
+# "dct" and "trymany" keep their ids and combine the option with one that
+# is still refused (sharp 0, a cost at 16 bits, fields), which must name
+# itself.
 DEGRAIN_CLIP_REFUSALS_CASES = [
     (dict(engine="exact"), "exact"),
     (dict(mesh=object()), "mesh"),
     (dict(spatial="space"), "mesh"),
     (dict(acfg=AnalyseConfig(fields=True, tff=True)), "fields"),
-    (dict(scfg=SuperConfig(pel=4)), "pel"),
+    (dict(scfg=SuperConfig(pel=4, sharp=0)), "sharp=0 at pel 4"),
     (dict(bits=16, acfg=AnalyseConfig(dct=5)), "16-bit"),
-    (dict(acfg=AnalyseConfig(dct=1), scfg=SuperConfig(pel=4)), "dct"),
-    (dict(acfg=AnalyseConfig(trymany=True)), "trymany"),
+    (dict(bits=16, acfg=AnalyseConfig(dct=1), scfg=SuperConfig(pel=4)),
+     "dct=1 with 16-bit"),
+    (dict(acfg=AnalyseConfig(trymany=True, fields=True, tff=True)),
+     "fields"),
 ]
 DEGRAIN_CLIP_REFUSALS_IDS = ["exact", "mesh", "spatial", "fields", "pel4",
                              "16bit", "dct", "trymany"]
@@ -37,7 +43,7 @@ DEGRAIN_CLIP_REFUSALS_IDS = ["exact", "mesh", "spatial", "fields", "pel4",
 @pytest.mark.parametrize("kw,what", DEGRAIN_CLIP_REFUSALS_CASES[:4],
                          ids=DEGRAIN_CLIP_REFUSALS_IDS[:4])
 def test_degrain_clip_refusals(kw, what):
-    """Nothing outside the slice falls back silently: each option names
+    """Nothing outside the port falls back silently: each option names
     itself in a NotImplementedError."""
     check_degrain_clip_refusals(kw, what)
 

@@ -44,6 +44,18 @@ started it does.
   exhaustive search) and once with chroma (YUV420, dct 5).
 * load_dct6(): Analyse with dct 6 on a pair whose brightness changes (two
   levels at 128x96), so that the SATD mix's per-job weight is not 0.
+* load_pel4(): bench.py config 2 (pel 4, HEX2 searchparam 2, truemotion,
+  levels=0: 3 levels) on a 512x96 gray clip with a flashing region, four
+  jobs (the rescue runs at pel 4; level 0 is wide enough for the tiled
+  probe), Degrain1 of two frames, five Recalculates at pel 4 (HEX2 with
+  divide 1 and UMH with dct 5 on the field path; ONETIME, NSTEP and
+  LOGARITHMIC with dct 2 on the JAX package's per-block engine) and four
+  single-level pel-4 analyses (gray with dct 1 and dct 2, YUV420 with dct
+  5, YUV420 at 16 bits).
+* load_opts(): load()'s clip and jobs at pel 2, two levels, with UMH on
+  level 0, NSTEP on level 1, trymany, the ring rescue (badrange -6) and
+  divide 2; and one level searched with each search type
+  (tests/torch_search_cases.py).
 * load_deep(): the YUV420 slice at 16 bits: load_yuv's clip with each
   sample v as (v << 8) | r, r a fresh seeded byte (so the low byte carries
   data), radius 1 (about half of load_yuv's JAX time), the same pyramid and
@@ -119,7 +131,7 @@ def _compute() -> dict:
         AnalyseConfig(blksize=BLK, levels=LEVELS, truemotion=True,
                       chroma=False), isb=True).validate(sspec)
     assert batch_supported(aspec, sspec)
-    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    sups = _jax_supers(sspec, [[f] for f in frames])
     src, ref = job_indices()
     ss = tm(lambda *a: jnp.stack(a), *[sups[i] for i in src])
     rs = tm(lambda *a: jnp.stack(a), *[sups[i] for i in ref])
@@ -176,6 +188,17 @@ def _ensure(base: Path, stem: str) -> Path:
             np.savez(tmp, **COMPUTE[stem]())
             os.replace(tmp, final)
     return final
+
+
+def _jax_supers(sspec, frames):
+    """The JAX package's Super of each frame (a list of its planes), built
+    by one jit: an eager Super costs seconds of op dispatch a frame, and
+    the jitted one gives the same arrays."""
+    import jax
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    build = jax.jit(lambda *planes: mvt.build_super(list(planes), sspec))
+    return [build(*(jnp.asarray(p) for p in f)) for f in frames]
 
 
 def _load(tmp_path_factory, stem: str) -> dict:
@@ -270,8 +293,8 @@ def _compute_yuv() -> dict:
         isb=True).validate(sspec)
     assert aspec.meta.lv_count == YUV_LEVELS
     assert batch_supported(aspec, sspec)
-    sups = [mvt.build_super([jnp.asarray(p[i]) for p in planes], sspec)
-            for i in range(total)]
+    sups = _jax_supers(sspec, [[p[i] for p in planes]
+                              for i in range(total)])
     src, ref = yuv_job_indices()
     ss = tm(lambda *a: jnp.stack(a), *[sups[i] for i in src])
     rs = tm(lambda *a: jnp.stack(a), *[sups[i] for i in ref])
@@ -372,7 +395,7 @@ def _compute_satd() -> dict:
     sspec, aspec, rcfg, rspec = satd_configs(config, types, jax_recalc)
     assert aspec.meta.lv_count == SATD_LEVELS
     assert batch_supported(aspec, sspec)
-    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    sups = _jax_supers(sspec, [[f] for f in frames])
     src, ref = satd_job_indices()
     ss = tm(lambda *a: jnp.stack(a), *[sups[i] for i in src])
     rs = tm(lambda *a: jnp.stack(a), *[sups[i] for i in ref])
@@ -483,14 +506,13 @@ def dct_configs(config, types, recalc):
 
 def _compute_dct() -> dict:
     import jax
-    import jax.numpy as jnp
     import mvtools_tpu as mvt
     from mvtools_tpu import recalculate as jax_recalc
     from mvtools_tpu.core import config, types
 
     frames = make_dct_frames()
     sspec, aspec, rcfg, rspec = dct_configs(config, types, jax_recalc)
-    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    sups = _jax_supers(sspec, [[f] for f in frames])
     ss, rs = _stack_supers(sups, DCT_SRC), _stack_supers(sups, DCT_REF)
     mvb = mvt.analyse_batch(ss, rs, aspec)
     rc = jax.vmap(lambda s, r, f: jax_recalc.recalculate(
@@ -565,14 +587,13 @@ def _compute_recalc() -> dict:
     chroma in the search."""
     import jax
     import jax.numpy as jnp
-    import mvtools_tpu as mvt
     from mvtools_tpu import recalculate as jax_recalc
     from mvtools_tpu.core import config, types
 
     frames = make_yuv_frames(3, RC_W, RC_H, seed=21, flash=None, noise=6,
                              pan=RC_PAN, clean=RC_CLEAN)[0]
     sspec, old_spec = recalc_specs(config, types)
-    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    sups = _jax_supers(sspec, [[f] for f in frames])
     rng = np.random.default_rng(22)
     # job 0: frame 1 -> frame 2 (content moves by -RC_PAN), job 1: 1 -> 0
     x, y, sad = recalc_old_field(old_spec.meta, rng, 2)
@@ -596,8 +617,7 @@ def _compute_recalc() -> dict:
     sspec_c, old_c = recalc_specs(config, types, "YUV420")
     rcfg = jax_recalc.RecalculateConfig(**RC_CHROMA)
     rspec = rcfg.to_analyse_config().validate(sspec_c)
-    sups = [mvt.build_super([jnp.asarray(p[i]) for p in planes], sspec_c)
-            for i in range(2)]
+    sups = _jax_supers(sspec_c, [[p[i] for p in planes] for i in range(2)])
     x, y, sad = recalc_old_field(old_c.meta, np.random.default_rng(24), 1)
     old = types.MVField(
         (types.MVPlaneField(jnp.asarray(x[0]), jnp.asarray(y[0]),
@@ -645,13 +665,12 @@ def dct6_specs(config, types, dct=6):
 def _compute_dct6() -> dict:
     """Frame 0 against frames 1 and 2 as one analyse_batch call (its
     contract: each job as analyse(engine="lockstep") gives it alone)."""
-    import jax.numpy as jnp
     import mvtools_tpu as mvt
     from mvtools_tpu.core import config, types
 
     frames = make_dct6_frames()
     sspec, aspec = dct6_specs(config, types)
-    sups = [mvt.build_super([jnp.asarray(f)], sspec) for f in frames]
+    sups = _jax_supers(sspec, [[f] for f in frames])
     mvb = mvt.analyse_batch(_stack_supers(sups, (0, 0)),
                             _stack_supers(sups, (1, 2)), aspec)
     out = {"frames": frames}
@@ -700,8 +719,8 @@ def _compute_deep() -> dict:
         isb=True).validate(sspec)
     assert aspec.meta.lv_count == YUV_LEVELS
     assert batch_supported(aspec, sspec)
-    sups = [mvt.build_super([jnp.asarray(p[i]) for p in planes], sspec)
-            for i in range(total)]
+    sups = _jax_supers(sspec, [[p[i] for p in planes]
+                              for i in range(total)])
     src, ref = yuv_job_indices(total, radius)
     ss = tm(lambda *a: jnp.stack(a), *[sups[i] for i in src])
     rs = tm(lambda *a: jnp.stack(a), *[sups[i] for i in ref])
@@ -749,6 +768,195 @@ def load_deep(tmp_path_factory) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# pel 4 and the probe-only level search (bench.py config 2 at a small size)
+
+P4_W, P4_H, P4_FRAMES, P4_SEED = 512, 96, 4, 29
+P4_FLASH = (16, 64, 48, 96)        # y, x, h, w of the flashing region
+P4_SINGLE = {                      # single-level analyses: (w, h, family,
+    # bits, AnalyseConfig keywords)
+    "dct1": (256, 64, "GRAY", 8, dict(chroma=False, dct=1)),
+    "dct2": (256, 64, "GRAY", 8, dict(chroma=False, dct=2)),
+    "yuv420-dct5": (256, 64, "YUV420", 8, dict(chroma=True, dct=5)),
+    "yuv420-16": (256, 64, "YUV420", 16, dict(chroma=True)),
+}
+P4_RECALC = {                      # Recalculate on the gray analysis: the
+    # field path (HEX2, UMH) and the JAX package's per-block engine
+    # (ONETIME, NSTEP, LOGARITHMIC)
+    "hex2-div1": dict(blksize=16, overlap=8, thsad=100, chroma=False,
+                      divide=1),
+    "onetime": dict(blksize=16, overlap=8, thsad=100, chroma=False,
+                    search=0, searchparam=2),
+    "umh-dct5": dict(blksize=16, overlap=8, thsad=100, chroma=False,
+                     search=5, searchparam=4, dct=5),
+    "nstep": dict(blksize=16, overlap=8, thsad=100, chroma=False,
+                  search=1, searchparam=2),
+    "log-dct2": dict(blksize=16, overlap=8, thsad=100, chroma=False,
+                     search=2, searchparam=4, dct=2),
+}
+
+
+def make_p4_frames(w=P4_W, h=P4_H, seed=P4_SEED, frames=P4_FRAMES):
+    """[frames, h, w] uint8: panned uniform noise with load()'s flashing
+    region rule (dark, saturated in frame 1)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 32, w + 32), np.uint8)
+    y, x, fh, fw = P4_FLASH
+    out = np.empty((frames, h, w), np.uint8)
+    for i in range(frames):
+        dy, dx = (i * 2) % 16, (i * 3) % 16
+        out[i] = base[dy:dy + h, dx:dx + w]
+        out[i, y:y + fh, x:x + fw] = (255 if i % 3 == 1
+                                      else out[i, y:y + fh, x:x + fw] >> 2)
+    return out
+
+
+def p4_single_planes(name):
+    """The planes ([3, h, w] each) of a P4_SINGLE analysis: make_p4_frames'
+    clip at its size (on YUV420 a clip of its own for each chroma plane at
+    half the size), at 16 bits each sample v as (v << 8) | r with r a fresh
+    seeded byte."""
+    w, h, family, bits, _ = P4_SINGLE[name]
+    planes = [make_p4_frames(w, h, seed=33, frames=3)]
+    if family == "YUV420":
+        planes += [make_p4_frames(w // 2, h // 2, seed=s, frames=3)
+                   for s in (34, 35)]
+    if bits == 16:
+        rng = np.random.default_rng(36)
+        planes = [(p.astype(np.uint16) << 8)
+                  | rng.integers(0, 256, p.shape, np.uint16) for p in planes]
+    return planes
+
+
+def p4_configs(config, types, name=None):
+    """(SuperSpec, backward AnalyseSpec) of the pel-4 references in either
+    package: config 2's search (HEX2, searchparam 2, truemotion, levels=0)
+    on the gray clip, or a single level of a P4_SINGLE analysis."""
+    if name is None:
+        w, h, family, bits, kw, levels = P4_W, P4_H, "GRAY", 8, {}, 0
+    else:
+        w, h, family, bits, kw = P4_SINGLE[name]
+        levels = 1
+    fmt = types.VideoFormat(w, h, bits, getattr(types.ColorFamily, family))
+    sspec = config.SuperConfig(pel=4, levels=levels,
+                               chroma=family != "GRAY").validate(fmt)
+    kw = dict(dict(chroma=False), **kw)
+    aspec = dataclasses.replace(config.AnalyseConfig(
+        blksize=16, levels=levels, search=types.SearchType.HEX2,
+        searchparam=2, truemotion=True, **kw), isb=True).validate(sspec)
+    return sspec, aspec
+
+
+def _field_arrays(out, prefix, mv):
+    for lv, level in enumerate(mv.levels):
+        for k in ("x", "y", "sad"):
+            out[f"{prefix}{k}{lv}"] = np.asarray(getattr(level, k))
+
+
+def _compute_pel4() -> dict:
+    """config 2 on make_p4_frames (4 jobs: frames 1 and 2 against both
+    neighbours) -> Degrain1 of frames 1 and 2 and the P4_RECALC
+    Recalculates (the jobs batched by jax.vmap); and the P4_SINGLE
+    single-level analyses (two jobs: frame 1 against frames 2 and 0)."""
+    import jax
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    from mvtools_tpu import recalculate as jax_recalc
+    from mvtools_tpu.core import config, types
+    from mvtools_tpu.degrain import DegrainConfig, degrain
+
+    tm = jax.tree_util.tree_map
+    frames = make_p4_frames()
+    sspec, aspec = p4_configs(config, types)
+    sups = _jax_supers(sspec, [[f] for f in frames])
+    src, ref = [1, 1, 2, 2], [2, 0, 3, 1]
+    ss, rs = _stack_supers(sups, src), _stack_supers(sups, ref)
+    mvb = mvt.analyse_batch(ss, rs, aspec)
+    out = {"frames": frames, "super0": np.stack(
+        [np.asarray(s.planes[0][0]) for s in sups])}
+    _field_arrays(out, "mv_", mvb)
+    out["degrain"] = np.stack([np.asarray(degrain(
+        [jnp.asarray(frames[c])], [sups[c + 1], sups[c - 1]],
+        [tm(lambda a, j=j: a[j], mvb) for j in (2 * i, 2 * i + 1)],
+        aspec.meta, DegrainConfig(thsad=400))[0])
+        for i, c in enumerate((1, 2))])
+    for name, kw in P4_RECALC.items():
+        rcfg = jax_recalc.RecalculateConfig(**recalc_kw(types, kw))
+        rspec = rcfg.to_analyse_config().validate(sspec)
+        got = jax.vmap(lambda s, r, f: jax_recalc.recalculate(
+            s, r, f, rspec, rcfg, engine="lockstep"))(ss, rs, mvb)
+        _field_arrays(out, f"rc_{name}_", got)
+    supers = {}                    # the analyses of one clip share it
+    for name, (w, h, family, bits, _) in P4_SINGLE.items():
+        s_spec, a_spec = p4_configs(config, types, name)
+        if (w, h, family, bits) not in supers:
+            planes = p4_single_planes(name)
+            supers[w, h, family, bits] = _jax_supers(
+                s_spec, [[p[i] for p in planes] for i in range(3)])
+        sp = supers[w, h, family, bits]
+        got = mvt.analyse_batch(_stack_supers(sp, (1, 1)),
+                                _stack_supers(sp, (2, 0)), a_spec)
+        _field_arrays(out, f"{name}_", got)
+    return out
+
+
+def load_pel4(tmp_path_factory) -> dict:
+    """The pel-4 reference arrays, computed at most once per test run."""
+    return _load(tmp_path_factory, "torch_port_reference_pel4")
+
+
+# ---------------------------------------------------------------------------
+# The other search options in one pyramid (pel 2): UMH on level 0, NSTEP on
+# the coarse level, trymany, the ring rescue, divide 2
+
+OPTS_LEVELS = 2
+OPTS_ANALYSE = dict(blksize=16, levels=OPTS_LEVELS, search=5, pelsearch=4,
+                    search_coarse=1, searchparam=3, trymany=True,
+                    badrange=-6, divide=2, truemotion=True, chroma=False)
+
+
+
+def opts_configs(config, types):
+    """(SuperSpec, backward AnalyseSpec) of the options pyramid in either
+    package: load()'s clip with OPTS_ANALYSE."""
+    fmt = types.VideoFormat(W, H, 8, types.ColorFamily.GRAY)
+    sspec = config.SuperConfig(pel=2, levels=OPTS_LEVELS,
+                               chroma=False).validate(fmt)
+    kw = dict(OPTS_ANALYSE, search=types.SearchType(OPTS_ANALYSE["search"]),
+              search_coarse=types.SearchType(OPTS_ANALYSE["search_coarse"]))
+    aspec = dataclasses.replace(config.AnalyseConfig(**kw),
+                                isb=True).validate(sspec)
+    return sspec, aspec
+
+
+def _compute_opts() -> dict:
+    """OPTS_ANALYSE on load()'s clip and jobs (analyse_batch); and the JAX
+    side of every case of torch_search_cases (one level searched with each
+    search type, trymany and the ring rescue), under search_<ID>_."""
+    import mvtools_tpu as mvt
+    from mvtools_tpu.core import config, types
+
+    frames = make_frames()
+    sspec, aspec = opts_configs(config, types)
+    sups = _jax_supers(sspec, [[f] for f in frames])
+    src, ref = job_indices()
+    mvb = mvt.analyse_batch(_stack_supers(sups, src),
+                            _stack_supers(sups, ref), aspec)
+    out = {}
+    _field_arrays(out, "mv_", mvb)
+    import torch_search_cases as tsc
+    for name, case in zip(tsc.IDS, tsc.CASES):
+        for k, a in zip(("x", "y", "sad"), tsc.jax_case(*case)):
+            out[f"search_{name}_{k}"] = a
+    return out
+
+
+def load_opts(tmp_path_factory) -> dict:
+    """The options pyramid's reference arrays, computed at most once per
+    test run."""
+    return _load(tmp_path_factory, "torch_port_reference_opts")
+
+
+# ---------------------------------------------------------------------------
 # Computing the references ahead of the tests that need them
 
 COMPUTE = {
@@ -759,6 +967,8 @@ COMPUTE = {
     "torch_port_reference_recalc": _compute_recalc,
     "torch_port_reference_dct6": _compute_dct6,
     "torch_port_reference_deep": _compute_deep,
+    "torch_port_reference_pel4": _compute_pel4,
+    "torch_port_reference_opts": _compute_opts,
 }
 # the background processes, the references each computes: all of them, a
 # process each, started as the run begins (test_torch_satd.py, which
