@@ -138,6 +138,11 @@ from mvtools_tpu_torch.models.denoise import (degrain_clip, degrain_window,
 from mvtools_tpu_torch.ops import cuda_build, probe, sadmap
 from mvtools_tpu_torch.super import build_super
 
+try:
+    from mvtools_tpu_torch.ops import exact_scan
+except ImportError:        # a package before the exact engine (--package-root)
+    exact_scan = None
+
 # Published dense peaks of one H100 SXM at its full 700 W limit.  The SAD
 # kernels do integer abs-diff-accumulate outside the tensor cores; the data
 # sheet's only rate for non-tensor-core arithmetic is 67 T/s, used here for
@@ -253,11 +258,12 @@ def time_device(fn, reps, kernel):
     return us / 1e3 / reps if us > 0 else None
 
 
-def time_plain(fn):
-    """(result, milliseconds) of a plain version: one warm-up call, then
-    one timed call that ends in a synchronise."""
-    fn()
-    torch.cuda.synchronize()
+def time_plain(fn, warm=True):
+    """(result, milliseconds) of a plain version: one warm-up call (unless
+    warm is false), then one timed call that ends in a synchronise."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -1069,6 +1075,13 @@ SASS_FORMS = {
 # the forms whose SASS must stay another tree's (--sass-reference): all but
 # the one this tree redesigned
 SASS_HELD = tuple(f for f in SASS_FORMS if f != "probe_sads[stats3]")
+# K6's forms (a package with the exact engine only), not held
+SASS_EXACT = {
+    "exact_scan": ("exact_scan", r"17exact_scan_kernelIh"),
+    "exact_scan[u16]": ("exact_scan", r"17exact_scan_kernelIt"),
+    "exact_search": ("exact_scan", r"19exact_search_kernelIh"),
+    "exact_search[u16]": ("exact_scan", r"19exact_search_kernelIt"),
+}
 
 
 def arg_value(flag):
@@ -1082,8 +1095,9 @@ def sass_phase():
     other tree's build).  --sass-out FILE writes them as JSON; with
     --sass-reference FILE (another tree's --sass-out) every form of
     SASS_HELD must count the same opcodes as there, or the phase fails."""
+    forms = dict(SASS_FORMS, **(SASS_EXACT if exact_scan else {}))
     sass = {form: sass_opcodes(source, pattern)
-            for form, (source, pattern) in SASS_FORMS.items()}
+            for form, (source, pattern) in forms.items()}
     emit({"phase": "sass", **sass})
     out = arg_value("--sass-out")
     if out:
@@ -1106,17 +1120,21 @@ PLAIN_KERNELS = ("sad_map", "probe_sads_tiled", "fetch_blocks_tiled",
 
 
 def reset_counts():
-    for counts in (sadmap.launches, probe.launches):
-        for key in counts:
-            counts[key] = 0
-    sadmap.plain_calls_on_cuda = 0
-    probe.plain_calls_on_cuda = 0
+    mods = (sadmap, probe) + ((exact_scan,) if exact_scan else ())
+    for mod in mods:
+        for key in mod.launches:
+            mod.launches[key] = 0
+        mod.plain_calls_on_cuda = 0
+    if exact_scan:
+        exact_scan.rescued_blocks = 0
+        exact_scan.candidates = 0
     fe.host_syncs = 0
     fe.rescued_blocks = 0
 
 
 def read_counts():
-    return dict(**sadmap.launches, **probe.launches)
+    return dict(**sadmap.launches, **probe.launches,
+                **(exact_scan.launches if exact_scan else {}))
 
 
 def fetches(counts):
@@ -1125,7 +1143,8 @@ def fetches(counts):
 
 
 def plain_calls_on_cuda():
-    return sadmap.plain_calls_on_cuda + probe.plain_calls_on_cuda
+    return (sadmap.plain_calls_on_cuda + probe.plain_calls_on_cuda
+            + (exact_scan.plain_calls_on_cuda if exact_scan else 0))
 
 
 def stage_ms(info):
@@ -1190,7 +1209,8 @@ def run_yuv_clip(phase, clip, cfgs, bits=8):
     reset_counts()
     info = {}
     t0 = time.perf_counter()
-    out = degrain_clip(clip, fmt, scfg, acfg, dcfg, radius, info=info)
+    out = degrain_clip(clip, fmt, scfg, acfg, dcfg, radius, info=info,
+                       engine="lockstep")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
@@ -1420,13 +1440,13 @@ def small_end_to_end_yuv(cfgs, dev):
     reset_counts()
     info_gpu, info_cpu = {}, {}
     out_gpu = degrain_clip([p.to(dev) for p in small], fmt, scfg, acfg, dcfg,
-                           radius, info=info_gpu)
+                           radius, info=info_gpu, engine="lockstep")
     counts = read_counts()
     if plain_calls_on_cuda():
         raise AssertionError("small end-to-end yuv: a plain version ran on "
                              "CUDA tensors")
     out_cpu = degrain_clip(small, fmt, scfg, acfg, dcfg, radius,
-                           info=info_cpu)
+                           info=info_cpu, engine="lockstep")
     for name in ("fields_b", "fields_f"):
         for lv, (lg, lc) in enumerate(zip(info_gpu[name].levels,
                                           info_cpu[name].levels)):
@@ -1465,13 +1485,13 @@ def small_end_to_end_yuv16(cfgs, dev):
     reset_counts()
     info_gpu, info_cpu = {}, {}
     out_gpu = degrain_clip([p.to(dev) for p in small], fmt, scfg, acfg, dcfg,
-                           radius, info=info_gpu)
+                           radius, info=info_gpu, engine="lockstep")
     counts = read_counts()
     if plain_calls_on_cuda():
         raise AssertionError("small end-to-end yuv16: a plain version ran "
                              "on CUDA tensors")
     out_cpu = degrain_clip(small, fmt, scfg, acfg, dcfg, radius,
-                           info=info_cpu)
+                           info=info_cpu, engine="lockstep")
     for name in ("fields_b", "fields_f"):
         for lv, (lg, lc) in enumerate(zip(info_gpu[name].levels,
                                           info_cpu[name].levels)):
@@ -2194,7 +2214,7 @@ def run_yuv16_paths(cfgs, dev, profile):
     flash_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, flash=YUV_FLASH,
                                     noise=YUV_NOISE, pan=YUV_PAN,
                                     bits=DEEP_BITS, device=dev)
-    degrain_clip(flash_clip, fmt, *cfgs)                      # warm-up
+    degrain_clip(flash_clip, fmt, *cfgs, engine="lockstep")       # warm-up
     res = run_yuv_clip("yuv16_main_path", flash_clip, cfgs, DEEP_BITS)
     c = res["launches"]
     needed = ("sad_map[u16]", "probe_sads_tiled[u16]", "probe_sads[u16]",
@@ -2218,10 +2238,12 @@ def run_yuv16_paths(cfgs, dev, profile):
             raise AssertionError(f"{phase}: an 8-bit kernel ran {u8}")
     if profile:
         profile_run("yuv16_main_path",
-                    lambda: degrain_clip(flash_clip, fmt, *cfgs),
+                    lambda: degrain_clip(flash_clip, fmt, *cfgs,
+                                         engine="lockstep"),
                     split=("probe_sads[u16]", "probe_sads_tiled[u16]"))
         profile_run("yuv16_main_path_calm",
-                    lambda: degrain_clip(calm_clip, fmt, *cfgs))
+                    lambda: degrain_clip(calm_clip, fmt, *cfgs,
+                                         engine="lockstep"))
     del flash_clip, calm_clip
     torch.cuda.empty_cache()
     return res, calm
@@ -2483,7 +2505,7 @@ def consumers_card_vs_cpu(dev, clip, fields, scfg, acfg):
         fr(1), [fr(0), fr(0)], [fr(2), fr(3)], sspec, aspec_b, aspec_f, dcfg,
         valid_b=[True, True], valid_f=[True, False]))
     check("degrain1_clip", lambda fr, sp, f, d: degrain1_clip(
-        [clip.to(d)], fmt, scfg, acfg, dcfg))
+        [clip.to(d)], fmt, scfg, acfg, dcfg, engine="lockstep"))
     return checked
 
 
@@ -2727,7 +2749,8 @@ def small_end_to_end_pel4(dev):
     sg, mg, sc, mc = analysis("gray config 2", [gray], g_sspec, g_aspec)
     one_g, one_c = on_both("gray config 2 analyse()", lambda d: analyse(
         (sg if d == dev else sc).map(lambda a: a[1]),
-        (sg if d == dev else sc).map(lambda a: a[2]), g_aspec))
+        (sg if d == dev else sc).map(lambda a: a[2]), g_aspec,
+        engine="lockstep"))
     fields_equal("small end-to-end pel4 analyse()", one_g, one_c)
     for bits in (8, DEEP_BITS):
         analysis(f"yuv420 {bits}-bit", yuv[bits, True], *pel4_specs(
@@ -2777,7 +2800,7 @@ def small_end_to_end_pel4(dev):
         # every pair a scene change at the defaults (weight 0)
         got, want = on_both(f"degrain_clip {bits}-bit", lambda d: degrain_clip(
             [p.to(d) for p in yuv[bits, False]], f, scfg, acfg,
-            DegrainConfig(thsad=2000, thscd1=10000), 1))
+            DegrainConfig(thsad=2000, thscd1=10000), 1, engine="lockstep"))
         planes_equal(f"small end-to-end pel4 degrain_clip {bits}-bit", got,
                      want)
         if torch.equal(want[0], yuv[bits, False][0]):
@@ -2820,7 +2843,785 @@ def small_end_to_end_pel4(dev):
 
 
 # the full-width paths --paths may choose (with --paths-only)
-PATHS = ("gray", "yuv", "yuv16", "satd", "dct", "fps", "pel4")
+# ---------------------------------------------------------------------------
+# The exact sequential engine (K6) and interlaced input
+
+# exact_main_path: bench.py config 4 at levels=0 on 8 frames (radius 3:
+# 48 analyses a clip); its 16-bit run: 4 frames at radius 1
+EXACT_T, EXACT16_T = 8, 4
+# fields_main_path: 6 frames of 1080p split into 12 fields of 1920x540; the
+# frames pan 4 rows down and 2 columns right a frame, so a field and the
+# next field of its parity match 2 rows apart, in the chroma planes too
+# (fields of opposite parity hold different rows of the noise)
+FIELDS_FRAMES, FIELDS_PAN = 6, (4, 2)
+# the exact_vs_plain strips: 8 block rows of each level of the main path,
+# across the flash (the plain version takes ~15-18 ms a block
+# on the card: 8 rows of 1080p level 0 took 34 s)
+STRIP_ROWS = 8
+EXACT_KERNELS = ("exact_scan", "exact_scan[u16]", "exact_search",
+                 "exact_search[u16]")
+EXACT_KERNEL_NAMES = {"exact_scan": r"exact_scan_kernel<unsigned char>",
+                      "exact_scan[u16]": r"exact_scan_kernel<unsigned short>",
+                      "exact_search": r"exact_search_kernel<unsigned char>",
+                      "exact_search[u16]":
+                          r"exact_search_kernel<unsigned short>"}
+
+
+def has_exact():
+    """Whether the package driven has the exact engine (a tree given by
+    --package-root may predate it)."""
+    return exact_scan is not None
+
+
+def exact_bytes(ctx, n_cand):
+    """Bytes of the candidates' pixels: n_cand candidate blocks (luma and,
+    with chroma, both chroma blocks) read once each."""
+    bsx, bsy = ctx.blk_size
+    px = bsx * bsy
+    if ctx.chroma:
+        px += 2 * ctx.blk_size_c[0] * ctx.blk_size_c[1]
+    return n_cand * px * ctx.ref_stacks[0].element_size()
+
+
+def exact_case(label, ctx, plan, vin, gx, gy, zs, reps=1, plain_dev=None):
+    """K6's level scan against its plain version on one level's inputs
+    (torch.equal on x, y, SAD and the rescue counts): the case's numbers.  The plain version runs on
+    the card, or on `plain_dev` (the same inputs copied there)."""
+    torch.cuda.synchronize()
+    before = exact_scan.candidates
+    got = exact_scan._launch_scan(ctx, plan, vin, gx, gy, zs)
+    torch.cuda.synchronize()
+    n_cand = int(exact_scan.candidates - before)
+    ms = time_cuda(lambda: exact_scan._launch_scan(ctx, plan, vin, gx, gy,
+                                                   zs), reps)
+    pargs = (ctx, plan, vin, gx, gy, zs)
+    if plain_dev is not None:
+        pargs = (ctx._replace(
+            src_planes=tuple(p.to(plain_dev) for p in ctx.src_planes),
+            ref_stacks=tuple(p.to(plain_dev) for p in ctx.ref_stacks)),
+            plan, tuple(v.to(plain_dev) for v in vin), gx.to(plain_dev),
+            gy.to(plain_dev), zs.to(plain_dev))
+    threads = torch.get_num_threads()
+    if plain_dev is not None:
+        # tiny CPU ops: intra-op threads cost more than they give
+        torch.set_num_threads(1)
+    try:
+        # no warm-up: a Python loop over the level's blocks, whose first
+        # block's costs are a small share of the whole
+        want, plain_ms = time_plain(
+            lambda: exact_scan.scan_level_plain(*pargs), warm=False)
+    finally:
+        torch.set_num_threads(threads)
+    dev = got[1].device
+    err = 0
+    for name, a, b in zip(("x", "y", "sad", "badcount"), got[0] + (got[1],),
+                          want[0] + (want[1],)):
+        err = max(err, compare(f"exact_vs_plain {label} {name}", a,
+                               b.to(dev)))
+    b_ms, b_by = bound(exact_bytes(ctx, n_cand),
+                       n_cand * 2 * ctx.blk_size[0] * ctx.blk_size[1])
+    nbx, nby = ctx.nblk
+    return {"case": label, "jobs": vin[0].shape[0], "blocks": nbx * nby,
+            "level": ctx.level, "candidates": n_cand,
+            "rescued": int(got[1].sum()), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def capture_levels(fn):
+    """Run fn() with exact_scan.scan_level recording each level's inputs:
+    the list of (ctx, plan, vectors_in, gx, gy, zs)."""
+    seen = []
+    real = exact_scan.scan_level
+
+    def hook(ctx, plan, vin, gx, gy, zs):
+        seen.append((ctx, plan, vin, gx, gy, zs))
+        return real(ctx, plan, vin, gx, gy, zs)
+
+    exact_scan.scan_level = hook
+    try:
+        fn()
+    finally:
+        exact_scan.scan_level = real
+    return seen
+
+
+def strip_of(ctx, vin, rows, first=0):
+    """Block rows first .. first + rows - 1 of the level as a level of its
+    own: the planes' rows that those blocks and a padding's height above
+    and below them cover, the predictions of those rows (a level of no
+    more rows as it is), and the first row, clamped so that the strip
+    fits."""
+    nbx, nby = ctx.nblk
+    if nby <= rows:
+        return ctx, vin, 0
+    r = rows
+    bsy, ovy = ctx.blk_size[1], ctx.overlap[1]
+    logy = ctx.log_ratio_uv[1]
+    h = 2 * ctx.vpad[0] + (r - 1) * (bsy - ovy) + bsy
+    h += h % 2
+    first = max(0, min(first, nby - r))
+    while first and first * (bsy - ovy) + h > ctx.padded[1]:
+        first -= 1
+    top = first * (bsy - ovy)
+    if top % (1 << logy):
+        raise ValueError("strip_of: the strip's first row splits a chroma "
+                         "row")
+    cut = [(top, h)] + [(top >> logy, h >> logy)] * (
+        len(ctx.src_planes) - 1)
+    return (ctx._replace(
+        src_planes=tuple(p[:, a:a + c].contiguous()
+                         for p, (a, c) in zip(ctx.src_planes, cut)),
+        ref_stacks=tuple(s[:, :, a:a + c].contiguous()
+                         for s, (a, c) in zip(ctx.ref_stacks, cut)),
+        nblk=(nbx, r), padded=(ctx.padded[0], h)),
+        tuple(v[:, first * nbx:(first + r) * nbx].contiguous()
+              for v in vin), first)
+
+
+def exact_option_runs(bits, w=SMALL_W, h=SMALL_H):
+    """(name, planes (CPU), SuperSpec, AnalyseSpec, src, ref, field shift)
+    of the exact engine's options at w x h: the tests' cases
+    (tests/torch_port_reference.py, EX_ANALYSES) at blk 16."""
+    yuv = make_test_clip_yuv(5, w, h, seed=4,
+                             flash=(h // 12, w // 16, h * 5 // 6,
+                                    w * 7 // 8), noise=YUV_NOISE,
+                             pan=YUV_PAN, bits=bits, device="cpu")
+    gfmt = VideoFormat(w, h, bits, ColorFamily.GRAY)
+    yfmt = VideoFormat(w, h, bits, ColorFamily.YUV420)
+    back, fwd = ([1, 2], [2, 3]), ([1, 2], [0, 1])
+    runs = []
+
+    def add(name, planes, fmt, skw, akw, jobs, isb=True, fs=0):
+        sspec = SuperConfig(**skw).validate(fmt)
+        aspec = dataclasses.replace(AnalyseConfig(**akw),
+                                    isb=isb).validate(sspec)
+        runs.append((name, planes, sspec, aspec, torch.tensor(jobs[0]),
+                     torch.tensor(jobs[1]), fs))
+
+    g = dict(chroma=False)
+    add("gray hex2 truemotion 3 levels", [yuv[0]], gfmt,
+        dict(pel=2, levels=3, **g),
+        dict(blksize=16, levels=3, truemotion=True, **g), back)
+    add("gray forward", [yuv[0]], gfmt, dict(pel=2, levels=3, **g),
+        dict(blksize=16, levels=3, truemotion=True, **g), fwd, isb=False)
+    add("yuv420 chroma overlap global meander", yuv, yfmt,
+        dict(pel=2, levels=2, chroma=True),
+        dict(blksize=16, overlap=8, levels=2, truemotion=True, chroma=True,
+             global_=True, meander=True), fwd)
+    add("pel 1 exhaustive", [yuv[0]], gfmt, dict(pel=1, levels=2, **g),
+        dict(blksize=16, levels=2, search=SearchType.EXHAUSTIVE,
+             searchparam=2, pelsearch=2, **g), back)
+    add("pel 4 trymany rings divide 2", [yuv[0]], gfmt,
+        dict(pel=4, levels=2, **g),
+        dict(blksize=16, levels=2, trymany=True, badrange=-6, divide=2,
+             truemotion=True, **g), back)
+    for st in (SearchType.ONETIME, SearchType.NSTEP, SearchType.LOGARITHMIC,
+               SearchType.UMH, SearchType.HORIZONTAL, SearchType.VERTICAL):
+        add(st.name, [yuv[0]], gfmt, dict(pel=2, levels=1, **g),
+            dict(blksize=16, levels=1, search=st, searchparam=3,
+                 pelsearch=3, truemotion=True, **g), back)
+    add("field shift", [yuv[0]], gfmt, dict(pel=2, levels=2, **g),
+        dict(blksize=16, levels=2, truemotion=True, **g), back, fs=[1, -1])
+    return runs
+
+
+def exact_vs_plain(dev):
+    """K6 against its plain version, torch.equal: every option of the exact
+    engine level by level (at 128x96, 8-bit; four of them also at 16
+    bits; the three-level gray search also at 256x192), the plain version
+    on CPU copies of the inputs, one thread;
+    the main path's level shapes (bench.py config 4 at 1080p) on strips of
+    STRIP_ROWS block rows at every level, where the whole level's scan
+    left the most blocks over badsad (the rescue runs in the level-0
+    strip), the plain version on the card;
+    Recalculate's per-item entry point at its 1080p
+    shape (gray, blk 16 overlap 8, HEX2), and its uint16 form.  Returns
+    the kernels line's case for each form."""
+    from mvtools_tpu_torch.analyse import analyse_exact_jobs
+    t0 = time.perf_counter()
+    option_cases = []
+    # every option at 128x96, 8-bit; at 16 bits the three-level gray
+    # search, YUV420, pel 4 with trymany and the field shift; the
+    # three-level gray search also at 256x192 (the plain version on the
+    # card's host took ~100 s for every option at 256x192 at both depths)
+    runs = [(8, r) for r in exact_option_runs(8, SMALL_W // 2, SMALL_H // 2)]
+    runs += [(DEEP_BITS, r) for r in exact_option_runs(
+        DEEP_BITS, SMALL_W // 2, SMALL_H // 2)
+        if r[0].startswith(("gray hex2", "yuv420", "pel 4", "field"))]
+    runs.append((8, exact_option_runs(8)[0]))
+    for bits, (name, planes, sspec, aspec, src, ref, fs) in runs:
+        sups = build_super([p.to(dev) for p in planes], sspec)
+        levels = capture_levels(lambda: analyse_exact_jobs(
+            sups.take(src.to(dev)), sups.take(ref.to(dev)), aspec, fs))
+        w = planes[0].shape[-1]
+        # the plain version on the CPU: the same function, faster there
+        # at this size than a few hundred small launches a block
+        for ctx, plan, vin, gx, gy, zs in levels:
+            option_cases.append(exact_case(
+                f"{name} {w}-wide {bits}-bit level {ctx.level}", ctx, plan,
+                vin, gx, gy, zs, plain_dev="cpu"))
+    # the main path's levels, 1080p, two jobs (a flash pair and a calm one)
+    scfg, acfg, _, _ = flagship_configs()
+    fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
+    sspec = scfg.validate(fmt)
+    aspec = dataclasses.replace(acfg, isb=True).validate(sspec)
+    clip = make_test_clip_yuv(4, W, H, seed=0, flash=FLASH, noise=YUV_NOISE,
+                              pan=YUV_PAN, device=dev)
+    sups = build_super(clip, sspec)
+    src, ref = torch.tensor([1, 2], device=dev), torch.tensor([0, 3],
+                                                               device=dev)
+    levels = capture_levels(lambda: analyse_exact_jobs(
+        sups.take(src), sups.take(ref), aspec))
+    strips, full = [], []
+    for ctx, plan, vin, gx, gy, zs in levels:
+        out = []
+        full.append({"level": ctx.level, "blocks": ctx.nblk[0] * ctx.nblk[1],
+                     "ms": time_cuda(lambda: out.append(
+                         exact_scan._launch_scan(ctx, plan, vin, gx, gy,
+                                                 zs)), 1)})
+        # the strip: the STRIP_ROWS block rows that hold the most blocks
+        # the whole level's scan left over badsad (the flash's rows)
+        nbx, nby = ctx.nblk
+        bad = (out[0][0][2].reshape(-1, nby, nbx) > plan["badsad"]).sum(
+            dim=(0, 2)).cpu()
+        upto = torch.cat([torch.zeros(1, dtype=bad.dtype), bad.cumsum(0)])
+        first = int(torch.argmax(upto[STRIP_ROWS:] - upto[:-STRIP_ROWS])) \
+            if nby > STRIP_ROWS else 0
+        sctx, svin, first = strip_of(ctx, vin, STRIP_ROWS, first)
+        strips.append(exact_case(
+            f"config 4 level {ctx.level} strip {sctx.nblk[0]}x"
+            f"{sctx.nblk[1]} from row {first}", sctx, plan, svin, gx, gy,
+            zs))
+    # Recalculate's per-item search at 1080p: gray, blk 16 overlap 8 on a
+    # blk 16 analysis, and at 16 bits (the entry point refuses 16-bit
+    # clips; the kernel form is driven directly)
+    item_cases = {}
+    for bits in (8, DEEP_BITS):
+        gfmt = VideoFormat(W, H, bits, ColorFamily.GRAY)
+        gclip = make_test_clip_yuv(3, W, H, seed=1, flash=FLASH,
+                                   noise=YUV_NOISE, pan=YUV_PAN, bits=bits,
+                                   device=dev)[0]
+        gs = SuperConfig(pel=2, levels=0, chroma=False).validate(gfmt)
+        ga = AnalyseConfig(blksize=16, levels=0, truemotion=True,
+                           chroma=False).validate(gs)
+        rcfg = RecalculateConfig(blksize=16, overlap=8, thsad=200,
+                                 chroma=False)
+        rspec = rcfg.to_analyse_config().validate(gs)
+        gsups = build_super([gclip], gs)
+        s1, r1 = gsups.take(torch.tensor([1], device=dev)), gsups.take(
+            torch.tensor([0], device=dev))
+        old = analyse_batch(s1, r1, ga)
+        ctx = _level_ctx(gs, rspec, 0, s1, r1)
+        nbx, nby = ctx.nblk
+        from mvtools_tpu_torch.recalculate import _interpolate_old_vectors
+        px, py, _ = _interpolate_old_vectors(old.levels[0], ga.meta,
+                                             rspec.meta, rcfg.smooth,
+                                             ctx.log_pel)
+        px, py = px.reshape(1, -1), py.reshape(1, -1)
+        lam = rspec.lambda_ // (ctx.pel * ctx.pel)
+        # recalculate's thsad, scaled by bit depth and block size
+        thsad = int(rcfg.thsad * ((1 << bits) - 1) / 255.0 + 0.5) \
+            * rspec.meta.blk_size_x * rspec.meta.blk_size_y // 64
+        args = (ctx, rspec.search, rspec.n_search_param, px, py, lam,
+                rspec.pnew, thsad)
+        torch.cuda.synchronize()
+        before = exact_scan.candidates
+        got = exact_scan.search_blocks(*args)
+        torch.cuda.synchronize()
+        n_cand = int(exact_scan.candidates - before)
+        ms = time_cuda(lambda: exact_scan.search_blocks(*args), 3)
+        want, plain_ms = time_plain(
+            lambda: exact_scan.search_blocks_plain(*args))
+        err = max(compare(f"exact_vs_plain recalculate {bits}-bit {k}", a,
+                          b) for k, a, b in zip("xys", got, want))
+        b_ms, b_by = bound(exact_bytes(ctx, n_cand), n_cand * 2 * 256)
+        name = "exact_search" + ("[u16]" if bits > 8 else "")
+        item_cases[name] = {
+            "case": f"recalculate 1080p {bits}-bit 1 job {nbx * nby} items",
+            "candidates": n_cand, "max_abs_err": err, "ms": ms,
+            "device_ms": time_device(lambda: exact_scan.search_blocks(*args),
+                                     2, EXACT_KERNEL_NAMES[name]),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+    level0 = next(c for c in strips if c["level"] == 0)
+    if level0["rescued"] < 1:
+        raise RuntimeError("exact_vs_plain: no block of the level-0 strip "
+                           "went through the rescue")
+    shown = {"exact_scan": level0,
+             "exact_scan[u16]": next(
+                 c for c in option_cases if c["case"].startswith(
+                     f"gray hex2 truemotion 3 levels {SMALL_W // 2}-wide 16")
+                 and c["level"] == 0),
+             **item_cases}
+    emit({"phase": "exact_vs_plain", "bit_equal": True,
+          "option_cases": len(option_cases),
+          "option_case_max_ms": max(c["ms"] for c in option_cases),
+          "strips": strips, "full_levels_ms": full,
+          "recalculate_items": item_cases,
+          "seconds": time.perf_counter() - t0})
+    return shown
+
+
+def small_end_to_end_exact(dev):
+    """Every entry point of the exact engine at 128x96 on the card against
+    the same code on CPU tensors (torch.equal): analyse with its default
+    engine; analyse_exact_jobs on YUV420 (chroma, overlap, global_,
+    meander), at 16 bits, at pel 4 with trymany, the ring rescue and
+    divide 2, and with field shifts; recalculate(engine="exact") with the
+    diamond; degrain_clip with its defaults (YUV420, radius 2),
+    degrain1_clip, degrain1_frame and degrain_n_frame with engine="exact";
+    flowfps_clip with engine="exact".  K6 must launch on the card and the
+    plain version must not run there."""
+    from fractions import Fraction
+
+    from mvtools_tpu_torch.analyse import analyse_exact_jobs
+    from mvtools_tpu_torch.flowfps import FlowFPSConfig
+    from mvtools_tpu_torch.models.denoise import (degrain1_clip,
+                                                  degrain1_frame,
+                                                  degrain_n_frame)
+    from mvtools_tpu_torch.models.frc import flowfps_clip
+    launches, seconds = {}, {}
+
+    def on_both(name, fn):
+        t0 = time.perf_counter()
+        reset_counts()
+        got = fn(dev)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        if plain_calls_on_cuda():
+            raise AssertionError(f"small end-to-end exact {name}: a plain "
+                                 "version ran on CUDA tensors")
+        if not any(launches[name][k] for k in EXACT_KERNELS):
+            raise AssertionError(f"small end-to-end exact {name}: K6 never "
+                                 "launched")
+        want = fn("cpu")
+        seconds[name] = time.perf_counter() - t0
+        return got, want
+
+    sw, sh = SMALL_W // 2, SMALL_H // 2
+    runs = exact_option_runs(8, sw, sh)
+    by_name = {r[0]: r for r in runs}
+    for name in ("yuv420 chroma overlap global meander",
+                 "pel 4 trymany rings divide 2", "field shift"):
+        _, planes, sspec, aspec, src, ref, fs = by_name[name]
+
+        def fn(d, planes=planes, sspec=sspec, aspec=aspec, src=src, ref=ref,
+               fs=fs):
+            sups = build_super([p.to(d) for p in planes], sspec)
+            return analyse_exact_jobs(sups.take(src.to(d)),
+                                      sups.take(ref.to(d)), aspec, fs)
+        got, want = on_both(name, fn)
+        fields_equal(f"small end-to-end exact {name}", got, want)
+    name, planes, sspec, aspec, src, ref, fs = exact_option_runs(
+        DEEP_BITS, sw, sh)[0]
+    got, want = on_both("analyse() 16-bit", lambda d: analyse(
+        build_super([planes[0].to(d)], sspec).map(lambda a: a[1]),
+        build_super([planes[0].to(d)], sspec).map(lambda a: a[2]), aspec))
+    fields_equal("small end-to-end exact analyse() 16-bit", got, want)
+    _, planes, sspec, aspec, src, ref, _ = runs[0]
+    gray = planes[0]
+    rcfg = RecalculateConfig(blksize=16, overlap=8, thsad=100, chroma=False,
+                             search=SearchType.LOGARITHMIC, searchparam=2)
+    rspec = rcfg.to_analyse_config().validate(sspec)
+
+    def recalc(d):
+        sups = build_super([gray.to(d)], sspec)
+        s, r = sups.take(src.to(d)), sups.take(ref.to(d))
+        return recalculate(s, r, analyse_exact_jobs(s, r, aspec), rspec,
+                           rcfg, engine="exact")
+    got, want = on_both("recalculate exact diamond", recalc)
+    fields_equal("small end-to-end exact recalculate", got, want)
+    yuv = make_test_clip_yuv(4, sw, sh, seed=5, flash=(8, 8, 80, 112),
+                             noise=YUV_NOISE, pan=YUV_PAN, device="cpu")
+    scfg, acfg, _, _ = flagship_configs()
+    yfmt = VideoFormat(sw, sh, 8, ColorFamily.YUV420)
+    dcfg = DegrainConfig(thsad=400)
+    got, want = on_both("degrain_clip defaults radius 2", lambda d:
+                        degrain_clip([p.to(d) for p in yuv], yfmt, scfg,
+                                     acfg, dcfg, 2))
+    planes_equal("small end-to-end exact degrain_clip", got, want)
+    gfmt = VideoFormat(sw, sh, 8, ColorFamily.GRAY)
+    gscfg = SuperConfig(pel=2, levels=0, chroma=False)
+    gacfg = AnalyseConfig(blksize=16, levels=0, truemotion=True,
+                          chroma=False)
+    got, want = on_both("degrain1_clip exact", lambda d: degrain1_clip(
+        [gray[:4].to(d)], gfmt, gscfg, gacfg, dcfg, engine="exact"))
+    planes_equal("small end-to-end exact degrain1_clip", got, want)
+    gs = gscfg.validate(gfmt)
+    ab = dataclasses.replace(gacfg, isb=True).validate(gs)
+    af = dataclasses.replace(gacfg, isb=False).validate(gs)
+    got, want = on_both("degrain1_frame exact", lambda d: degrain1_frame(
+        [gray[1].to(d)], [gray[0].to(d)], [gray[2].to(d)], gs, ab, af, dcfg,
+        engine="exact"))
+    planes_equal("small end-to-end exact degrain1_frame", got, want)
+    got, want = on_both("degrain_n_frame exact", lambda d: degrain_n_frame(
+        [gray[2].to(d)], [[gray[1].to(d)], [gray[0].to(d)]],
+        [[gray[3].to(d)], [gray[4].to(d)]], gs, ab, af, dcfg,
+        engine="exact", valid_b=[True, True], valid_f=[True, True]))
+    planes_equal("small end-to-end exact degrain_n_frame", got, want)
+    got, want = on_both("flowfps_clip exact", lambda d: flowfps_clip(
+        [gray.to(d)], gfmt, Fraction(30), Fraction(60), gscfg, gacfg,
+        FlowFPSConfig(maskmode=2), engine="exact"))
+    if len(got) != len(want):
+        raise AssertionError("small end-to-end exact flowfps_clip: frames")
+    for n, (a, b) in enumerate(zip(got, want)):
+        planes_equal(f"small end-to-end exact flowfps_clip frame {n}", a, b)
+    emit({"phase": "small_end_to_end_exact", "size": [sw, sh],
+          "bit_equal_to_cpu": True, "runs": list(launches),
+          "seconds": seconds, "launches": launches})
+
+
+def split_fields(frames):
+    """A field-separated clip from frames ([T, H, W] per plane): field 2t
+    the even rows of frame t (the top field), 2t + 1 the odd rows."""
+    return [torch.stack([p[:, 0::2], p[:, 1::2]], 1).reshape(
+        p.shape[0] * 2, p.shape[1] // 2, p.shape[2]).contiguous()
+            for p in frames]
+
+
+def small_end_to_end_fields(dev):
+    """Interlaced input at 128x48 fields (of 128x96 frames) on the card
+    against the same code on CPU tensors (torch.equal): degrain_clip with
+    fields=True, tff=True on either engine (radius 2: shifted and
+    unshifted pairs); analyse_batch with a shift per job; flowfps_clip with
+    fields=True; Compensate and Flow with a field shift; Recalculate with a
+    field shift (taken, not applied, as in the JAX package)."""
+    from fractions import Fraction
+
+    from mvtools_tpu_torch import compensate, flow
+    from mvtools_tpu_torch.flowfps import FlowFPSConfig
+    from mvtools_tpu_torch.models.denoise import field_job
+    from mvtools_tpu_torch.models.frc import flowfps_clip
+    sw, sh = SMALL_W // 2, SMALL_H // 2
+    frames = make_test_clip_yuv(3, sw, sh, seed=6, flash=(8, 8, 80, 112),
+                                noise=YUV_NOISE, pan=FIELDS_PAN,
+                                device="cpu")
+    fld = split_fields(frames)
+    fh = sh // 2
+    yfmt = VideoFormat(sw, fh, 8, ColorFamily.YUV420)
+    scfg, acfg, dcfg, _ = flagship_configs()
+    facfg = dataclasses.replace(acfg, fields=True, tff=True)
+    launches = {}
+    for engine in ("lockstep", "exact"):
+        reset_counts()
+        got = degrain_clip([p.to(dev) for p in fld], yfmt, scfg, facfg,
+                           dcfg, 2, engine=engine)
+        launches[f"degrain_clip {engine}"] = read_counts()
+        if plain_calls_on_cuda():
+            raise AssertionError("small end-to-end fields: a plain version "
+                                 "ran on CUDA tensors")
+        want = degrain_clip(fld, yfmt, scfg, facfg, dcfg, 2, engine=engine)
+        planes_equal(f"small end-to-end fields degrain_clip {engine}", got,
+                     want)
+    gfmt = VideoFormat(sw, fh, 8, ColorFamily.GRAY)
+    gs = SuperConfig(pel=2, levels=0, chroma=False).validate(gfmt)
+    ga = AnalyseConfig(blksize=16, levels=0, truemotion=True, chroma=False,
+                       fields=True, tff=True).validate(gs)
+    src, ref, fs = [1, 1, 2, 3], [0, 2, 1, 1], [-1, -1, 0, 1]
+
+    def batch(d):
+        sups = build_super([fld[0].to(d)], gs)
+        return sups, analyse_batch(sups.take(torch.tensor(src, device=d)),
+                                   sups.take(torch.tensor(ref, device=d)),
+                                   ga, field_shift=fs)
+    (sg, mg), (sc, mc) = batch(dev), batch("cpu")
+    fields_equal("small end-to-end fields analyse_batch", mg, mc)
+    meta = ga.meta
+    for shift in (1, -1):
+        a = compensate.compensate(sg.map(lambda t: t[1]),
+                                  sg.map(lambda t: t[0]),
+                                  field_job(mg, 0), meta,
+                                  compensate.CompensateConfig(),
+                                  field_shift=shift)
+        b = compensate.compensate(sc.map(lambda t: t[1]),
+                                  sc.map(lambda t: t[0]),
+                                  field_job(mc, 0), meta,
+                                  compensate.CompensateConfig(),
+                                  field_shift=shift)
+        planes_equal(f"small end-to-end fields compensate {shift}", a, b)
+        a = flow.flow([fld[0][1].to(dev)], sg.map(lambda t: t[0]),
+                      field_job(mg, 0), meta, flow.FlowConfig(time=50.0),
+                      shift)
+        b = flow.flow([fld[0][1]], sc.map(lambda t: t[0]), field_job(mc, 0),
+                      meta, flow.FlowConfig(time=50.0), shift)
+        planes_equal(f"small end-to-end fields flow {shift}", a, b)
+    rcfg = RecalculateConfig(blksize=16, overlap=8, thsad=100, chroma=False)
+    rspec = rcfg.to_analyse_config().validate(gs)
+    s2 = sg.take(torch.tensor(src, device=dev))
+    r2 = sg.take(torch.tensor(ref, device=dev))
+    a = recalculate(s2, r2, mg, rspec, rcfg, field_shift=1)
+    b = recalculate(s2, r2, mg, rspec, rcfg)
+    for la, lb in zip(a.levels, b.levels):
+        if not torch.equal(la.x, lb.x) or not torch.equal(la.sad, lb.sad):
+            raise AssertionError("small end-to-end fields: Recalculate "
+                                 "applied a field shift")
+    got = flowfps_clip([fld[0].to(dev)], gfmt, Fraction(30), Fraction(60),
+                       SuperConfig(pel=2, levels=0, chroma=False),
+                       AnalyseConfig(blksize=16, levels=0, truemotion=True,
+                                     chroma=False, fields=True, tff=True),
+                       FlowFPSConfig(maskmode=2))
+    want = flowfps_clip([fld[0]], gfmt, Fraction(30), Fraction(60),
+                        SuperConfig(pel=2, levels=0, chroma=False),
+                        AnalyseConfig(blksize=16, levels=0, truemotion=True,
+                                      chroma=False, fields=True, tff=True),
+                        FlowFPSConfig(maskmode=2))
+    for n, (a, b) in enumerate(zip(got, want)):
+        planes_equal(f"small end-to-end fields flowfps_clip frame {n}", a, b)
+    emit({"phase": "small_end_to_end_fields", "size": [sw, fh],
+          "fields": fld[0].shape[0], "bit_equal_to_cpu": True,
+          "launches": launches})
+
+
+def k6_device_ms(fn, name):
+    """(device ms of K6's form `name` in one traced run of fn(), the run's
+    output): torch.profiler; None where the trace shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and re.search(EXACT_KERNEL_NAMES[name], e.key)]
+    us = sum(e.self_device_time_total for e in rows)
+    return (us / 1e3 if us > 0 else None,
+            sum(e.count for e in rows)), out
+
+
+def run_exact_clip(phase, clip, cfgs, bits, radius):
+    """degrain_clip with its default engine (exact) over a full-width
+    YUV420 clip: a warm-up traced by torch.profiler (K6's device ms), then
+    one run with every count set to 0 just before and read just
+    after; checks the output (the input's shape and dtype, on the card,
+    the luma changed, at 8 bits every plane; K6 launched, no lockstep
+    search kernel); prints and returns the phase's numbers."""
+    scfg, acfg, dcfg, _ = cfgs
+    fmt = VideoFormat(W, H, bits, ColorFamily.YUV420)
+    name = "exact_scan" + ("[u16]" if bits > 8 else "")
+    (k6_ms, k6_launches), _ = k6_device_ms(
+        lambda: degrain_clip(clip, fmt, scfg, acfg, dcfg, radius), name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    info = {}
+    t0 = time.perf_counter()
+    out = degrain_clip(clip, fmt, scfg, acfg, dcfg, radius, info=info)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    plain_on_cuda = plain_calls_on_cuda()
+    rescued = int(exact_scan.rescued_blocks)
+    candidates = int(exact_scan.candidates)
+    peak = torch.cuda.max_memory_allocated()
+    changed = []
+    for got, src in zip(out, clip):
+        if got.shape != src.shape or got.dtype != src.dtype:
+            raise AssertionError(f"{phase}: output {tuple(got.shape)} "
+                                 f"{got.dtype}")
+        if got.device.type != "cuda":
+            raise AssertionError(f"{phase}: output not on the card")
+        changed.append(not torch.equal(got, src))
+    # at 16 bits the clip's fresh low bits can keep a chroma plane's pairs
+    # over thsad; the luma must change at any depth
+    if not changed[0] or (bits == 8 and not all(changed)):
+        raise AssertionError(f"{phase}: planes changed {changed}")
+    if plain_on_cuda:
+        raise AssertionError(f"{phase}: {plain_on_cuda} plain-version "
+                             "calls on CUDA tensors")
+    if counts[name] < 1:
+        raise AssertionError(f"{phase}: K6 never launched {counts}")
+    lockstep = {k: counts[k] for k in counts
+                if k.startswith(("sad_map", "probe_sads")) and counts[k]}
+    if lockstep:
+        raise AssertionError(f"{phase}: a lockstep search kernel ran "
+                             f"{lockstep}")
+    if rescued < 1:
+        raise AssertionError(f"{phase}: the flash made no block bad")
+    frames = clip[0].shape[0]
+    res = {"phase": phase, "size": [W, H], "format": "YUV420", "bits": bits,
+           "engine": "exact", "frames": frames, "radius": radius,
+           "levels": len(info["fields_b"].levels), "planes_changed": changed,
+           "analyse_jobs": 2 * radius * frames,
+           "frames_per_s": frames / seconds, "seconds": seconds,
+           "stage_ms": stage_ms(info), "k6_device_ms": k6_ms,
+           "k6_launches_traced": k6_launches, "rescued_blocks": rescued,
+           "candidates": candidates, "launches": counts,
+           "peak_memory_bytes": peak, "plain_calls_on_cuda": plain_on_cuda}
+    emit(res)
+    return res
+
+
+def run_exact_paths(dev):
+    """exact_main_path: degrain_clip with its default engine on bench.py
+    config 4 at levels=0 (1920x1080 YUV420, blk 16 overlap 8, pel 2,
+    chroma, radius 3) on 8 frames with the gray headline's 256x256 flash;
+    exact_main_path16: the same at 16 bits on 4 frames at radius 1;
+    exact_recalc_path: Recalculate(engine="exact") at 1080p (blk 16
+    overlap 8) on the main path's level-0 fields of 8 jobs."""
+    cfgs = flagship_configs()
+    res = {}
+    for phase, bits, frames, radius in (("exact_main_path", 8, EXACT_T, 3),
+                                        ("exact_main_path16", DEEP_BITS,
+                                         EXACT16_T, 1)):
+        clip = make_test_clip_yuv(frames, W, H, seed=0, flash=FLASH,
+                                  noise=YUV_NOISE, pan=YUV_PAN, bits=bits,
+                                  device=dev)
+        res[phase] = run_exact_clip(phase, clip, cfgs, bits, radius)
+        if bits == 8:
+            keep = clip
+        del clip
+    # Recalculate's exact engine on the first 8 backward jobs
+    scfg, acfg, _, _ = cfgs
+    fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
+    sspec = scfg.validate(fmt)
+    aspec = dataclasses.replace(acfg, isb=True).validate(sspec)
+    from mvtools_tpu_torch.analyse import analyse_exact_jobs
+    sups = build_super(keep, sspec)
+    src = torch.arange(0, EXACT_T - 1, device=dev)
+    s, r = sups.take(src), sups.take(src + 1)
+    old = analyse_exact_jobs(s, r, aspec)
+    rcfg = RecalculateConfig(blksize=16, overlap=8, thsad=200, chroma=True)
+    rspec = rcfg.to_analyse_config().validate(sspec)
+    recalculate(s, r, old, rspec, rcfg, engine="exact")      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mv = recalculate(s, r, old, rspec, rcfg, engine="exact")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["exact_search"] < 1 or plain_calls_on_cuda():
+        raise AssertionError(f"exact_recalc_path: {counts}")
+    res["exact_recalc_path"] = {
+        "phase": "exact_recalc_path", "size": [W, H], "jobs": s.planes[0][0]
+        .shape[0], "blocks_per_job": mv.levels[0].x[0].numel(),
+        "pairs_per_s": s.planes[0][0].shape[0] / seconds,
+        "seconds": seconds, "candidates": int(exact_scan.candidates),
+        "launches": counts}
+    emit(res["exact_recalc_path"])
+    del keep, sups
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_fields_path(dev):
+    """fields_main_path: config 4 (1920x540 fields, blk 16 overlap 8, pel
+    2, chroma, levels=0) with fields=True, tff=True, radius 2, the lockstep
+    engine, on 12 fields separated from 6 frames of make_test_clip_yuv with
+    the flash (even rows the top field, FIELDS_PAN): odd deltas are shifted
+    by half a line, even ones not.  One warm-up, then one run."""
+    scfg, acfg, dcfg, _ = flagship_configs()
+    acfg = dataclasses.replace(acfg, fields=True, tff=True)
+    frames = make_test_clip_yuv(FIELDS_FRAMES, W, H, seed=0, flash=FLASH,
+                                noise=YUV_NOISE, pan=FIELDS_PAN, device=dev)
+    clip = split_fields(frames)
+    del frames
+    fh = H // 2
+    fmt = VideoFormat(W, fh, 8, ColorFamily.YUV420)
+    degrain_clip(clip, fmt, scfg, acfg, dcfg, 2, engine="lockstep")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    info = {}
+    t0 = time.perf_counter()
+    out = degrain_clip(clip, fmt, scfg, acfg, dcfg, 2, engine="lockstep",
+                       info=info)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    changed = [not torch.equal(got, src) for got, src in zip(out, clip)]
+    if (any(got.shape != src.shape or got.device.type != "cuda"
+            for got, src in zip(out, clip)) or not changed[0]):
+        raise AssertionError(f"fields_main_path: output {changed}")
+    if min(counts[k] for k in ("sad_map", "fetch_blocks_tiled")) < 1 \
+            or plain_calls_on_cuda():
+        raise AssertionError(f"fields_main_path: {counts}")
+    n = clip[0].shape[0]
+    # a pair (t, t +- k) is shifted by half a line where k is odd
+    res = {"phase": "fields_main_path", "size": [W, fh], "format": "YUV420",
+           "fields": n, "radius": 2, "engine": "lockstep", "tff": True,
+           "shifted_pairs": 2 * n, "unshifted_pairs": 2 * n,
+           "planes_changed": changed,
+           "frames_per_s": n / seconds, "seconds": seconds,
+           "stage_ms": stage_ms(info), "launches": counts,
+           "peak_memory_bytes": peak}
+    emit(res)
+    del clip, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def psnr(a, b, peak=255.0):
+    """bench.py's _psnr: 10 log10(peak^2 / MSE) over the whole arrays, 99
+    where they are equal."""
+    import math
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return 99.0 if mse == 0 else 10.0 * math.log10(peak * peak / mse)
+
+
+def psnr_vs_exact(dev):
+    """bench.py's psnr_vs_exact_512x288 of configs 4 and 5 on the card,
+    computed as bench.py:206-215, 247-265 compute it: the lockstep
+    engine's output against the exact engine's on a 512x288 clip of panned
+    uniform noise (numpy generator seeded 0)."""
+    import numpy as np
+
+    from mvtools_tpu_torch.flowfps import FlowFPSConfig, flowfps_frame
+    rng = np.random.default_rng(0)
+
+    def gray_clip(t, w, h):
+        base = rng.integers(0, 256, (h + 32, w + 32), np.uint8)
+        return torch.from_numpy(np.stack(
+            [base[(i * 2) % 16:(i * 2) % 16 + h,
+                  (i * 3) % 16:(i * 3) % 16 + w] for i in range(t)])).to(dev)
+
+    sw, sh = 512, 288
+    # config 4 as bench.py runs it (levels=3, its compile-budget depth)
+    scfg = SuperConfig(pel=2, levels=3, chroma=True)
+    acfg = AnalyseConfig(blksize=16, levels=3, overlap=8, truemotion=True,
+                         chroma=True)
+    dcfg = DegrainConfig(thsad=400)
+    small = [gray_clip(6, sw, sh), gray_clip(6, sw // 2, sh // 2),
+             gray_clip(6, sw // 2, sh // 2)]
+    sfmt = VideoFormat(sw, sh, 8, ColorFamily.YUV420)
+    lock = degrain_clip(small, sfmt, scfg, acfg, dcfg, radius=3,
+                        engine="lockstep")
+    exact = degrain_clip(small, sfmt, scfg, acfg, dcfg, radius=3,
+                         engine="exact")
+    c4 = psnr(lock[0], exact[0])
+    # config 5: one interpolated frame at time 128
+    sclip = gray_clip(3, sw, sh)
+    sspec = SuperConfig(pel=2, levels=0, chroma=False).validate(
+        VideoFormat(sw, sh, 8, ColorFamily.GRAY))
+    acfg5 = AnalyseConfig(blksize=16, levels=0, truemotion=True,
+                          chroma=False)
+    ab = dataclasses.replace(acfg5, isb=True).validate(sspec)
+    af = dataclasses.replace(acfg5, isb=False).validate(sspec)
+    sa = build_super([sclip[0]], sspec)
+    sb = build_super([sclip[1]], sspec)
+    outs = {}
+    for eng in ("lockstep", "exact"):
+        mv_b = analyse(sa, sb, ab, engine=eng)
+        mv_f = analyse(sb, sa, af, engine=eng)
+        outs[eng] = flowfps_frame([sclip[0]], [sclip[1]], sa, sb, mv_b, mv_f,
+                                  ab.meta, FlowFPSConfig(maskmode=2),
+                                  128)[0]
+    c5 = psnr(outs["lockstep"], outs["exact"])
+    res = {"phase": "psnr_vs_exact_512x288",
+           "config4_psnr_vs_exact_512x288": round(c4, 2),
+           "config5_psnr_vs_exact_512x288": round(c5, 2),
+           "config4": "bench.py config 4 (levels=3), 6 frames, radius 3, "
+                      "luma of every frame",
+           "config5": "bench.py config 5, frames 0 and 1, time 128"}
+    emit(res)
+    return res
+
+
+PATHS = ("gray", "yuv", "yuv16", "satd", "dct", "fps", "pel4", "exact",
+         "fields")
 
 
 def main():
@@ -2872,6 +3673,9 @@ def main():
         small_end_to_end_dct(dev)
         small_end_to_end_fps(dev)
         small_end_to_end_pel4(dev)
+        shown.update(exact_vs_plain(dev))
+        small_end_to_end_exact(dev)
+        small_end_to_end_fields(dev)
     else:
         u8_kernel_times(cfgs, dev)
         redesigned_kernel_times(dev)
@@ -2917,7 +3721,7 @@ def main():
         flash_clip = make_test_clip_yuv(YUV_T, W, H, seed=0, flash=YUV_FLASH,
                                         noise=YUV_NOISE, pan=YUV_PAN,
                                         device=dev)
-        degrain_clip(flash_clip, fmt, *cfgs)                      # warm-up
+        degrain_clip(flash_clip, fmt, *cfgs, engine="lockstep")       # warm-up
         yuv = run_yuv_clip("yuv_main_path", flash_clip, cfgs)
         counts = yuv["launches"]
         if min(counts[k] for k in PLAIN_KERNELS) < 1:
@@ -2932,10 +3736,12 @@ def main():
                                  f"ran {yuv_calm['launches']}")
         if profile:
             profile_run("yuv_main_path",
-                        lambda: degrain_clip(flash_clip, fmt, *cfgs),
+                        lambda: degrain_clip(flash_clip, fmt, *cfgs,
+                                         engine="lockstep"),
                         split=("probe_sads",))
             profile_run("yuv_main_path_calm",
-                        lambda: degrain_clip(calm_clip, fmt, *cfgs))
+                        lambda: degrain_clip(calm_clip, fmt, *cfgs,
+                                         engine="lockstep"))
 
         del flash_clip, calm_clip
         torch.cuda.empty_cache()
@@ -3049,6 +3855,27 @@ def main():
         emit({"phase": "pel4_main_path", "skipped": "the package driven "
               "(--package-root) has no pel-4 path"})
 
+    # ---- the exact engine (config 4) and interlaced input at full width ---
+    if not wants("exact"):
+        pass
+    elif has_exact():
+        exact = run_exact_paths(dev)
+        psnr_vs_exact(dev)
+    elif not paths_only:
+        raise AssertionError("the package has no exact engine")
+    else:
+        emit({"phase": "exact_main_path", "skipped": "the package driven "
+              "(--package-root) has no exact engine"})
+    if not wants("fields"):
+        pass
+    elif has_exact():
+        fields = run_fields_path(dev)
+    elif not paths_only:
+        raise AssertionError("the package has no interlaced input")
+    else:
+        emit({"phase": "fields_main_path", "skipped": "the package driven "
+              "(--package-root) has no interlaced input"})
+
     if paths_only:
         emit({"phase": "done", "paths_only": True,
               "seconds": time.perf_counter() - t_start})
@@ -3063,7 +3890,11 @@ def main():
                "fps_main_path": fps["launches"],
                "fps_main_path_calm": fps_calm["launches"],
                "pel4_main_path": pel4["launches"],
-               "pel4_main_path_calm": pel4_calm["launches"]}
+               "pel4_main_path_calm": pel4_calm["launches"],
+               "exact_main_path": exact["exact_main_path"]["launches"],
+               "exact_main_path16": exact["exact_main_path16"]["launches"],
+               "exact_recalc_path": exact["exact_recalc_path"]["launches"],
+               "fields_main_path": fields["launches"]}
 
     def entry(name, source, replaces, case, path="yuv_main_path"):
         return dict(name=name, route="cuda", source=source,
@@ -3117,7 +3948,25 @@ def main():
         # launches in small_end_to_end_yuv16, whose line shows the count
         entry("fetch_blocks[u16]", "mvtools_tpu_torch/csrc/fetch.cu",
               "mvtools_tpu/ops/probe.py:899", shown["fetch_blocks[u16]"],
-              "yuv16_main_path")]})
+              "yuv16_main_path"),
+        # K6 replaces no TPU kernel: the JAX package runs the exact engine
+        # as a lax.scan (search_level) and Recalculate's exact search as a
+        # vmap over blocks, which XLA compiles
+        entry("exact_scan", "mvtools_tpu_torch/csrc/exact_scan.cu",
+              "mvtools_tpu/analyse.py:801 (lax.scan, no Pallas kernel)",
+              shown["exact_scan"], "exact_main_path"),
+        entry("exact_scan[u16]", "mvtools_tpu_torch/csrc/exact_scan.cu",
+              "mvtools_tpu/analyse.py:801 (lax.scan, no Pallas kernel)",
+              shown["exact_scan[u16]"], "exact_main_path16"),
+        entry("exact_search", "mvtools_tpu_torch/csrc/exact_scan.cu",
+              "mvtools_tpu/recalculate.py:191 (vmap, no Pallas kernel)",
+              shown["exact_search"], "exact_recalc_path"),
+        # Recalculate refuses clips of 9 to 16 bits (as it does on the
+        # lockstep engine), so the uint16 per-item form is on no path; it
+        # runs in exact_vs_plain, at Recalculate's 1080p shape
+        entry("exact_search[u16]", "mvtools_tpu_torch/csrc/exact_scan.cu",
+              "mvtools_tpu/recalculate.py:191 (vmap, no Pallas kernel)",
+              shown["exact_search[u16]"], "exact_recalc_path")]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi.splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,9 @@ consumers, after vapoursynth-mvtools: frames, pyramids and motion-vector
 fields are torch tensors with an explicit leading batch axis, the plain
 array work is eager PyTorch, and the hot operations (dense SAD map, tiled
 candidate probe, per-block candidate probe, each also in a three-stat form
-that yields SAD, SATD and the reference block's sum, and the tiled and the
-per-block reference-block fetch) are hand-written CUDA kernels under csrc/,
-compiled with nvcc at first use.
+that yields SAD, SATD and the reference block's sum, the tiled and the
+per-block reference-block fetch, and the exact engine's block scan) are
+hand-written CUDA kernels under csrc/, compiled with nvcc at first use.
 
 This package imports torch and numpy only.  Ported so far: Super -> batched
 lockstep Analyse -> Recalculate -> Degrain for 8-bit GRAY and YUV clips (pel
@@ -18,19 +18,26 @@ candidate), with the plain-SAD cost (dct 0), the DCT costs (dct 1-4)
 and the SATD costs (dct 5-10), and the entry points analyse / analyse_batch,
 recalculate, degrain.degrain, models.denoise.degrain_window,
 models.denoise.degrain_clip / degrain1_clip and the per-frame
-models.denoise.degrain1_frame / degrain_n_frame; Super -> batched lockstep
-Analyse (dct 0) -> Degrain for clips of 9 to 16 bits (uint16 pixels);
-frame-rate conversion, models.frc.flowfps_clip (Super -> Analyse in both directions ->
-FlowFPS); and the motion-compensated consumers, each one frame at a time:
+models.denoise.degrain1_frame / degrain_n_frame; the exact sequential engine
+(engine="exact": the reference's block scan bit for bit, the default of
+analyse, degrain_clip and degrain1_clip as in the JAX package; the CUDA
+kernel K6 on the card, exact_engine.py on the CPU) with the plain-SAD cost
+at 8 to 16 bits, in Analyse, Recalculate, the denoise entry points and
+flowfps_clip; interlaced input (fields=True, tff, the field shift of
+analyse, analyse_batch, degrain_clip, degrain_n_frame, compensate and flow;
+core/fields.py); Super -> batched lockstep Analyse (dct 0) -> Degrain for
+clips of 9 to 16 bits (uint16 pixels); frame-rate conversion,
+models.frc.flowfps_clip (Super -> Analyse in both directions -> FlowFPS);
+and the motion-compensated consumers, each one frame at a time:
 flowfps.flowfps_frame, flowinter.flowinter, flow.flow (fetch and shift),
 flowblur.flowblur, blockfps.blockfps_frame, compensate.compensate,
 scdetect.scdetect and mask.mask, over finest.finest, flowutils and
 ops/{resize,maskfun}.py.  The consumers' per-pixel gathers are plain torch
-ops; their block fetches go through the fetch kernels.  Not ported:
-interlaced input (fields, field_shift), engine="exact"; Super's sharp 0/1,
-rfilter 0/1/3/4 and pelclip; at 9 to 16 bits Recalculate and dct 1-10;
-Depan and stabilisation; the MV blob codec, pipelines, io and the mesh.
-Each raises NotImplementedError or is absent.
+ops; their block fetches go through the fetch kernels.  Not ported: the
+exact engine with dct 1-10; Super's sharp 0/1, rfilter 0/1/3/4 and pelclip;
+at 9 to 16 bits Recalculate and dct 1-10; Depan and stabilisation; the MV
+blob codec, pipelines, io and the mesh.  Each raises NotImplementedError or
+is absent.
 
 Precision: the pipeline is integer (pixels uint8 or uint16, block math
 int32, costs

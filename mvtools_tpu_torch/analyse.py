@@ -1,5 +1,5 @@
-"""mv.Analyse equivalent: hierarchical block motion search, lock-step
-engine.
+"""mv.Analyse equivalent: hierarchical block motion search, with the
+lock-step engine and the exact sequential engine.
 
 A redesign of the reference engine (GroupOfPlanes.c:69-125,
 PlaneOfBlocks.cpp:819-1131) for a wide parallel device.  The reference's
@@ -13,8 +13,14 @@ vs the sequential engine: predictor values lag one iteration, and the
 badcount feedback (PlaneOfBlocks.cpp:942-945) is per-block instead of
 globally accumulated.
 
-Every tensor carries an explicit leading job axis [J, ...]; analyse() is
-the J = 1 case of analyse_batch().  Pixels are uint8 (uint16 for clips of
+The exact engine (engine="exact", the default of analyse() as in the JAX
+package) is the reference's sequential Gauss-Seidel block scan, bit for bit:
+exact_engine.py in plain PyTorch on CPU tensors, the CUDA kernel K6
+(ops/exact_scan.py) on CUDA tensors; analyse_exact_jobs runs it for a batch
+of independent jobs.
+
+Every tensor carries an explicit leading job axis [J, ...]; analyse() with
+engine="lockstep" is the J = 1 case of analyse_batch().  Pixels are uint8 (uint16 for clips of
 9 to 16 bits), block math int32, costs int64.
 
 Float islands: the lambda adaptation uses C doubles (pobFetchPredictors
@@ -25,9 +31,12 @@ the DCT costs (dct 1-4) and the SATD costs (dct 5-10) at 8 bits, dct 0 at 9
 to 16 bits, pel 1/2/4, every search type, trymany, the bad-SAD rescue for
 any badrange, divide 1/2.  A level whose geometry the dense SAD map serves
 searches on the map; any other level (pel 4, blocks whose SAD can reach
-2^24) probes every candidate through field_engine.FieldProber.  field_shift,
-engine="exact" and the DCT and SATD costs at 9 to 16 bits raise
-NotImplementedError.
+2^24) probes every candidate through field_engine.FieldProber.  The field
+shift of interlaced input (field_shift, a scalar or one per job) enters the
+finest level: the zero trial's y, the y of a missing neighbour's predictor
+and the global predictor.  The exact engine takes the plain SAD (dct 0) at
+8 to 16 bits.  The exact engine with dct 1-10 and the DCT and SATD costs at
+9 to 16 bits raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from .core.config import AnalyseSpec
 from .core.types import MVField, MVPlaneField, SearchType
 from .field_engine import mix_dct_cost, mix_dct_cost_sums, mix_satd_cost
 from .ops import dct as dct_ops
+from .ops import exact_scan
 from .ops import pixels
 from .ops import sad as sad_ops
 from .ops.pad import edge_pad
@@ -312,12 +322,14 @@ def _blocks_of(plane, base_y, base_x, nb_y, nb_x, bh, bw, step_y=None,
 
 def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
                           global_mv, mean_luma_change, iters: int = 1,
-                          rescue_mode: str = "inline", resc_state=None):
+                          rescue_mode: str = "inline", resc_state=None,
+                          field_shift=None):
     """Search all blocks of one level for the whole batch.
 
     vectors_in: (x, y, sad) [J, nblk] inter-level prediction; global_mv:
-    (gx, gy) [J]; mean_luma_change: [J] int32.  Returns
-    ((x, y, sad), mean_luma_change).
+    (gx, gy) [J]; mean_luma_change: [J] int32; field_shift: None or
+    (values, [J] int32 tensor), the jobs' field shifts (values as Python
+    ints).  Returns ((x, y, sad), mean_luma_change).
 
     rescue_mode: "inline" (default) runs the bad-SAD rescue inside this
     call; "defer" skips it and returns a third value, the state the
@@ -349,6 +361,10 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
     vps = vpad >> level
     gx_scaled = ((1 << logp) * global_mv[0]).to(I32)
     gy_scaled = ((1 << logp) * global_mv[1]).to(I32)
+    zs_y = 0        # a missing neighbour's y: the field shift
+    if field_shift is not None:
+        gy_scaled = gy_scaled + field_shift[1]
+        zs_y = field_shift[1][:, None]
 
     idx = torch.arange(nblk, dtype=I32, device=dev)
     blky_a = idx // nbx
@@ -409,12 +425,12 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
 
         left_ok = torch.where(scan_dir_a == 1, blkx_a > 0, blkx_a < nbx - 1)
         p1x, p1y = clip(torch.where(left_ok, _nbr(vx_a, 0, -1), 0),
-                        torch.where(left_ok, _nbr(vy_a, 0, -1), 0))
+                        torch.where(left_ok, _nbr(vy_a, 0, -1), zs_y))
         p1s = torch.where(left_ok, _nbr(vs_a, 0, -1), 0)
 
         up_ok = blky_a > 0
         p2x, p2y = clip(torch.where(up_ok, _nbr(vx_a, -1, 0), 0),
-                        torch.where(up_ok, _nbr(vy_a, -1, 0), 0))
+                        torch.where(up_ok, _nbr(vy_a, -1, 0), zs_y))
         p2s = torch.where(up_ok, _nbr(vs_a, -1, 0), 0)
 
         x_ok = torch.where(scan_dir_a == 1, blkx_a < nbx - 1, blkx_a > 0)
@@ -423,7 +439,7 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
         p3x_raw = torch.where(br_ok, _nbr(vx_a, 1, 1),
                               torch.where(ur_ok, _nbr(vx_a, -1, 1), 0))
         p3y_raw = torch.where(br_ok, _nbr(vy_a, 1, 1),
-                              torch.where(ur_ok, _nbr(vy_a, -1, 1), 0))
+                              torch.where(ur_ok, _nbr(vy_a, -1, 1), zs_y))
         p3s = torch.where(br_ok, _nbr(vs_a, 1, 1),
                           torch.where(ur_ok, _nbr(vs_a, -1, 1), 0))
         p3x, p3y = clip(p3x_raw, p3y_raw)
@@ -480,7 +496,7 @@ def search_level_lockstep(ctx: LevelCtx, level_params, vectors_in,
                           (prx, pry, prs), (p0[:2], p1, p2, p3), lam_a, idx,
                           do_rescue=(rescue_mode == "inline"
                                      and it == iters - 1),
-                          probe_p=prober)
+                          probe_p=prober, zs=field_shift)
         vx_a, vy_a, vs_a = st["bx"], st["by"], st["bsad"]
     if smallest:
         ref0_blocks = _blocks_of(ctx.ref_stacks[0][:, 0], vpad, hpad, nby,
@@ -776,9 +792,13 @@ def _unported_costs(spec: AnalyseSpec):
          "for that size)")]
 
 
-def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
+def _check_ported(spec: AnalyseSpec, sspec, engine: str = "lockstep") -> None:
+    if engine not in ("exact", "lockstep"):
+        raise ValueError(f"Analyse: unknown engine {engine!r}")
     unported = _unported_costs(spec) + [
-        (field_shift != 0, "field_shift != 0 (interlaced input)"),
+        (engine == "exact" and spec.dct != 0,
+         f'engine="exact" with dct={spec.dct} (the exact engine takes the '
+         "plain SAD, dct 0)"),
     ]
     for bad, what in unported:
         if bad:
@@ -788,10 +808,28 @@ def _check_ported(spec: AnalyseSpec, sspec, field_shift) -> None:
                          "chroma planes")
 
 
+def _job_shifts(field_shift, nj: int, device):
+    """(values, tensor) of a field shift given as an int, a sequence of J
+    ints or a [J] tensor: the J shifts as Python ints and as an int32
+    tensor on `device`."""
+    if isinstance(field_shift, torch.Tensor):
+        field_shift = field_shift.reshape(-1).tolist()
+    elif isinstance(field_shift, (int, np.integer)):
+        field_shift = [int(field_shift)] * nj
+    values = [int(v) for v in field_shift]
+    if len(values) == 1 and nj != 1:
+        values = values * nj
+    if len(values) != nj:
+        raise ValueError(f"field_shift: {len(values)} shifts for {nj} jobs")
+    return values, torch.tensor(values, dtype=I32, device=device)
+
+
 def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,
                   field_shift=0, lockstep_iters: int = 1) -> MVField:
     """Frame-batched lockstep analyse: Supers with a leading job axis [J]
     -> MVField with [J]-leading tensors, on the device the supers live on.
+    field_shift: an int for every job or one per job (a sequence or a [J]
+    tensor), applied at the finest level.
 
     Every whole-field op serves all J jobs at once and each level builds
     its dense SAD map for the whole batch in one kernel launch (a level the
@@ -802,11 +840,14 @@ def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,
     alone.  With spec.divide the divided sub-block level comes first."""
     if not src_supers.batched or not ref_supers.batched:
         raise ValueError("analyse_batch: supers need a leading job axis")
-    _check_ported(spec, src_supers.spec, field_shift)
+    _check_ported(spec, src_supers.spec)
     m = spec.meta
     lv_count = m.lv_count
     dev = src_supers.planes[0][0].device
     nj = src_supers.planes[0][0].shape[0]
+    shifts = _job_shifts(field_shift, nj, dev)
+    if not any(shifts[0]):
+        shifts = None
 
     mlc = torch.zeros((nj,), dtype=I32, device=dev)
     gmx = torch.zeros((nj,), dtype=I32, device=dev)
@@ -833,7 +874,63 @@ def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,
                 ctx.log_pel)
         vectors, mlc = search_level_lockstep(
             ctx, level_params, vectors_in, (gmx, gmy), mlc,
-            iters=lockstep_iters)
+            iters=lockstep_iters, field_shift=shifts if lv == 0 else None)
+        level_fields[lv] = {"vectors": vectors, "nblk": (nbx, nby)}
+
+    levels_out = []
+    for lv in range(lv_count):
+        vx, vy, vs = level_fields[lv]["vectors"]
+        nbx, nby = level_fields[lv]["nblk"]
+        levels_out.append(MVPlaneField(vx.reshape(nj, nby, nbx),
+                                       vy.reshape(nj, nby, nbx),
+                                       vs.reshape(nj, nby, nbx)))
+    meta = m
+    if spec.divide:
+        levels_out.insert(0, divide_extra(levels_out[0], spec.divide))
+        meta = spec.divided_meta
+    return MVField(tuple(levels_out),
+                   torch.ones((nj,), dtype=I32, device=dev), meta)
+
+
+def analyse_exact_jobs(src_supers: Super, ref_supers: Super,
+                       spec: AnalyseSpec, field_shift=0) -> MVField:
+    """The exact engine for a batch of independent jobs (frame pairs):
+    Supers with a leading job axis [J] -> MVField with [J]-leading tensors,
+    each job exactly the JAX package's analyse(engine="exact") of that
+    pair.  Every level is one scan of all jobs (exact_scan.scan_level: K6
+    on CUDA tensors, one warp per job).  field_shift: an int for every job
+    or one per job, applied at the finest level."""
+    _check_ported(spec, src_supers.spec, "exact")
+    m = spec.meta
+    lv_count = m.lv_count
+    dev = src_supers.planes[0][0].device
+    nj = src_supers.planes[0][0].shape[0]
+    _, fs = _job_shifts(field_shift, nj, dev)
+    gmx = torch.zeros((nj,), dtype=I32, device=dev)
+    gmy = torch.zeros((nj,), dtype=I32, device=dev)
+    level_fields = {}
+    vectors = None
+    for lv in range(lv_count - 1, -1, -1):
+        ctx = _level_ctx(src_supers.spec, spec, lv, src_supers, ref_supers)
+        nbx, nby = ctx.nblk
+        nblk = nbx * nby
+        if lv == lv_count - 1:
+            vectors_in = (torch.zeros((nj, nblk), dtype=I32, device=dev),
+                          torch.zeros((nj, nblk), dtype=I32, device=dev),
+                          torch.zeros((nj, nblk), dtype=I64, device=dev))
+        else:
+            if spec.global_:
+                gmx, gmy = estimate_global_mv_doubled(vectors[0], vectors[1])
+            pnbx, pnby = level_fields[lv + 1]["nblk"]
+            vectors_in = interpolate_prediction(
+                vectors, pnbx, pnby, nbx, nby,
+                (m.blk_size_x, m.blk_size_y), (m.overlap_x, m.overlap_y),
+                ctx.log_pel)
+        zs = fs if lv == 0 else torch.zeros_like(fs)
+        gx = ((1 << ctx.log_pel) * gmx).to(I32)
+        gy = ((1 << ctx.log_pel) * gmy).to(I32) + zs
+        vectors, _ = exact_scan.scan_level(ctx, _level_plan(spec, lv),
+                                           vectors_in, gx, gy, zs)
         level_fields[lv] = {"vectors": vectors, "nblk": (nbx, nby)}
 
     levels_out = []
@@ -852,19 +949,19 @@ def analyse_batch(src_supers: Super, ref_supers: Super, spec: AnalyseSpec,
 
 
 def analyse(src_super: Super, ref_super: Super, spec: AnalyseSpec,
-            field_shift=0, engine: str = "lockstep",
+            field_shift=0, engine: str = "exact",
             lockstep_iters: int = 1) -> MVField:
-    """Run the full hierarchical search for one frame pair: the J = 1 case
-    of analyse_batch.  Returns an MVField (finest level first) without a
-    job axis.  Only engine="lockstep" is ported."""
-    if engine == "exact":
-        raise NotImplementedError(
-            'Analyse: engine="exact" (the sequential block scan) is not '
-            "ported")
-    if engine != "lockstep":
-        raise ValueError(f"Analyse: unknown engine {engine!r}")
-    mv = analyse_batch(src_super.map(lambda a: a[None]),
-                       ref_super.map(lambda a: a[None]), spec, field_shift,
-                       lockstep_iters)
+    """Run the full hierarchical search for one frame pair.  Returns an
+    MVField (finest level first) without a job axis.
+
+    engine: "exact" (the default, as in the JAX package) reproduces the
+    reference's sequential Gauss-Seidel block scan bit for bit
+    (analyse_exact_jobs with one job; dct 0); "lockstep" is the whole-plane
+    search, the J = 1 case of analyse_batch."""
+    _check_ported(spec, src_super.spec, engine)
+    run = analyse_exact_jobs if engine == "exact" else (
+        lambda s, r, sp, fs: analyse_batch(s, r, sp, fs, lockstep_iters))
+    mv = run(src_super.map(lambda a: a[None]),
+             ref_super.map(lambda a: a[None]), spec, field_shift)
     return MVField(tuple(MVPlaneField(l.x[0], l.y[0], l.sad[0])
                          for l in mv.levels), mv.validity[0], mv.meta)

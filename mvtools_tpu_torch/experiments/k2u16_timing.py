@@ -457,7 +457,7 @@ def _record_clip_calls(dev):
         return original(*args, **kw)
     probe.probe_sads_tiled = record
     try:
-        cs.degrain_clip(clip, fmt, *cfgs)
+        cs.degrain_clip(clip, fmt, *cfgs, engine="lockstep")
     finally:
         probe.probe_sads_tiled = original
     return calls
@@ -531,9 +531,11 @@ def split(dev):
                                  flash=cs.YUV_FLASH, noise=cs.YUV_NOISE,
                                  pan=cs.YUV_PAN, bits=cs.DEEP_BITS,
                                  device=dev)
-    cs.degrain_clip(clip, fmt, *cfgs)                         # warm-up
+    cs.degrain_clip(clip, fmt, *cfgs,
+                    engine="lockstep")                    # warm-up
     cs.profile_run("yuv16_main_path",
-                   lambda: cs.degrain_clip(clip, fmt, *cfgs),
+                   lambda: cs.degrain_clip(clip, fmt, *cfgs,
+                                           engine="lockstep"),
                    split=("probe_sads_tiled[u16]",))
 
 

@@ -120,7 +120,7 @@ def _record_calls(dev, bits, entry="probe_sads_tiled"):
         return out
     setattr(probe, entry, record)
     try:
-        cs.degrain_clip(clip, fmt, *cfgs)
+        cs.degrain_clip(clip, fmt, *cfgs, engine="lockstep")
     finally:
         setattr(probe, entry, original)
     return calls
@@ -364,9 +364,11 @@ def split(dev):
         clip = cs.make_test_clip_yuv(cs.YUV_T, cs.W, cs.H, seed=0,
                                      flash=cs.YUV_FLASH, noise=cs.YUV_NOISE,
                                      pan=cs.YUV_PAN, bits=bits, device=dev)
-        cs.degrain_clip(clip, fmt, *cfgs)                     # warm-up
+        cs.degrain_clip(clip, fmt, *cfgs,
+                        engine="lockstep")                # warm-up
         cs.profile_run(f"yuv_main_path {bits}-bit",
-                       lambda: cs.degrain_clip(clip, fmt, *cfgs),
+                       lambda: cs.degrain_clip(clip, fmt, *cfgs,
+                                               engine="lockstep"),
                        split=(name,))
         del clip
         torch.cuda.empty_cache()

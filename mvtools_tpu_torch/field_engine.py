@@ -1106,7 +1106,7 @@ def _trymany(p, st, level_params, gxc, gyc, prx, pry, preds, lam, pred):
 
 def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
               lam, idx, do_rescue: bool = True,
-              probe_p: Optional[FieldProber] = None):
+              probe_p: Optional[FieldProber] = None, zs=None):
     """Whole-plane pseudo-EPZ for one Jacobi iteration
     (pobPseudoEPZSearch PlaneOfBlocks.cpp:819-968, every dct mode, with or
     without trymany).
@@ -1115,7 +1115,9 @@ def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
     4 (x, y) predictor pairs; gx/gy: [J] global vector; lam: adapted lambda
     per block.  Returns the field state dict.  probe_p serves the bad-SAD
     rescue: the rescue walks far from the map anchor, so it needs a
-    window-probing prober.
+    window-probing prober.  zs: the field shift, None (0) or (values, [J]
+    int32 tensor) with `values` the jobs' shifts as Python ints; it is the
+    zero trial's y (chroma stays at (0, 0)).
     """
     search = level_params["search"]
     param = level_params["param"]
@@ -1126,8 +1128,21 @@ def field_epz(p: FieldProber, dense, level_params, gx, gy, pred_main, preds,
     pred = (prx, pry)
 
     # ---- zero trial (dense; no bounds check) ------------------------------
-    sad0 = dense.luma_sads(0, 0) + dense.chroma_sads(0, 0)
-    st = dict(bx=torch.zeros_like(prx), by=torch.zeros_like(pry),
+    if zs is None:
+        luma0 = dense.luma_sads(0, 0)
+        zy = torch.zeros_like(pry)
+    else:
+        # one uniform displacement per distinct shift, each job taking its
+        # own
+        values, zs_t = zs
+        luma0 = None
+        for v in sorted(set(values)):
+            s = dense.luma_sads(0, v)
+            luma0 = s if luma0 is None else torch.where(
+                (zs_t == v)[:, None], s, luma0)
+        zy = torch.zeros_like(pry) + zs_t[:, None]
+    sad0 = luma0 + dense.chroma_sads(0, 0)
+    st = dict(bx=torch.zeros_like(prx), by=zy,
               bsad=sad0, mincost=sad0 + ((pzero * sad0) >> 8),
               dir=torch.zeros_like(prx))
 

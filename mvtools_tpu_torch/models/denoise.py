@@ -6,6 +6,13 @@ degrain1_clip with radius 1; degrain_window the inner frames of a window of
 luma frames; degrain1_frame and degrain_n_frame one frame from its
 neighbours.
 
+degrain_clip and degrain1_clip default to the exact sequential engine
+(engine="exact"), as in the JAX package; degrain1_frame and degrain_n_frame
+to the lockstep engine.  Interlaced input: with fields=True (and tff) in the
+AnalyseConfig, degrain_clip shifts each pair of opposite field parity by
+half a line at the finest level (core/fields.py), and degrain_n_frame takes
+a shift per pair.
+
 Clip-edge semantics match the reference: a neighbour beyond the clip is
 edge-replicated for shape uniformity but marked invalid, so Degrain gives
 it weight 0 — the behaviour of the reference's default all-invalid field at
@@ -21,10 +28,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..analyse import _check_ported, analyse_batch
+from ..analyse import _check_ported, analyse_batch, analyse_exact_jobs
+from ..convert import require_device
+from ..core import fields as fields_mod
 from ..core.config import (AnalyseConfig, AnalyseSpec, SuperConfig,
                            SuperSpec)
-from ..convert import require_device
 from ..core.types import ColorFamily, MVField, MVPlaneField, VideoFormat
 from ..degrain import DegrainConfig, degrain
 from ..super import build_super
@@ -122,17 +130,12 @@ def degrain_n_frame(cur_planes, prev_list, next_list, sspec: SuperSpec,
     frame n and of frames n-(i+1) / n+(i+1).  valid_b[i] / valid_f[i]:
     optional bools marking whether the i-th next/prev neighbour exists in
     the clip; False gives it weight 0 (the reference's default field at clip
-    edges).  Every frame's super is built once; the backward and the
-    forward analyses are one analyse_batch call each (a job comes out as if
-    searched alone).  Only engine="lockstep" and no field shift are
-    ported."""
-    if engine != "lockstep":
-        raise NotImplementedError(
-            f"degrain_n_frame: engine={engine!r} is not ported (lockstep "
-            "is)")
-    if any(fs for fs in (field_shift_b or []) + (field_shift_f or [])):
-        raise NotImplementedError(
-            "degrain_n_frame: field shifts (interlaced input) are not ported")
+    edges).  field_shift_b[i] / field_shift_f[i]: optional per-pair
+    vertical field shift in pel units for interlaced input
+    (MVAnalyse.c:174-178).  Every frame's super is built once; the backward
+    and the forward analyses are one batched call each (a job comes out as
+    if searched alone), on the lockstep or the exact engine."""
+    _check_ported(aspec_b, sspec, engine)
     radius = len(prev_list)
     frames = [list(cur_planes)] + [list(p) for p in next_list] \
         + [list(p) for p in prev_list]
@@ -141,8 +144,12 @@ def degrain_n_frame(cur_planes, prev_list, next_list, sspec: SuperSpec,
     dev = cur_planes[0].device
     cur = torch.zeros(radius, dtype=torch.long, device=dev)
     nxt = torch.arange(1, radius + 1, device=dev)
-    mv_b = analyse_batch(sups.take(cur), sups.take(nxt), aspec_b)
-    mv_f = analyse_batch(sups.take(cur), sups.take(nxt + radius), aspec_f)
+    mv_b = _analyse_jobs(sups, cur, nxt, aspec_b, engine,
+                         [0] * radius if field_shift_b is None
+                         else [int(v) for v in field_shift_b])
+    mv_f = _analyse_jobs(sups, cur, nxt + radius, aspec_f, engine,
+                         [0] * radius if field_shift_f is None
+                         else [int(v) for v in field_shift_f])
 
     sups_r, mvs, valid = [], [], []
     for i in range(radius):
@@ -182,10 +189,20 @@ def neighbour_index(total: int, radius: int, sign: int, device):
 _MAX_JOBS = 48
 
 
-def _analyse_jobs(sups, src_t, ref_t, aspec) -> MVField:
-    parts = [analyse_batch(sups.take(src_t[j:j + _MAX_JOBS]),
-                           sups.take(ref_t[j:j + _MAX_JOBS]), aspec)
-             for j in range(0, src_t.shape[0], _MAX_JOBS)]
+def _analyse_jobs(sups, src_t, ref_t, aspec, engine: str = "lockstep",
+                  field_shift=0) -> MVField:
+    """The fields of the jobs (src_t[j], ref_t[j]) of the batch of supers
+    `sups`, on the lockstep engine (analyse_batch) or the exact one
+    (analyse_exact_jobs), in chunks of _MAX_JOBS; field_shift: an int or
+    one per job."""
+    run = analyse_exact_jobs if engine == "exact" else analyse_batch
+    n = src_t.shape[0]
+    if isinstance(field_shift, int):
+        field_shift = [field_shift] * n
+    parts = [run(sups.take(src_t[j:j + _MAX_JOBS]),
+                 sups.take(ref_t[j:j + _MAX_JOBS]), aspec,
+                 field_shift[j:j + _MAX_JOBS])
+             for j in range(0, n, _MAX_JOBS)]
     return MVField(
         tuple(MVPlaneField(*(torch.cat([getattr(p.levels[lv], key)
                                         for p in parts])
@@ -198,7 +215,7 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
                  scfg: SuperConfig = SuperConfig(),
                  acfg: AnalyseConfig = AnalyseConfig(),
                  dcfg: DegrainConfig = DegrainConfig(), radius: int = 1,
-                 engine: str = "lockstep", mesh=None, spatial=None,
+                 engine: str = "exact", mesh=None, spatial=None,
                  info: Optional[dict] = None) -> List[torch.Tensor]:
     """Denoise a whole clip with temporal radius N.
 
@@ -212,26 +229,29 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
     references in Backward1, Forward1, Backward2, ... order.  Frames near
     the clip edges mark the missing neighbours invalid instead of wrapping.
 
-    Only engine="lockstep" on one device is ported.  `info`, if given,
+    engine: "exact" (the default, as in the JAX package: every pair its
+    own sequential block scan, bit for bit the reference's) or "lockstep".
+    With acfg.fields (a clip of separated fields, pel > 1) a pair of
+    opposite field parity is shifted by half a line at the finest level,
+    the sign from the source frame's parity and acfg.tff.  Only one device
+    is ported.  `info`, if given,
     receives the batched MV fields under "fields_b" / "fields_f" and, when
     the clip is on a CUDA device, CUDA events around the three stages under
     "events" ("super", "analyse", "degrain": (start, end))."""
-    if engine == "exact":
-        raise NotImplementedError(
-            'degrain_clip: engine="exact" (the sequential block scan) is '
-            "not ported")
-    if engine != "lockstep":
+    if engine not in ("exact", "lockstep"):
         raise ValueError(f"degrain_clip: unknown engine {engine!r}")
     if mesh is not None or spatial is not None:
         raise NotImplementedError(
             "degrain_clip: sharding over a device mesh is not ported")
-    if acfg.fields:
-        raise NotImplementedError(
-            "degrain_clip: fields=True (interlaced input) is not ported")
     sspec = scfg.validate(fmt)
     aspec_f = dataclasses.replace(acfg, isb=False).validate(sspec)
     aspec_b = dataclasses.replace(acfg, isb=True).validate(sspec)
-    _check_ported(aspec_b, sspec, 0)     # before any work is done
+    _check_ported(aspec_b, sspec, engine)    # before any work is done
+    fields_on = acfg.fields and sspec.pel > 1
+    if fields_on and acfg.tff is None:
+        raise ValueError(
+            "Analyse: _Field property not found in input frame. "
+            "Therefore, you must pass tff argument.")
     clip_planes = list(clip_planes)
     total = clip_planes[0].shape[0]
     dev = clip_planes[0].device
@@ -249,8 +269,15 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
     cur = torch.arange(total, device=dev).repeat(radius)
     nxt = neighbour_index(total, radius, +1, dev)
     prv = neighbour_index(total, radius, -1, dev)
-    mvs_b = _analyse_jobs(sups, cur, nxt, aspec_b)
-    mvs_f = _analyse_jobs(sups, cur, prv, aspec_f)
+    # job (k-1)*T + t pairs frame t with t +- k: an odd k shifts by the
+    # source frame's field parity, in either direction
+    fs = [0] * (radius * total)
+    if fields_on:
+        fs = torch.cat([fields_mod.field_shift_frames(
+            torch.arange(total), k, sspec.pel, True, bool(acfg.tff))
+            for k in range(1, radius + 1)]).tolist()
+    mvs_b = _analyse_jobs(sups, cur, nxt, aspec_b, engine, fs)
+    mvs_f = _analyse_jobs(sups, cur, prv, aspec_f, engine, fs)
     t2 = mark()
     prev_ok, next_ok = edge_validity(total, radius, dev)
 
@@ -279,7 +306,7 @@ def degrain1_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
                   scfg: SuperConfig = SuperConfig(),
                   acfg: AnalyseConfig = AnalyseConfig(),
                   dcfg: DegrainConfig = DegrainConfig(),
-                  engine: str = "lockstep", mesh=None,
+                  engine: str = "exact", mesh=None,
                   info: Optional[dict] = None) -> List[torch.Tensor]:
     """Radius-1 clip denoise (degrain_clip with radius 1)."""
     return degrain_clip(clip_planes, fmt, scfg, acfg, dcfg, radius=1,

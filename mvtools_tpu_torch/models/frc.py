@@ -68,22 +68,19 @@ def flowfps_clip(clip_planes: Sequence, fmt: VideoFormat,
     (nleft, nleft + 1) at time256 (output_frame_mapping); time256 0 passes
     frame nleft through.
 
-    Only engine="lockstep" is ported.  `info`, if given, receives the
+    engine: "lockstep" (the default, as in the JAX package) or "exact"
+    (every pair its own sequential block scan).  With acfg.fields the clip
+    is taken as separated fields, and, as in the JAX package, no field
+    shift is applied.  `info`, if given, receives the
     batched fields under "fields_b" / "fields_f" (job i is the interval
     keys_b[i] / keys_f[i]: backward field of frame k against k + 1, forward
     field of frame k + 1 against k), the keys under "keys_b" / "keys_f", and
     on a CUDA device events around the stages under "events" ("super",
     "analyse", "synthesis": (start, end))."""
-    if engine != "lockstep":
-        raise NotImplementedError(
-            f"flowfps_clip: engine={engine!r} is not ported (lockstep is)")
-    if acfg.fields:
-        raise NotImplementedError(
-            "flowfps_clip: fields=True (interlaced input) is not ported")
     sspec = scfg.validate(fmt)
     aspec_b = dataclasses.replace(acfg, isb=True).validate(sspec)
     aspec_f = dataclasses.replace(acfg, isb=False).validate(sspec)
-    _check_ported(aspec_b, sspec, 0)     # before any work is done
+    _check_ported(aspec_b, sspec, engine)    # before any work is done
     if isinstance(clip_planes[0], np.ndarray):
         dev = require_device("cuda" if device is None else device)
         clip_planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
@@ -110,8 +107,8 @@ def flowfps_clip(clip_planes: Sequence, fmt: VideoFormat,
     if keys_b:
         kb = torch.tensor(keys_b, device=dev)
         kf = torch.tensor(keys_f, device=dev)
-        mvs_b = _analyse_jobs(sups, kb, kb + 1, aspec_b)
-        mvs_f = _analyse_jobs(sups, kf + 1, kf, aspec_f)
+        mvs_b = _analyse_jobs(sups, kb, kb + 1, aspec_b, engine)
+        mvs_f = _analyse_jobs(sups, kf + 1, kf, aspec_f, engine)
     t2 = mark()
     job_b = {k: i for i, k in enumerate(keys_b)}
     job_f = {k: i for i, k in enumerate(keys_f)}

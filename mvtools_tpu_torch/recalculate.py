@@ -14,10 +14,17 @@ the clipped predictor field (field_engine.MapProber), gated per block by
 `cost > thsad`.  Every tensor carries an explicit leading job axis [J, ...];
 supers and the old field may come without it (one frame pair).
 
-Ported: the lockstep engine, 8-bit, pel 1/2/4, the plain-SAD cost (dct 0),
-the DCT costs (dct 1-4) and the SATD costs (dct 5-10), every search type,
-smooth 0 and 1, divide 1/2, any old / new block grid.  engine="exact",
-clips of 9 to 16 bits, fields and field_shift raise NotImplementedError.
+engine="exact" keeps the reference's sequential candidate order in every
+search (the JAX package's per-block engine with lockstep=False): every
+block an item of exact_scan.search_blocks, K6's per-item entry point on
+CUDA tensors and exact_engine.search_items on CPU tensors.
+
+Ported: 8-bit, pel 1/2/4, every search type, smooth 0 and 1, divide 1/2,
+any old / new block grid; the lockstep engine with the plain-SAD cost (dct
+0), the DCT costs (dct 1-4) and the SATD costs (dct 5-10), the exact engine
+with dct 0.  fields and field_shift are taken and, as in the JAX package,
+never applied (its recalculate leaves field_shift unused).  The exact
+engine with dct 1-10 and clips of 9 to 16 bits raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from .analyse import (_blocks_of, _clip, _level_ctx, _trunc_div,
                       _unported_costs, divide_extra, rides_map)
 from .core.config import AnalyseConfig, AnalyseSpec
 from .core.types import AnalysisMeta, MVField, MVPlaneField, SearchType
+from .ops import exact_scan
 from .super import Super
 
 I32 = torch.int32
@@ -135,17 +143,14 @@ def _interpolate_old_vectors(old: MVPlaneField, old_meta: AnalysisMeta,
 
 
 def _check_ported(spec: AnalyseSpec, cfg: RecalculateConfig, sspec,
-                  field_shift, engine: str) -> None:
-    if engine == "exact":
-        raise NotImplementedError(
-            'Recalculate: engine="exact" (the sequential block scan) is not '
-            "ported")
-    if engine != "lockstep":
+                  engine: str) -> None:
+    if engine not in ("exact", "lockstep"):
         raise ValueError(f"recalculate: unknown engine {engine!r}")
     unported = _unported_costs(spec) + [
         (sspec.bits != 8, f"{sspec.bits}-bit clips"),
-        (spec.fields or cfg.fields, "fields=True"),
-        (field_shift != 0, "field_shift != 0"),
+        (engine == "exact" and spec.dct != 0,
+         f'engine="exact" with dct={spec.dct} (the exact engine takes the '
+         "plain SAD, dct 0)"),
     ]
     for bad, what in unported:
         if bad:
@@ -165,9 +170,11 @@ def recalculate(src_super: Super, ref_super: Super, old_mv: MVField,
     Supers and `old_mv` carry a leading job axis [J] or none (one frame
     pair); the result has what they have.  Each job comes out exactly as if
     it had been refined alone: the map anchors are per job and tile, the
-    refinement is gated per block.  Only engine="lockstep" is ported."""
+    refinement is gated per block.  engine="exact" keeps the reference's
+    candidate order in every search (dct 0).  field_shift is taken and not
+    applied, as in the JAX package."""
     sspec = src_super.spec
-    _check_ported(spec, cfg, sspec, field_shift, engine)
+    _check_ported(spec, cfg, sspec, engine)
     if not src_super.batched:
         one = recalculate(
             src_super.map(lambda a: a[None]), ref_super.map(lambda a: a[None]),
@@ -202,6 +209,11 @@ def recalculate(src_super: Super, ref_super: Super, old_mv: MVField,
                                              cfg.smooth, logp)
     px_a = px_a.reshape(nj, nblk)
     py_a = py_a.reshape(nj, nblk)
+    if engine == "exact":
+        x, y, sad = exact_scan.search_blocks(
+            ctx, spec.search, spec.n_search_param, px_a, py_a, lambda_level,
+            spec.pnew, thsad)
+        return _field_out(spec, meta, x, y, sad, nj, nby, nbx, dev)
 
     idx = torch.arange(nblk, dtype=I32, device=dev)
     blky_a = idx // nbx
@@ -258,9 +270,15 @@ def recalculate(src_super: Super, ref_super: Super, old_mv: MVField,
                         lam_a, (cpx, cpy), active=bad)
     st = (refined if field_path else
           {k: torch.where(bad, refined[k], st[k]) for k in st})
-    levels = [MVPlaneField(st["bx"].reshape(nj, nby, nbx),
-                           st["by"].reshape(nj, nby, nbx),
-                           st["bsad"].reshape(nj, nby, nbx))]
+    return _field_out(spec, meta, st["bx"], st["by"], st["bsad"], nj, nby,
+                      nbx, dev)
+
+
+def _field_out(spec: AnalyseSpec, meta, x, y, sad, nj: int, nby: int,
+               nbx: int, dev) -> MVField:
+    """The refined field (with the divided level first under divide)."""
+    levels = [MVPlaneField(x.reshape(nj, nby, nbx), y.reshape(nj, nby, nbx),
+                           sad.reshape(nj, nby, nbx))]
     if spec.divide:
         levels.insert(0, divide_extra(levels[0], spec.divide))
         meta = spec.divided_meta

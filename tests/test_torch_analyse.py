@@ -75,13 +75,18 @@ def _spec(**kw):
 
 
 def test_field_shift_and_exact_engine_raise():
-    sspec, aspec = _spec()
-    dummy = Super(((torch.zeros((1, 4, 8, 8), dtype=torch.uint8),),), sspec)
-    with pytest.raises(NotImplementedError, match="field_shift"):
+    # the field shift and the exact engine (dct 0) are ported: a field
+    # shift with a cost still refused names the cost, the exact engine
+    # with dct 1-10 names itself, both before any work is done
+    sspec, aspec = _spec(bits=16, dct=5)
+    dummy = Super(((torch.zeros((1, 4, 8, 8), dtype=torch.uint16),),), sspec)
+    with pytest.raises(NotImplementedError, match="16-bit"):
         analyse_batch(dummy, dummy, aspec, field_shift=1)
+    sspec, aspec = _spec(dct=1)
     one = Super(((torch.zeros((4, 8, 8), dtype=torch.uint8),),), sspec)
-    with pytest.raises(NotImplementedError, match="exact"):
+    with pytest.raises(NotImplementedError, match='engine="exact" with dct=1'):
         analyse(one, one, aspec, engine="exact")
+    dummy = Super(((torch.zeros((1, 4, 8, 8), dtype=torch.uint8),),), sspec)
     # chroma in the search needs a super clip that carries chroma planes
     _, aspec_c = _spec(family=ColorFamily.YUV420, schroma=True, chroma=True)
     with pytest.raises(ValueError, match="chroma"):

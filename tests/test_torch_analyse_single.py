@@ -52,7 +52,7 @@ def test_analyse_is_the_single_job_case(ref, port_fields, job):
     sups = build_super([torch.from_numpy(ref["frames"])], sspec)
     src, rf = tpr.job_indices()
     mv = analyse(sups.map(lambda a: a[src[job]]),
-                 sups.map(lambda a: a[rf[job]]), aspec)
+                 sups.map(lambda a: a[rf[job]]), aspec, engine="lockstep")
     for lv in range(tpr.LEVELS):
         for key in ("x", "y", "sad"):
             got = getattr(mv.levels[lv], key)

@@ -152,7 +152,7 @@ def clip_run(ref):
     info = {}
     out = degrain_clip(_clip(ref), FMT, scfg, acfg,
                        DegrainConfig(**tpr.DEEP_DEGRAIN), tpr.DEEP_RADIUS,
-                       info=info)
+                       info=info, engine="lockstep")
     return out, info
 
 

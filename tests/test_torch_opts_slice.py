@@ -54,5 +54,6 @@ def test_opts_analyse_batch(ref, run):
 def test_opts_analyse_single_pair(ref, run):
     sups = run["sups"]
     one = port.analyse(sups.map(lambda a: a[run["src"][1]]),
-                       sups.map(lambda a: a[run["rf"][1]]), run["aspec"])
+                       sups.map(lambda a: a[run["rf"][1]]), run["aspec"],
+                       engine="lockstep")
     assert_field(one, ref, "mv_", job=1)

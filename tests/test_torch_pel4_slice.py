@@ -78,7 +78,7 @@ def test_pel4_analyse_single_pair(ref, run):
     for j in (0, 3):
         one = port.analyse(run["sups"].map(lambda a: a[SRC[j]]),
                            run["sups"].map(lambda a: a[REF[j]]),
-                           run["aspec"])
+                           run["aspec"], engine="lockstep")
         assert one.levels[0].x.ndim == 2
         assert_field(one, ref, "mv_", job=j)
 

@@ -40,21 +40,22 @@ def test_recalculate_config_matches_jax():
 
 
 # (keywords, what the error must name, the case's id word).  pel 4 (with
-# dct 1-4 at 8 bits), divide and every search are ported
-# (test_torch_pel4_slice.py, test_torch_opts_slice.py): their cases keep
-# their ids and combine the option with one that is still refused (16-bit
-# clips, fields, a field shift, the exact engine), which must name itself.
+# dct 1-4 at 8 bits), divide, every search, fields, the field shift and the
+# exact engine with dct 0 are ported (test_torch_pel4_slice.py,
+# test_torch_opts_slice.py, test_torch_exact_*.py): their cases keep their
+# ids and combine the option with one that is still refused (16-bit clips,
+# the exact engine with dct 1-10), which must name itself.
 UNPORTED_OPTIONS_RAISE_CASES = [
     (dict(dct=1, pel=4, bits=16), "dct=1", "dct=1"),
     (dict(dct=4, pel=4, bits=16), "dct=4", "dct=4"),
-    (dict(divide=1, fields=True), "fields", "divide"),
-    (dict(fields=True), "fields", "fields"),
-    (dict(search=SearchType.UMH, field_shift=1), "field_shift",
+    (dict(divide=1, fields=True, bits=16), "16-bit", "divide"),
+    (dict(fields=True, bits=16), "16-bit", "fields"),
+    (dict(search=SearchType.UMH, field_shift=1, bits=16), "16-bit",
      "search=UMH"),
-    (dict(search=SearchType.NSTEP, engine="exact"), "exact",
-     "search=NSTEP"),
-    (dict(field_shift=1), "field_shift", "field_shift"),
-    (dict(engine="exact"), "exact", "exact"),
+    (dict(search=SearchType.NSTEP, engine="exact", dct=5),
+     'engine="exact" with dct=5', "search=NSTEP"),
+    (dict(field_shift=1, bits=16), "16-bit", "field_shift"),
+    (dict(engine="exact", dct=1), 'engine="exact" with dct=1', "exact"),
 ]
 UNPORTED_OPTIONS_RAISE_IDS = [
     f"kw{i}-{word}"

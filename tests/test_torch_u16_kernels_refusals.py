@@ -55,7 +55,7 @@ def test_deep_bits_refusals(case):
     with pytest.raises(NotImplementedError, match=match):
         degrain_clip(clip, VideoFormat(64, 48, 16, ColorFamily.YUV420),
                      scfg, AnalyseConfig(blksize=16, dct=dct, chroma=True),
-                     dcfg, 1)
+                     dcfg, 1, engine="lockstep")
 
 
 

@@ -20,21 +20,24 @@ from mvtools_tpu_torch.models.denoise import degrain_clip
 from test_torch_yuv_slice import _tiny_clip  # noqa: E402
 
 
-# pel 4 (with dct 1-4 at 8 bits) and trymany are ported: the cases "pel4",
-# "dct" and "trymany" keep their ids and combine the option with one that
-# is still refused (sharp 0, a cost at 16 bits, fields), which must name
-# itself.
+# pel 4 (with dct 1-4 at 8 bits), trymany, fields and the exact engine
+# with dct 0 are ported: the cases "exact", "fields", "pel4", "dct" and
+# "trymany" keep their ids and combine the option with one that is still
+# refused (the exact engine with dct 1-10, sharp 0, a cost at 16 bits),
+# which must name itself.
 DEGRAIN_CLIP_REFUSALS_CASES = [
-    (dict(engine="exact"), "exact"),
+    (dict(engine="exact", acfg=AnalyseConfig(dct=1)),
+     'engine="exact" with dct=1'),
     (dict(mesh=object()), "mesh"),
     (dict(spatial="space"), "mesh"),
-    (dict(acfg=AnalyseConfig(fields=True, tff=True)), "fields"),
+    (dict(bits=16, acfg=AnalyseConfig(fields=True, tff=True, dct=5)),
+     "16-bit"),
     (dict(scfg=SuperConfig(pel=4, sharp=0)), "sharp=0 at pel 4"),
     (dict(bits=16, acfg=AnalyseConfig(dct=5)), "16-bit"),
     (dict(bits=16, acfg=AnalyseConfig(dct=1), scfg=SuperConfig(pel=4)),
      "dct=1 with 16-bit"),
-    (dict(acfg=AnalyseConfig(trymany=True, fields=True, tff=True)),
-     "fields"),
+    (dict(bits=16, acfg=AnalyseConfig(trymany=True, fields=True, tff=True,
+                                      dct=6)), "dct=6 with 16-bit"),
 ]
 DEGRAIN_CLIP_REFUSALS_IDS = ["exact", "mesh", "spatial", "fields", "pel4",
                              "16bit", "dct", "trymany"]

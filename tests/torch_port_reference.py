@@ -957,6 +957,246 @@ def load_opts(tmp_path_factory) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The exact sequential engine and interlaced input (64x48 clips)
+
+EX_W, EX_H = 64, 48
+EX_FLASH = (8, 16, 24, 32)         # y, x, h, w of the gray flashing region
+EX_YUV_FLASH = (8, 8, 32, 48)
+EX_JOBS_B = ((1, 2), (2, 3))       # backward pairs (source, reference)
+EX_JOBS_F = ((1, 0), (2, 1))       # forward pairs
+# gray_b's jobs: two backward pairs, then two forward pairs (searched with
+# the backward spec: the JAX package's search and Degrain never read the
+# direction flag, so one compile serves both)
+EX_JOBS_G = EX_JOBS_B + EX_JOBS_F
+EX_FS = (1, -1)                    # the field shifts (+-pel/2 at pel 2)
+EX_FS_JOBS = (1, -1, -1, 1)        # gray_b's jobs with a field shift
+# name: (clip, SuperConfig keywords, AnalyseConfig keywords, isb, jobs);
+# every analysis runs the JAX package's analyse with its default engine,
+# "exact", with chroma=False unless the keywords say otherwise.  The JAX
+# compile of a level's scan costs ~4-5 s on the CPU, so options share
+# configurations: gray_b backward, yuv forward (isb both ways); deep is 16
+# bits at pel 1 with EXHAUSTIVE; opts pel 4 with trymany (levels > 0), the
+# ring rescue and divide 2
+EX_ANALYSES = {
+    "gray_b": ("gray", dict(pel=2, levels=3),
+               dict(blksize=8, levels=3, truemotion=True), True, EX_JOBS_G),
+    "yuv": ("yuv", dict(pel=2, levels=2, chroma=True),
+            dict(blksize=8, overlap=4, levels=2, truemotion=True, chroma=True,
+                 global_=True, meander=True), False, EX_JOBS_F),
+    "deep": ("gray16", dict(pel=1, levels=1),
+             dict(blksize=8, levels=1, search=3, searchparam=2, pelsearch=2),
+             True, EX_JOBS_B),
+    "opts": ("gray", dict(pel=4, levels=2),
+             dict(blksize=8, levels=2, trymany=True, badrange=-6, divide=2,
+                  truemotion=True), True, EX_JOBS_B),
+}
+# the other search types, one level each (LOGARITHMIC's diamond, whose
+# JAX compile alone takes ~17 s, is held in Recalculate's exact engine,
+# which runs the same SearchEngine(lockstep=False).diamond)
+for _st in (0, 1, 5, 6, 7):
+    EX_ANALYSES[f"search{_st}"] = (
+        "gray", dict(pel=2, levels=1),
+        dict(blksize=8, levels=1, search=_st, searchparam=3, pelsearch=3,
+             truemotion=True), True, EX_JOBS_B)
+# Recalculate's exact engine on gray_b's field: name -> config keywords
+# (the diamond search, and HEX2, Recalculate's default)
+EX_RECALC = {
+    "log": dict(blksize=8, overlap=4, thsad=100, chroma=False, search=2,
+                searchparam=2),
+    "hex2": dict(blksize=8, overlap=4, thsad=100, chroma=False, search=4,
+                 searchparam=2),
+}
+EX_DEGRAIN = dict(thsad=400)
+EX_RADIUS = 2
+EX_FIELDS_ACFG = dict(blksize=8, levels=1, truemotion=True, fields=True,
+                      tff=True)
+
+
+def make_exact_gray(bits=8, frames=5):
+    """[frames, 48, 64] panned uniform noise with a flashing region (dark,
+    saturated every third frame from frame 1); at 16 bits each sample v
+    as (v << 8) | r, r a fresh seeded byte."""
+    rng = np.random.default_rng(51)
+    base = rng.integers(0, 256, (EX_H + 32, EX_W + 32), np.uint8)
+    y, x, fh, fw = EX_FLASH
+    out = np.empty((frames, EX_H, EX_W), np.uint8)
+    for i in range(frames):
+        dy, dx = (i * 2) % 16, (i * 3) % 16
+        out[i] = base[dy:dy + EX_H, dx:dx + EX_W]
+        out[i, y:y + fh, x:x + fw] = (255 if i % 3 == 1
+                                      else out[i, y:y + fh, x:x + fw] >> 2)
+    if bits > 8:
+        low = np.random.default_rng(52).integers(0, 256, out.shape, np.uint16)
+        out = (out.astype(np.uint16) << 8) | low
+    return out
+
+
+def make_exact_yuv(frames=4):
+    """[Y, U, V] planes of a 64x48 YUV420 clip: noise panned one pixel a
+    frame, fresh noise of +-4, a flashing region (dark, bright every third
+    frame from frame 1)."""
+    rng = np.random.default_rng(53)
+    out = []
+    for sub in (0, 1, 1):
+        pw, ph = EX_W >> sub, EX_H >> sub
+        base = rng.integers(0, 256, (ph + 32, pw + 32), np.uint8)
+        o = np.empty((frames, ph, pw), np.uint8)
+        for i in range(frames):
+            d = i >> sub
+            o[i] = base[d:d + ph, d:d + pw]
+            y, x, fh, fw = (v >> sub for v in EX_YUV_FLASH)
+            o[i, y:y + fh, x:x + fw] = (o[i, y:y + fh, x:x + fw] >> 2) + (
+                192 if i % 3 == 1 else 0)
+            o[i] = np.clip(o[i].astype(np.int64)
+                           + rng.integers(-4, 5, (ph, pw)), 0, 255)
+        out.append(o)
+    return out
+
+
+def exact_planes(clip):
+    """The numpy planes ([T, h, w] each) of an EX_ANALYSES clip."""
+    if clip == "yuv":
+        return make_exact_yuv()
+    return [make_exact_gray(16 if clip == "gray16" else 8)]
+
+
+def exact_specs(config, types, name):
+    """(SuperSpec, AnalyseSpec) of EX_ANALYSES[name] in either package."""
+    clip, skw, akw, isb, _ = EX_ANALYSES[name]
+    family = "YUV420" if clip == "yuv" else "GRAY"
+    fmt = types.VideoFormat(EX_W, EX_H, 16 if clip == "gray16" else 8,
+                            getattr(types.ColorFamily, family))
+    sspec = config.SuperConfig(**dict(dict(chroma=False), **skw)).validate(
+        fmt)
+    akw = dict(dict(chroma=False), **akw)
+    for k in ("search", "search_coarse"):
+        if k in akw:
+            akw[k] = types.SearchType(akw[k])
+    aspec = dataclasses.replace(config.AnalyseConfig(**akw),
+                                isb=isb).validate(sspec)
+    return sspec, aspec
+
+
+def exact_model_specs(config, types, family, acfg_kw):
+    """(VideoFormat, SuperConfig, AnalyseConfig) of the 64x48 model runs."""
+    fmt = types.VideoFormat(EX_W, EX_H, 8, getattr(types.ColorFamily, family))
+    chroma = family != "GRAY"
+    scfg = config.SuperConfig(pel=2, levels=acfg_kw.get("levels", 0),
+                              chroma=chroma)
+    return fmt, scfg, config.AnalyseConfig(**dict(dict(chroma=chroma),
+                                                  **acfg_kw))
+
+
+EX_DC_ACFG = dict(blksize=8, overlap=4, levels=1, truemotion=True)
+
+
+def _compute_exact() -> dict:
+    """The JAX side of tests/test_torch_exact_*.py and
+    test_torch_fields_*.py: EX_ANALYSES (analyse, default engine, vmapped
+    over the jobs; gray_b also with the field shifts EX_FS), Recalculate's
+    exact engine (EX_RECALC) on gray_b's field, Degrain1 of two frames on
+    the exact fields, degrain_clip with its defaults on the YUV clip
+    (radius 2), degrain_clip with fields=True on the lockstep engine (radius
+    2: shifted and unshifted pairs, a shift per job in its analyse_batch
+    calls) and on the exact engine, flowfps_clip with fields=True on the exact engine, and
+    Compensate with a field shift."""
+    import jax
+    import jax.numpy as jnp
+    import mvtools_tpu as mvt
+    from fractions import Fraction
+    from mvtools_tpu import compensate as jcomp
+    from mvtools_tpu import recalculate as jax_recalc
+    from mvtools_tpu.core import config, types
+    from mvtools_tpu.degrain import DegrainConfig, degrain
+    from mvtools_tpu.flowfps import FlowFPSConfig
+    from mvtools_tpu.models.denoise import degrain_clip
+    from mvtools_tpu.models.frc import flowfps_clip
+    import torch_flow_cases as tfc
+
+    out = {}
+    supers = {}
+    for name, (clip, _, _, _, jobs) in EX_ANALYSES.items():
+        sspec, aspec = exact_specs(config, types, name)
+        planes = exact_planes(clip)
+        key = (clip, sspec)
+        if key not in supers:
+            supers[key] = _jax_supers(
+                sspec, [[p[i] for p in planes]
+                        for i in range(planes[0].shape[0])])
+        sups = supers[key]
+        ss = _stack_supers(sups, [a for a, _ in jobs])
+        rs = _stack_supers(sups, [b for _, b in jobs])
+        run = jax.jit(jax.vmap(lambda s, r, fs, a=aspec: mvt.analyse(
+            s, r, a, fs)))
+        mv = run(ss, rs, jnp.zeros((len(jobs),), jnp.int32))
+        _field_arrays(out, f"{name}_", mv)
+        if name != "gray_b":
+            continue
+        _field_arrays(out, "gray_b_fs_",
+                      run(ss, rs, jnp.asarray(EX_FS_JOBS, jnp.int32)))
+        for rname, kw in EX_RECALC.items():
+            rcfg = jax_recalc.RecalculateConfig(**recalc_kw(types, kw))
+            rspec = rcfg.to_analyse_config().validate(sspec)
+            got = jax.jit(jax.vmap(
+                lambda s, r, f, c=rcfg, sp=rspec: jax_recalc.recalculate(
+                    s, r, f, sp, c, engine="exact")))(ss, rs, mv)
+            _field_arrays(out, f"rc_{rname}_", got)
+        # Degrain1 of frames 1 and 2 from their backward and forward
+        # fields (jobs i and i + 2): degrain1_frame with engine="exact"
+        gray = planes[0]
+        for i, c in enumerate((1, 2)):
+            job = [jax.tree_util.tree_map(lambda a, j=j: a[j], mv)
+                   for j in (i, i + 2)]
+            out[f"dg1_{c}"] = np.asarray(degrain(
+                [jnp.asarray(gray[c])], [sups[c + 1], sups[c - 1]], job,
+                aspec.meta, DegrainConfig(**EX_DEGRAIN))[0])
+    # degrain_clip with its defaults (engine "exact"), YUV420, radius 2
+    fmt, scfg, acfg = exact_model_specs(config, types, "YUV420", EX_DC_ACFG)
+    got = degrain_clip([jnp.asarray(p) for p in make_exact_yuv()], fmt,
+                       scfg, acfg, DegrainConfig(**EX_DEGRAIN), EX_RADIUS)
+    for i, p in enumerate(got):
+        out[f"dc_{i}"] = np.asarray(p)
+    # interlaced input: degrain_clip with fields=True, lockstep engine
+    fmt, scfg, acfg = exact_model_specs(config, types, "GRAY",
+                                        EX_FIELDS_ACFG)
+    got = degrain_clip([jnp.asarray(make_exact_gray(frames=4))], fmt, scfg,
+                       acfg, DegrainConfig(**EX_DEGRAIN), EX_RADIUS,
+                       engine="lockstep")
+    out["fdc_lockstep"] = np.asarray(got[0])
+    # the same on the exact engine (every pair its own analysis and shift)
+    got = degrain_clip([jnp.asarray(make_exact_gray(frames=4))], fmt, scfg,
+                       acfg, DegrainConfig(**EX_DEGRAIN), EX_RADIUS,
+                       engine="exact")
+    out["fdc_exact"] = np.asarray(got[0])
+    # flowfps_clip with fields=True (no shift applied), exact engine
+    fmt, scfg, acfg = exact_model_specs(config, types, "GRAY",
+                                        EX_FIELDS_ACFG)
+    got = flowfps_clip([make_exact_gray()], fmt, Fraction(30), Fraction(60),
+                       scfg, acfg, FlowFPSConfig(maskmode=2),
+                       engine="exact")
+    out["fps"] = np.stack([np.asarray(f[0]) for f in got])
+    # Compensate with a field shift, on torch_flow_cases' inputs (Flow
+    # with a shift: tests/test_torch_flow_consumers.py)
+    s = tfc.setup(tfc.CONFIGS[0])
+    meta, _ = tfc.meta_pair(s["aspec"], True)
+    arrays = tfc.field_arrays(np.random.default_rng(54), meta, spread=4)
+    jf = tfc.fields(arrays, meta, None)[0]
+    for k, a in zip(("x", "y", "sad"), arrays):
+        out[f"shift_field_{k}"] = a
+    for shift in EX_FS:
+        got = jcomp.compensate(s["jsups"][0], s["jsups"][1], jf, meta,
+                               jcomp.CompensateConfig(), field_shift=shift)
+        out[f"comp_{shift}"] = np.stack([np.asarray(p) for p in got])
+    return out
+
+
+def load_exact(tmp_path_factory) -> dict:
+    """The exact engine's and interlaced input's reference arrays, computed
+    at most once per test run."""
+    return _load(tmp_path_factory, "torch_port_reference_exact")
+
+
+# ---------------------------------------------------------------------------
 # Computing the references ahead of the tests that need them
 
 COMPUTE = {
@@ -969,6 +1209,7 @@ COMPUTE = {
     "torch_port_reference_deep": _compute_deep,
     "torch_port_reference_pel4": _compute_pel4,
     "torch_port_reference_opts": _compute_opts,
+    "torch_port_reference_exact": _compute_exact,
 }
 # the background processes, the references each computes: all of them, a
 # process each, started as the run begins (test_torch_satd.py, which
@@ -1268,7 +1509,8 @@ def yuv_clip_run(ref):
     try:
         out = denoise.degrain_clip(
             yuv_clip(ref), VideoFormat(YUV_W, YUV_H, 8, ColorFamily.YUV420),
-            scfg, acfg, dcfg, radius=YUV_RADIUS, info=info)
+            scfg, acfg, dcfg, radius=YUV_RADIUS, info=info,
+            engine="lockstep")
     finally:
         denoise._MAX_JOBS = whole
     return out, info
