@@ -108,6 +108,7 @@ the same opcodes.
 """
 
 import dataclasses
+import hashlib
 import inspect
 import json
 import os
@@ -1128,6 +1129,7 @@ def reset_counts():
     if exact_scan:
         exact_scan.rescued_blocks = 0
         exact_scan.candidates = 0
+        exact_scan.serial_steps = 0
     fe.host_syncs = 0
     fe.rescued_blocks = 0
 
@@ -2889,9 +2891,11 @@ def exact_case(label, ctx, plan, vin, gx, gy, zs, reps=1, plain_dev=None):
     the card, or on `plain_dev` (the same inputs copied there)."""
     torch.cuda.synchronize()
     before = exact_scan.candidates
+    steps_before = getattr(exact_scan, "serial_steps", 0)
     got = exact_scan._launch_scan(ctx, plan, vin, gx, gy, zs)
     torch.cuda.synchronize()
     n_cand = int(exact_scan.candidates - before)
+    n_steps = int(getattr(exact_scan, "serial_steps", 0) - steps_before)
     ms = time_cuda(lambda: exact_scan._launch_scan(ctx, plan, vin, gx, gy,
                                                    zs), reps)
     pargs = (ctx, plan, vin, gx, gy, zs)
@@ -2922,7 +2926,7 @@ def exact_case(label, ctx, plan, vin, gx, gy, zs, reps=1, plain_dev=None):
                        n_cand * 2 * ctx.blk_size[0] * ctx.blk_size[1])
     nbx, nby = ctx.nblk
     return {"case": label, "jobs": vin[0].shape[0], "blocks": nbx * nby,
-            "level": ctx.level, "candidates": n_cand,
+            "level": ctx.level, "candidates": n_cand, "serial_steps": n_steps,
             "rescued": int(got[1].sum()), "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
@@ -3026,11 +3030,44 @@ def exact_option_runs(bits, w=SMALL_W, h=SMALL_H):
     return runs
 
 
+def exact_tie_runs(w, h):
+    """(name, planes (CPU), SuperSpec, AnalyseSpec, src, ref, field shift)
+    of the tie cases at w x h: flat frames (every SAD the same) and
+    checkerboards of opposite phase (every odd full-pel candidate costs 0),
+    truemotion off (the cost is the SAD alone), every search type at pel
+    2, and trymany with the rescue on every block (badsad 0): where the
+    steps' lowest costs tie, the fold must keep the first candidate."""
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    clips = {"flat": torch.stack([torch.full((h, w), v, dtype=torch.uint8)
+                                  for v in (100, 100, 130, 100)]),
+             "checkerboard": torch.stack([
+                 (100 + 50 * ((xx + yy + t) % 2)).to(torch.uint8)
+                 for t in range(4)])}
+    fmt = VideoFormat(w, h, 8, ColorFamily.GRAY)
+    sspec = SuperConfig(pel=2, levels=2, chroma=False).validate(fmt)
+    src, ref = torch.tensor([1, 1]), torch.tensor([2, 0])
+    runs = []
+    for cname, clip in clips.items():
+        for st in SearchType:
+            aspec = dataclasses.replace(AnalyseConfig(
+                blksize=16, levels=2, search=st, searchparam=2,
+                truemotion=False, chroma=False), isb=True).validate(sspec)
+            runs.append((f"ties {cname} {st.name}", [clip], sspec, aspec,
+                         src, ref, 0))
+        aspec = dataclasses.replace(AnalyseConfig(
+            blksize=16, levels=2, trymany=True, badsad=0, truemotion=False,
+            chroma=False), isb=True).validate(sspec)
+        runs.append((f"ties {cname} trymany badsad 0", [clip], sspec, aspec,
+                     src, ref, 0))
+    return runs
+
+
 def exact_vs_plain(dev):
     """K6 against its plain version, torch.equal: every option of the exact
     engine level by level (at 128x96, 8-bit; four of them also at 16
     bits; the three-level gray search also at 256x192), the plain version
-    on CPU copies of the inputs, one thread;
+    on CPU copies of the inputs, one thread; the tie cases
+    (exact_tie_runs) at 128x96;
     the main path's level shapes (bench.py config 4 at 1080p) on strips of
     STRIP_ROWS block rows at every level, where the whole level's scan
     left the most blocks over badsad (the rescue runs in the level-0
@@ -3050,6 +3087,7 @@ def exact_vs_plain(dev):
         DEEP_BITS, SMALL_W // 2, SMALL_H // 2)
         if r[0].startswith(("gray hex2", "yuv420", "pel 4", "field"))]
     runs.append((8, exact_option_runs(8)[0]))
+    runs += [(8, r) for r in exact_tie_runs(SMALL_W // 2, SMALL_H // 2)]
     for bits, (name, planes, sspec, aspec, src, ref, fs) in runs:
         sups = build_super([p.to(dev) for p in planes], sspec)
         levels = capture_levels(lambda: analyse_exact_jobs(
@@ -3156,6 +3194,8 @@ def exact_vs_plain(dev):
              **item_cases}
     emit({"phase": "exact_vs_plain", "bit_equal": True,
           "option_cases": len(option_cases),
+          "tie_cases": sum(c["case"].startswith("ties ")
+                           for c in option_cases),
           "option_case_max_ms": max(c["ms"] for c in option_cases),
           "strips": strips, "full_levels_ms": full,
           "recalculate_items": item_cases,
@@ -3374,20 +3414,30 @@ def small_end_to_end_fields(dev):
 
 
 def k6_device_ms(fn, name):
-    """(device ms of K6's form `name` in one traced run of fn(), the run's
-    output): torch.profiler; None where the trace shows no device time."""
+    """((device ms of K6's form `name`, its launches, the device ms of
+    every kernel, every kernel's launches) in one traced run of fn(), the
+    run's output): torch.profiler; None where the trace shows no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and re.search(EXACT_KERNEL_NAMES[name], e.key)]
-    us = sum(e.self_device_time_total for e in rows)
-    return (us / 1e3 if us > 0 else None,
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    k6 = [e for e in rows if re.search(EXACT_KERNEL_NAMES[name], e.key)]
+    us = sum(e.self_device_time_total for e in k6)
+    busy = sum(e.self_device_time_total for e in rows)
+    return (us / 1e3 if us > 0 else None, sum(e.count for e in k6),
+            busy / 1e3 if busy > 0 else None,
             sum(e.count for e in rows)), out
+
+
+def merged_directions():
+    """Whether the package driven hands both directions' jobs to one
+    exact-engine call (a tree given by --package-root may predate it)."""
+    from mvtools_tpu_torch.models import denoise
+    return hasattr(denoise, "_analyse_both")
 
 
 def run_exact_clip(phase, clip, cfgs, bits, radius):
@@ -3400,7 +3450,7 @@ def run_exact_clip(phase, clip, cfgs, bits, radius):
     scfg, acfg, dcfg, _ = cfgs
     fmt = VideoFormat(W, H, bits, ColorFamily.YUV420)
     name = "exact_scan" + ("[u16]" if bits > 8 else "")
-    (k6_ms, k6_launches), _ = k6_device_ms(
+    (k6_ms, k6_launches, busy_ms, device_launches), _ = k6_device_ms(
         lambda: degrain_clip(clip, fmt, scfg, acfg, dcfg, radius), name)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3414,7 +3464,11 @@ def run_exact_clip(phase, clip, cfgs, bits, radius):
     plain_on_cuda = plain_calls_on_cuda()
     rescued = int(exact_scan.rescued_blocks)
     candidates = int(exact_scan.candidates)
+    steps = int(exact_scan.serial_steps)
     peak = torch.cuda.max_memory_allocated()
+    digest = hashlib.sha1()
+    for got in out:
+        digest.update(got.cpu().numpy().tobytes())
     changed = []
     for got, src in zip(out, clip):
         if got.shape != src.shape or got.dtype != src.dtype:
@@ -3432,6 +3486,13 @@ def run_exact_clip(phase, clip, cfgs, bits, radius):
                              "calls on CUDA tensors")
     if counts[name] < 1:
         raise AssertionError(f"{phase}: K6 never launched {counts}")
+    levels = len(info["fields_b"].levels)
+    # both directions' jobs in one call: one launch a level (a package
+    # given by --package-root may predate that: one a level a direction)
+    per_level = 1 if merged_directions() else 2
+    if counts[name] != per_level * levels:
+        raise AssertionError(f"{phase}: {counts[name]} K6 launches for "
+                             f"{levels} levels")
     lockstep = {k: counts[k] for k in counts
                 if k.startswith(("sad_map", "probe_sads")) and counts[k]}
     if lockstep:
@@ -3442,12 +3503,17 @@ def run_exact_clip(phase, clip, cfgs, bits, radius):
     frames = clip[0].shape[0]
     res = {"phase": phase, "size": [W, H], "format": "YUV420", "bits": bits,
            "engine": "exact", "frames": frames, "radius": radius,
-           "levels": len(info["fields_b"].levels), "planes_changed": changed,
+           "levels": levels, "planes_changed": changed,
+           "output_sha1": digest.hexdigest(),
            "analyse_jobs": 2 * radius * frames,
            "frames_per_s": frames / seconds, "seconds": seconds,
            "stage_ms": stage_ms(info), "k6_device_ms": k6_ms,
-           "k6_launches_traced": k6_launches, "rescued_blocks": rescued,
-           "candidates": candidates, "launches": counts,
+           "k6_launches_traced": k6_launches,
+           "device_busy_ms_traced": busy_ms,
+           "device_launches_traced": device_launches,
+           "rescued_blocks": rescued,
+           "candidates": candidates, "serial_steps": steps,
+           "k6_launches": counts[name], "launches": counts,
            "peak_memory_bytes": peak, "plain_calls_on_cuda": plain_on_cuda}
     emit(res)
     return res

@@ -898,7 +898,7 @@ def analyse_exact_jobs(src_supers: Super, ref_supers: Super,
     Supers with a leading job axis [J] -> MVField with [J]-leading tensors,
     each job exactly the JAX package's analyse(engine="exact") of that
     pair.  Every level is one scan of all jobs (exact_scan.scan_level: K6
-    on CUDA tensors, one warp per job).  field_shift: an int for every job
+    on CUDA tensors, a CTA per job).  field_shift: an int for every job
     or one per job, applied at the finest level."""
     _check_ported(spec, src_supers.spec, "exact")
     m = spec.meta

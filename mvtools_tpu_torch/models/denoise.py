@@ -133,8 +133,9 @@ def degrain_n_frame(cur_planes, prev_list, next_list, sspec: SuperSpec,
     edges).  field_shift_b[i] / field_shift_f[i]: optional per-pair
     vertical field shift in pel units for interlaced input
     (MVAnalyse.c:174-178).  Every frame's super is built once; the backward
-    and the forward analyses are one batched call each (a job comes out as
-    if searched alone), on the lockstep or the exact engine."""
+    and the forward analyses are one batched call each on the lockstep
+    engine, one call for both on the exact engine (_analyse_both; a job
+    comes out as if searched alone)."""
     _check_ported(aspec_b, sspec, engine)
     radius = len(prev_list)
     frames = [list(cur_planes)] + [list(p) for p in next_list] \
@@ -144,12 +145,11 @@ def degrain_n_frame(cur_planes, prev_list, next_list, sspec: SuperSpec,
     dev = cur_planes[0].device
     cur = torch.zeros(radius, dtype=torch.long, device=dev)
     nxt = torch.arange(1, radius + 1, device=dev)
-    mv_b = _analyse_jobs(sups, cur, nxt, aspec_b, engine,
-                         [0] * radius if field_shift_b is None
-                         else [int(v) for v in field_shift_b])
-    mv_f = _analyse_jobs(sups, cur, nxt + radius, aspec_f, engine,
-                         [0] * radius if field_shift_f is None
-                         else [int(v) for v in field_shift_f])
+    mv_b, mv_f = _analyse_both(
+        sups, (cur, nxt, aspec_b, [0] * radius if field_shift_b is None
+               else [int(v) for v in field_shift_b]),
+        (cur, nxt + radius, aspec_f, [0] * radius if field_shift_f is None
+         else [int(v) for v in field_shift_f]), engine)
 
     sups_r, mvs, valid = [], [], []
     for i in range(radius):
@@ -211,6 +211,42 @@ def _analyse_jobs(sups, src_t, ref_t, aspec, engine: str = "lockstep",
         torch.cat([p.validity for p in parts]), parts[0].meta)
 
 
+def _field_meta(spec: AnalyseSpec):
+    """The meta of the field Analyse gives under `spec`."""
+    return spec.divided_meta if spec.divide else spec.meta
+
+
+def _analyse_both(sups, jobs_b, jobs_f, engine: str):
+    """(backward field, forward field) of the jobs of either direction,
+    each given as (src_t, ref_t, AnalyseSpec, field shift: an int or one
+    per job).  On the exact engine, where the two specs differ in the
+    direction only (AnalyseConfig.isb, which sets nothing but the meta's
+    is_backward and its motion flag), both directions' jobs are one
+    analyse_exact_jobs call (in chunks of _MAX_JOBS; on the card one K6
+    launch a level) and each field gets its own spec's meta; otherwise one
+    call a direction."""
+    (src_b, ref_b, spec_b, fs_b), (src_f, ref_f, spec_f, fs_f) = jobs_b, jobs_f
+    meta_b, meta_f = spec_b.meta, spec_f.meta
+    same = (dataclasses.replace(spec_f, meta=meta_b) == spec_b
+            and dataclasses.replace(
+                meta_f, is_backward=meta_b.is_backward,
+                motion_flags=meta_b.motion_flags) == meta_b)
+    if engine != "exact" or not same:
+        return (_analyse_jobs(sups, src_b, ref_b, spec_b, engine, fs_b),
+                _analyse_jobs(sups, src_f, ref_f, spec_f, engine, fs_f))
+    nb, nf = src_b.shape[0], src_f.shape[0]
+    fs = [fs_b] * nb if isinstance(fs_b, int) else list(fs_b)
+    fs += [fs_f] * nf if isinstance(fs_f, int) else list(fs_f)
+    both = _analyse_jobs(sups, torch.cat([src_b, src_f]),
+                         torch.cat([ref_b, ref_f]), spec_b, engine, fs)
+
+    def part(sl, spec):
+        return MVField(tuple(MVPlaneField(l.x[sl], l.y[sl], l.sad[sl])
+                             for l in both.levels), both.validity[sl],
+                       _field_meta(spec))
+    return part(slice(0, nb), spec_b), part(slice(nb, nb + nf), spec_f)
+
+
 def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
                  scfg: SuperConfig = SuperConfig(),
                  acfg: AnalyseConfig = AnalyseConfig(),
@@ -225,7 +261,8 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
 
     Each frame's super is built once; the (frame, delta) pairs of one
     direction are one analyse_batch call (job (k-1)*T + t pairs frame t
-    with frame t +- k); degrain runs batched over the frames with its
+    with frame t +- k), and on the exact engine both directions' pairs one
+    analyse_exact_jobs call; degrain runs batched over the frames with its
     references in Backward1, Forward1, Backward2, ... order.  Frames near
     the clip edges mark the missing neighbours invalid instead of wrapping.
 
@@ -276,8 +313,8 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
         fs = torch.cat([fields_mod.field_shift_frames(
             torch.arange(total), k, sspec.pel, True, bool(acfg.tff))
             for k in range(1, radius + 1)]).tolist()
-    mvs_b = _analyse_jobs(sups, cur, nxt, aspec_b, engine, fs)
-    mvs_f = _analyse_jobs(sups, cur, prv, aspec_f, engine, fs)
+    mvs_b, mvs_f = _analyse_both(sups, (cur, nxt, aspec_b, fs),
+                                 (cur, prv, aspec_f, fs), engine)
     t2 = mark()
     prev_ok, next_ok = edge_validity(total, radius, dev)
 

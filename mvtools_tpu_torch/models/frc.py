@@ -4,7 +4,8 @@ The reference's QTGMC/SVP-style usage: Super, Analyse backward and forward
 (at both endpoints of an interval for maskmode 2), FlowFPS per output
 frame (MVFlowFPS.c graph construction :693-908).  Every input frame's
 super is built once, in one batch; the intervals' fields of each direction
-are one analyse_batch call (a job comes out exactly as if it had been
+are one analyse_batch call, or on the exact engine both directions' one
+analyse_exact_jobs call (a job comes out exactly as if it had been
 searched alone); then each output frame is synthesised from its interval's
 supers and fields.
 """
@@ -24,7 +25,7 @@ from ..core.config import AnalyseConfig, SuperConfig
 from ..core.types import VideoFormat
 from ..flowfps import FlowFPSConfig, flowfps_frame, output_frame_mapping
 from ..super import build_super
-from .denoise import _analyse_jobs, field_job
+from .denoise import _analyse_both, field_job
 
 
 def frame_plan(t_in: int, fa: Fraction, num_out: int, maskmode: int):
@@ -107,8 +108,8 @@ def flowfps_clip(clip_planes: Sequence, fmt: VideoFormat,
     if keys_b:
         kb = torch.tensor(keys_b, device=dev)
         kf = torch.tensor(keys_f, device=dev)
-        mvs_b = _analyse_jobs(sups, kb, kb + 1, aspec_b, engine)
-        mvs_f = _analyse_jobs(sups, kf + 1, kf, aspec_f, engine)
+        mvs_b, mvs_f = _analyse_both(sups, (kb, kb + 1, aspec_b, 0),
+                                     (kf + 1, kf, aspec_f, 0), engine)
     t2 = mark()
     job_b = {k: i for i, k in enumerate(keys_b)}
     job_f = {k: i for i, k in enumerate(keys_f)}

@@ -5,7 +5,8 @@ the entry points that choose it or its plain version.
   every job walks its level's blocks in the reference's scan order, each
   block's predictors read from the vectors its job has just written
   (the JAX package's search_level, mvtools_tpu/analyse.py:801-975).  On
-  CUDA tensors K6 runs it, one warp per job (exact_scan_kernel); on CPU
+  CUDA tensors K6 runs it, a CTA of eight warps per job that evaluates
+  each search step's candidates at once (exact_scan_kernel); on CPU
   tensors its plain version, exact_engine.search_level.
 * search_blocks — Recalculate's exact search (mvtools_tpu/recalculate.py:
   191-230), every (job, block) an independent item: K6's second entry
@@ -47,11 +48,13 @@ PARAM_NAMES = (
 launches = {"exact_scan": 0, "exact_scan[u16]": 0, "exact_search": 0,
             "exact_search[u16]": 0}
 plain_calls_on_cuda = 0    # plain versions run on CUDA tensors (comparisons)
-# blocks the bad-SAD rescue took in scan_level, and candidate blocks the
-# kernels evaluated, since the last reset: device tensors (or 0), read by
+# blocks the bad-SAD rescue took in scan_level, candidate blocks the
+# kernels evaluated, and the dependent search steps K6's level scans walked
+# (summed over jobs), since the last reset: device tensors (or 0), read by
 # whoever wants them (reading one syncs)
 rescued_blocks = 0
 candidates = 0
+serial_steps = 0
 
 
 def scan_geom(ctx, recalculate: bool = False) -> ee.ScanGeom:
@@ -108,7 +111,7 @@ def _plan_args(plan: dict) -> dict:
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(cuda_build.load("exact_scan"), name)
-    n_ptr = 14 if name == "mvt_exact_scan" else 12
+    n_ptr = 15 if name == "mvt_exact_scan" else 12
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.POINTER(ctypes.c_int),
                                                ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -146,7 +149,7 @@ def scan_level_plain(ctx, plan: dict, vectors_in, gx, gy, zs):
 
 
 def _launch_scan(ctx, plan, vectors_in, gx, gy, zs):
-    global candidates
+    global candidates, serial_steps
     srcs, refs = _planes(ctx)
     g = scan_geom(ctx)
     dev = srcs[0].device
@@ -156,6 +159,7 @@ def _launch_scan(ctx, plan, vectors_in, gx, gy, zs):
     nj = vx.shape[0]
     badcount = torch.empty((nj,), dtype=I32, device=dev)
     n_eval = torch.empty((nj,), dtype=I64, device=dev)
+    n_steps = torch.empty((nj,), dtype=I64, device=dev)
     args = _args(ctx, g, refs, **_plan_args(plan))
     chroma = g.chroma
     err = _on_device(dev, _fn("mvt_exact_scan"), srcs[0].data_ptr(),
@@ -165,12 +169,13 @@ def _launch_scan(ctx, plan, vectors_in, gx, gy, zs):
                      _ptr(refs[2] if chroma else None), vx.data_ptr(),
                      vy.data_ptr(), vs.data_ptr(), gx.data_ptr(),
                      gy.data_ptr(), zs.data_ptr(), badcount.data_ptr(),
-                     n_eval.data_ptr(), args,
+                     n_eval.data_ptr(), n_steps.data_ptr(), args,
                      _stream(dev))
     name = _name("exact_scan", refs[0])
     cuda_build.check_launch(err, name)
     launches[name] += 1
     candidates = candidates + n_eval.sum()
+    serial_steps = serial_steps + n_steps.sum()
     return (vx, vy, vs), badcount
 
 
