@@ -75,6 +75,30 @@ It also holds the block DCT on the card against the CPU on more than a
 million blocks (dct_vs_cpu: not one coefficient may differ) and runs the
 DCT chain at 256x192 on the card against the CPU for each of dct 1-4.
 
+Then the Depan quartet, stabilisation and the command line, at full width
+(the clips made from --seed, default 0):
+
+* stabilise_main_path: models.stabilize.stabilize_clip on 24 frames of
+  1920x1080 YUV420 (a noise texture under a random-walk pan of 1-6 px a
+  frame with fractional steps, a scene cut at frame 12), method 0 and
+  method 1 (prev 1, next 1, mirror 15, bicubic): output frames/s, the
+  CUDA-event ms of estimation and stabilisation, device launches, peak
+  memory; the card's motions against the CPU's (equal correlation peaks,
+  the CPU tests' tolerances, the same untrusted frames) and
+  depan_stabilise given the same motions torch.equal on the card and the
+  CPU;
+* depan_analyse_path: 8 frames of 1920x1080 YUV420 warped by a known
+  motion with rotation and zoom (ops/warp.py), Super -> analyse_batch
+  (lockstep; the SAD map must launch) -> depan_analyse -> depan_compensate:
+  the fitted motion against the known one, host syncs and ms a frame, the
+  motions card against CPU within the CPU tests' tolerance, the
+  compensated planes and the rotation-branch warp torch.equal;
+* cli_main_path: a 10-frame 1080p YUV420 y4m through
+  `python3 -m mvtools_tpu_torch.cli` on the card for degrain3, flowfps,
+  stabilise and depancompensate (frame counts and sizes checked; degrain3
+  and stabilise byte for byte the in-process calls), seconds and frames/s
+  of each; then the three phases' wall seconds (depan_seconds).
+
 Every phase prints one JSON line; any failure raises and the exit code is
 non-zero.  Without a CUDA device it exits non-zero before printing any
 result.  The last line is {"ok": true, "device": {...}}.
@@ -90,7 +114,8 @@ level).
 
     python3 chip_smoke.py --paths-only [--profile] [--package-root DIR]
                           [--sass-out FILE] [--sass-reference FILE]
-                          [--paths gray,yuv,yuv16,satd,dct,fps,pel4]
+                          [--paths gray,yuv,yuv16,satd,dct,fps,pel4,
+                                   exact,fields,depan] [--seed N]
 
 times the 8-bit kernels at the YUV420 and DCT paths' shapes, the
 three-stat per-block probe at the SATD path's level-5 shapes, masked and
@@ -100,7 +125,8 @@ given: the way to compare two trees' kernels, paths and kernel sums in one
 call; --paths runs only the named paths (satd: the Recalculate and the
 SATD Analyse paths; fps: the frame-rate conversion path, skipped for a
 package that has none; pel4: config 2, skipped for a package without
-pel 4).  DIR must hold a package that has the uint16
+pel 4; depan: the stabilisation and Depan paths, skipped for a package
+without them; the command line's phase runs only in the full run).  DIR must hold a package that has the uint16
 kernel forms and Super.take.  --sass-out writes the sass phase's opcode counts as JSON;
 --sass-reference reads such a file (another tree's) and fails unless every
 kernel form of SASS_HELD (all but the three-stat per-block probe) counts
@@ -3413,11 +3439,11 @@ def small_end_to_end_fields(dev):
           "launches": launches})
 
 
-def k6_device_ms(fn, name):
+def k6_device_ms(fn, name=None):
     """((device ms of K6's form `name`, its launches, the device ms of
     every kernel, every kernel's launches) in one traced run of fn(), the
     run's output): torch.profiler; None where the trace shows no device
-    time."""
+    time.  With no `name`, the first two are None and 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3425,7 +3451,8 @@ def k6_device_ms(fn, name):
         out = fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    k6 = [e for e in rows if re.search(EXACT_KERNEL_NAMES[name], e.key)]
+    k6 = [e for e in rows
+          if name is not None and re.search(EXACT_KERNEL_NAMES[name], e.key)]
     us = sum(e.self_device_time_total for e in k6)
     busy = sum(e.self_device_time_total for e in rows)
     return (us / 1e3 if us > 0 else None, sum(e.count for e in k6),
@@ -3686,8 +3713,437 @@ def psnr_vs_exact(dev):
     return res
 
 
+# ---- Depan, stabilisation and the command line (the fifteenth slice) ------
+
+# stabilise_main_path: 24 frames of 1080p YUV420, a random-walk pan of 1-6
+# px a frame with fractional steps, a scene cut at frame 12; the card's
+# stabilisation is held to the CPU's on STAB_CPU_T frames of it.  Besides
+# frame 0 and the cut, DepanEstimate's stage 3 drops a frame whose trust is
+# under 2*trust and under half a neighbour's: on a noise texture a step
+# near half a pixel on both axes spreads the correlation peak (seed 0:
+# frames 4 and 14, trust 7.72 and 7.97 beside 15.58 and 16.15, the JAX
+# package's depan_estimate on the CPU giving the same four frames), so the
+# card's untrusted frames must be the CPU's, the cut among them
+STAB_T, STAB_CUT, STAB_CPU_T = 24, 12, 8
+# depan_analyse_path: 8 frames, each the first warped by k times this
+# motion (dx, dy px, rotation degrees, zoom) about the centre; the fitted
+# motion must come within DEPAN_KNOWN_TOL of it (the reference's descent
+# stops once the error falls by less than 0.005 a step)
+DEPAN_T, DEPAN_KNOWN = 8, (2.6, -1.7, 0.35, 1.006)
+DEPAN_KNOWN_TOL = (0.1, 0.1, 0.1, 0.002)
+# card against CPU: the CPU tests' tolerances
+# (tests/test_torch_depan_estimate.py: EST_TOL, TRUST_TOL relative,
+# ANALYSE_TOL)
+EST_TOL, TRUST_TOL, ANALYSE_TOL = 1e-4, 1e-4, 1e-4
+# cli_main_path: a 10-frame 1080p YUV420 y4m through four pipelines
+CLI_T = 10
+CLI_PIPES = ("degrain3", "flowfps", "stabilise", "depancompensate")
+
+
+def has_depan():
+    """Whether the package driven has the Depan quartet (a tree given by
+    --package-root may predate it)."""
+    try:
+        import mvtools_tpu_torch.depan  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def noise_texture(rng, h, w, dev, smooth):
+    """A uint8-valued float32 noise plane from a numpy generator, box
+    filtered 3x3 where `smooth` (block matching at half a pixel needs a
+    texture the warps can interpolate; phase correlation the raw one)."""
+    t = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(
+        "float32")).to(dev)
+    if smooth:
+        t = torch.nn.functional.avg_pool2d(t[None, None], 3, 1, 1,
+                                           count_include_pad=False)[0, 0]
+    return t
+
+
+def pan_clip_yuv(n, w, h, seed, dev, cut=None):
+    """n YUV420 frames (lists of uint8 planes on `dev`) of a noise texture
+    under a random-walk pan of 1-6 px a frame on each axis with
+    fractional steps (bilinear resampling), turning back beyond 40 px; a
+    new texture from frame `cut` on.  Returns (frames, positions)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    margin = 64
+    tex = noise_texture(rng, h + 2 * margin, w + 2 * margin, dev, False)
+    pos = np.zeros(2)
+    frames, positions = [], []
+    for i in range(n):
+        if i == cut:
+            tex = noise_texture(rng, h + 2 * margin, w + 2 * margin, dev,
+                                False)
+        if i:
+            sign = np.where(pos > 40, -1, np.where(pos < -40, 1,
+                                                   rng.choice([-1, 1], 2)))
+            pos = pos + sign * rng.uniform(1, 6, 2)
+        positions.append(pos.tolist())
+        y0, x0 = margin + pos
+        iy, ix = int(np.floor(y0)), int(np.floor(x0))
+        fy, fx = float(y0 - iy), float(x0 - ix)
+        t = tex
+        y = (t[iy:iy + h, ix:ix + w] * (1 - fy) * (1 - fx)
+             + t[iy + 1:iy + 1 + h, ix:ix + w] * fy * (1 - fx)
+             + t[iy:iy + h, ix + 1:ix + 1 + w] * (1 - fy) * fx
+             + t[iy + 1:iy + 1 + h, ix + 1:ix + 1 + w] * fy * fx)
+        y = y.round().clamp(0, 255).to(torch.uint8)
+        frames.append([y, (y[::2, ::2] // 2 + 40).contiguous(),
+                       (y[1::2, 1::2] // 2 + 60).contiguous()])
+    return frames, positions
+
+
+def event_ms(events):
+    return {k: a.elapsed_time(b) for k, (a, b) in events.items()}
+
+
+def frames_equal(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for fa, fb in zip(a, b)
+               for x, y in zip(fa, fb))
+
+
+def estimate_vs_cpu(luma, ecfg):
+    """depan_estimate on the card and on the CPU: equal peak positions on
+    every frame the CPU trusts (a scene cut's surface has no peak to
+    agree on), dx / dy / zoom within EST_TOL, trust within TRUST_TOL
+    (relative)."""
+    from mvtools_tpu_torch.depan import depan_estimate
+    card = depan_estimate(luma, ecfg, return_correl=True)
+    cpu = depan_estimate(luma.cpu(), ecfg, return_correl=True)
+    trusted = cpu[3] >= ecfg.trust
+    peaks_equal = all(
+        torch.equal(c.reshape(c.shape[0], -1).argmax(1).cpu()[trusted],
+                    p.reshape(p.shape[0], -1).argmax(1)[trusted])
+        for c, p in zip(card[4], cpu[4]))
+    err = {name: float((c.cpu() - p).abs().max())
+           for name, c, p in zip(("dx", "dy", "zoom"), card, cpu)}
+    trust_rel = float(((card[3].cpu() - cpu[3]).abs()
+                       / cpu[3].abs().clamp(min=1e-30)).max())
+    if not peaks_equal or max(err.values()) > EST_TOL \
+            or trust_rel > TRUST_TOL:
+        raise AssertionError(f"depan_estimate card vs CPU: peaks equal "
+                             f"{peaks_equal}, {err}, trust {trust_rel}")
+    return dict(peaks_equal=peaks_equal, peaks_compared=int(trusted.sum()),
+                max_abs_err=err, trust_max_rel_err=trust_rel,
+                cpu_untrusted_frames=[int(k) for k in
+                                      torch.nonzero(cpu[0] == 0)[:, 0]])
+
+
+def run_stabilise_path(dev, seed):
+    """stabilise_main_path: models.stabilize.stabilize_clip on STAB_T
+    frames of 1080p YUV420 (pan_clip_yuv, a cut at STAB_CUT), method 0
+    and method 1 (prev 1, next 1, mirror 15, bicubic); per method one
+    warm-up, then one run with every count set to 0 just before it and
+    read just after (host clock, CUDA events per stage, peak memory), and
+    one traced run for the device launches.  Card against CPU: the motions
+    within the CPU tests' tolerances, and depan_stabilise given the same
+    motions torch.equal on the first STAB_CPU_T frames."""
+    import numpy as np
+
+    from mvtools_tpu_torch import depan
+    from mvtools_tpu_torch.models.stabilize import stabilize_clip
+    frames, positions = pan_clip_yuv(STAB_T, W, H, seed, dev, STAB_CUT)
+    ecfg = depan.DepanEstimateConfig()
+    luma = torch.stack([f[0] for f in frames]).to(torch.float32)
+    vs_cpu = {"estimate": estimate_vs_cpu(luma, ecfg)}
+    res = {"phase": "stabilise_main_path", "size": [W, H],
+           "format": "YUV420", "frames": STAB_T, "cut_at": STAB_CUT,
+           "seed": seed, "methods": {}}
+    for method, kw in ((0, {}), (1, dict(prev=1, next=1, mirror=15,
+                                         subpixel=2))):
+        scfg = depan.DepanStabiliseConfig(method=method, **kw)
+
+        def run(info=None):
+            return stabilize_clip(frames, ecfg, scfg, 1, 1, info=info)
+
+        run()                                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        info = {}
+        t0 = time.perf_counter()
+        out = run(info)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        (_, _, busy_ms, launches), _ = k6_device_ms(run)
+        motions = info["motions"]
+        if (len(out) != STAB_T or any(
+                p.shape != q.shape or p.dtype != torch.uint8
+                or p.device.type != dev.type
+                for fo, fi in zip(out, frames) for p, q in zip(fo, fi))):
+            raise AssertionError("stabilise_main_path: output shape")
+        untrusted = [int(k) for k in np.flatnonzero(motions[:, 0] == 0)]
+        if (untrusted != vs_cpu["estimate"]["cpu_untrusted_frames"]
+                or STAB_CUT not in untrusted):
+            raise AssertionError(f"stabilise_main_path: untrusted frames "
+                                 f"{untrusted}, the CPU's {vs_cpu}")
+        if plain_calls_on_cuda():
+            raise AssertionError("stabilise_main_path: a plain version ran "
+                                 "on the card")
+        # card against CPU: the same motions, the same frames
+        short = motions[:STAB_CPU_T]
+        card = depan.depan_stabilise(frames[:STAB_CPU_T], short, scfg, 1, 1)
+        cpu = depan.depan_stabilise([[p.cpu() for p in f]
+                                     for f in frames[:STAB_CPU_T]], short,
+                                    scfg, 1, 1)
+        if not frames_equal(card, cpu):
+            raise AssertionError(f"stabilise_main_path: method {method}, "
+                                 "card and CPU differ")
+        steps = np.diff(np.array(positions), axis=0)
+        res["methods"][str(method)] = {
+            "config": dict(method=method, **kw),
+            "frames_per_s": STAB_T / seconds, "seconds": seconds,
+            "stage_ms": event_ms(info.get("events", {})),
+            "device_launches": launches, "device_busy_ms": busy_ms,
+            "repo_kernel_launches": counts, "peak_memory_bytes": peak,
+            "trusted_motions": STAB_T - len(untrusted),
+            "untrusted_frames": untrusted,
+            "dx_first": [round(float(v), 4) for v in motions[1:5, 0]],
+            "pan_steps_first": [round(float(-v), 4) for v in steps[:4, 1]],
+            "card_vs_cpu_stabilise_equal_frames": STAB_CPU_T}
+    res["card_vs_cpu"] = vs_cpu
+    emit(res)
+    return res
+
+
+def run_depan_analyse_path(dev, seed):
+    """depan_analyse_path: DEPAN_T frames of 1080p YUV420, frame k the
+    first warped by k times DEPAN_KNOWN (ops/warp.py's bicubic, mirrored
+    edges); Super -> analyse_batch (lockstep: K1, and K2 where a block
+    goes bad) on the forward pairs (k, k - 1) -> depan_analyse (zoom and
+    rotation on) -> depan_compensate (offset -1: frame k + 1 brought back
+    onto frame k), with every count set to 0 just before and read just
+    after.  Card against CPU: the motion of every pair within ANALYSE_TOL,
+    the compensated planes given the same motions torch.equal, and the
+    rotation-branch warp in each subpixel mode torch.equal."""
+    import numpy as np
+
+    from mvtools_tpu_torch import depan
+    from mvtools_tpu_torch.models.denoise import field_job
+    from mvtools_tpu_torch.ops import warp
+    rng = np.random.default_rng(seed + 1)
+    first = [noise_texture(rng, H >> s, W >> s, dev, True).round().to(
+        torch.uint8) for s in (0, 1, 1)]
+    step = warp.motion2transform(*DEPAN_KNOWN[:2], DEPAN_KNOWN[2],
+                                 DEPAN_KNOWN[3], 1.0, W / 2, H / 2, True,
+                                 1.0)
+    tr = warp.null_transform()
+    frames = []
+    for k in range(DEPAN_T):
+        frames.append([warp.warp_plane(
+            p, warp.transform_for_plane(tr, 1, 1) if i else tr, 2, 15, -1,
+            0, 255) for i, p in enumerate(first)])
+        tr = warp.sumtransform(tr, step)
+    # the rotation branch card against CPU, each subpixel mode
+    rot_equal = all(torch.equal(
+        warp.warp_plane(first[0], step, sp, 15, -1, 2, 255).cpu(),
+        warp.warp_plane(first[0].cpu(), step, sp, 15, -1, 2, 255))
+        for sp in (0, 1, 2))
+    if not warp.is_rotation(step) or not rot_equal:
+        raise AssertionError("depan_analyse_path: the rotation warp differs "
+                             "card against CPU")
+
+    scfg, acfg, _, _ = flagship_configs()
+    fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
+    sspec = scfg.validate(fmt)
+    aspec = dataclasses.replace(acfg, isb=False).validate(sspec)
+    clip = [torch.stack([f[p] for f in frames]) for p in range(3)]
+    src = torch.arange(1, DEPAN_T, device=dev)
+    cfg = depan.DepanAnalyseConfig()
+    ccfg = depan.DepanCompensateConfig(offset=-1.0)
+
+    def chain(events=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        sups = build_super(clip, sspec)
+        ev[1].record()
+        mv = analyse_batch(sups.take(src), sups.take(src - 1), aspec)
+        ev[2].record()
+        motions = np.zeros((DEPAN_T, 4), np.float32)
+        motions[0] = (0.0, 0.0, 1.0, 0.0)
+        for j in range(DEPAN_T - 1):
+            motions[j + 1] = depan.depan_analyse(field_job(mv, j), aspec.meta,
+                                                 cfg)
+        ev[3].record()
+        comp = [depan.depan_compensate(frames[k + 1], motions, k, DEPAN_T,
+                                       ccfg, 1, 1) for k in range(DEPAN_T - 1)]
+        ev[4].record()
+        if events is not None:
+            events.update(super=(ev[0], ev[1]), analyse=(ev[1], ev[2]),
+                          depan_analyse=(ev[2], ev[3]),
+                          depan_compensate=(ev[3], ev[4]))
+        return mv, motions, comp
+
+    chain()                                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    syncs0 = depan.host_syncs
+    events = {}
+    t0 = time.perf_counter()
+    mv, motions, comp = chain(events)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    syncs = depan.host_syncs - syncs0
+    peak = torch.cuda.max_memory_allocated()
+    if counts["sad_map"] < 1 or plain_calls_on_cuda():
+        raise AssertionError(f"depan_analyse_path: {counts}")
+    err = np.abs(motions[1:] - np.array([DEPAN_KNOWN[0], DEPAN_KNOWN[1],
+                                         DEPAN_KNOWN[3], DEPAN_KNOWN[2]],
+                                        np.float32)).max(axis=0)
+    tol = np.array([DEPAN_KNOWN_TOL[0], DEPAN_KNOWN_TOL[1],
+                    DEPAN_KNOWN_TOL[3], DEPAN_KNOWN_TOL[2]])
+    if (err > tol).any():
+        raise AssertionError(f"depan_analyse_path: fitted motions {motions} "
+                             f"against {DEPAN_KNOWN}")
+    # compensation brings frame k + 1 back onto frame k: inside a 64 px
+    # margin the compensated frame is closer to frame k than frame k + 1 is
+    inner = (slice(64, H - 64), slice(64, W - 64))
+
+    def mad(a, b):
+        return float((a[inner].float() - b[inner].float()).abs().mean())
+
+    before = [mad(frames[k + 1][0], frames[k][0]) for k in range(DEPAN_T - 1)]
+    after = [mad(comp[k][0], frames[k][0]) for k in range(DEPAN_T - 1)]
+    if not all(a < b / 2 for a, b in zip(after, before)):
+        raise AssertionError(f"depan_analyse_path: compensation {after} "
+                             f"against {before}")
+    # card against CPU: the motions, and the compensation given them
+    def cpu_field(j):
+        f = field_job(mv, j)
+        return MVField(tuple(MVPlaneField(l.x.cpu(), l.y.cpu(), l.sad.cpu())
+                             for l in f.levels), f.validity.cpu(), f.meta)
+
+    cpu_motion_err = max(
+        float(np.abs(np.array(depan.depan_analyse(cpu_field(j), aspec.meta,
+                                                  cfg))
+                     - motions[j + 1]).max())
+        for j in range(DEPAN_T - 1))
+    if cpu_motion_err > ANALYSE_TOL:
+        raise AssertionError(f"depan_analyse_path: the CPU's motions differ "
+                             f"by {cpu_motion_err}")
+    comp_equal = all(frames_equal(
+        [comp[k]], [depan.depan_compensate([p.cpu() for p in frames[k + 1]],
+                                           motions, k, DEPAN_T, ccfg, 1, 1)])
+        for k in (0, DEPAN_T - 2))
+    if not comp_equal:
+        raise AssertionError("depan_analyse_path: compensation differs card "
+                             "against CPU")
+    ms = event_ms(events)
+    res = {"phase": "depan_analyse_path", "size": [W, H], "format": "YUV420",
+           "frames": DEPAN_T, "pairs": DEPAN_T - 1,
+           "known_motion": dict(zip(("dx", "dy", "rot", "zoom"),
+                                    DEPAN_KNOWN)),
+           "fitted_motions": [[round(float(v), 5) for v in m]
+                              for m in motions[1:]],
+           "fitted_max_abs_err": dict(zip(("dx", "dy", "zoom", "rot"),
+                                          map(float, err))),
+           "host_syncs_per_frame": syncs / (DEPAN_T - 1),
+           "depan_analyse_ms_per_frame": ms["depan_analyse"] / (DEPAN_T - 1),
+           "depan_compensate_ms_per_frame":
+               ms["depan_compensate"] / (DEPAN_T - 1),
+           "stage_ms": ms, "seconds": seconds,
+           "frames_per_s": (DEPAN_T - 1) / seconds,
+           "launches": counts, "peak_memory_bytes": peak,
+           "compensated_mean_abs_diff": after,
+           "uncompensated_mean_abs_diff": before,
+           "card_vs_cpu": {"motion_max_abs_err": cpu_motion_err,
+                           "compensate_equal": comp_equal,
+                           "rotation_warp_equal": rot_equal}}
+    emit(res)
+    return res
+
+
+def run_cli_path(dev, seed):
+    """cli_main_path: a 1080p YUV420 y4m of CLI_T frames (pan_clip_yuv)
+    in a temporary directory through `python3 -m mvtools_tpu_torch.cli`
+    on the card for each of CLI_PIPES: every output a y4m of the right
+    frame count and size; degrain3 and stabilise byte for byte the
+    in-process calls of the same functions on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from mvtools_tpu_torch.core.config import (AnalyseConfig as AC,
+                                               SuperConfig as SC)
+    from mvtools_tpu_torch.depan import DepanStabiliseConfig
+    from mvtools_tpu_torch.io import Y4MReader, Y4MWriter
+    from mvtools_tpu_torch.models.denoise import degrain_n_frame
+    from mvtools_tpu_torch.models.stabilize import stabilize_clip
+    frames, _ = pan_clip_yuv(CLI_T, W, H, seed + 2, dev, CLI_T - 3)
+    res = {"phase": "cli_main_path", "size": [W, H], "format": "YUV420",
+           "frames_in": CLI_T, "runs": {}}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.y4m")
+        with Y4MWriter(src, W, H, (30, 1), 2, 2, 8, 3) as wr:
+            for f in frames:
+                wr.write(f)
+        outs = {}
+        for pipe in CLI_PIPES:
+            out = os.path.join(tmp, f"{pipe}.y4m")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mvtools_tpu_torch.cli", pipe, src,
+                 out], cwd=root, capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {pipe}: {proc.stderr[-3000:]}")
+            with Y4MReader(out) as rd:
+                shape = (rd.width, rd.height, rd.planes, rd.sub_w, rd.sub_h)
+                got = list(rd)
+            want_n = 2 * CLI_T - 1 if pipe == "flowfps" else CLI_T
+            if shape != (W, H, 3, 2, 2) or len(got) != want_n:
+                raise AssertionError(f"cli {pipe}: {shape}, {len(got)} "
+                                     "frames")
+            outs[pipe] = got
+            res["runs"][pipe] = {
+                "frames_out": len(got), "process_seconds": seconds,
+                "frames_per_s": len(got) / seconds,
+                "summary": proc.stderr.strip().splitlines()[-1]}
+    # the same functions in this process, on the card
+    scfg = SC(pel=2, levels=0, chroma=True)
+    fmt = VideoFormat(W, H, 8, ColorFamily.YUV420)
+    sspec = scfg.validate(fmt)
+    acfg = AC(blksize=16, levels=0, truemotion=True, chroma=True)
+    aspec_b = dataclasses.replace(acfg, isb=True).validate(sspec)
+    aspec_f = dataclasses.replace(acfg, isb=False).validate(sspec)
+    dcfg = DegrainConfig(thsad=400)
+    same = {}
+    for i in range(CLI_T):
+        prevs = [frames[max(i - k, 0)] for k in (1, 2, 3)]
+        nexts = [frames[min(i + k, CLI_T - 1)] for k in (1, 2, 3)]
+        out = degrain_n_frame(frames[i], prevs, nexts, sspec, aspec_b,
+                              aspec_f, dcfg,
+                              valid_b=[i + k <= CLI_T - 1 for k in (1, 2, 3)],
+                              valid_f=[i - k >= 0 for k in (1, 2, 3)],
+                              field_shift_b=[0] * 3, field_shift_f=[0] * 3)
+        if not all(np.array_equal(p.cpu().numpy(), q)
+                   for p, q in zip(out, outs["degrain3"][i])):
+            raise AssertionError(f"cli degrain3: frame {i} differs from the "
+                                 "in-process call")
+    same["degrain3"] = CLI_T
+    stab = stabilize_clip(frames, scfg=DepanStabiliseConfig(fps=30.0),
+                          sub_w=1, sub_h=1)
+    for i, f in enumerate(stab):
+        if not all(np.array_equal(p.cpu().numpy(), q)
+                   for p, q in zip(f, outs["stabilise"][i])):
+            raise AssertionError(f"cli stabilise: frame {i} differs from the "
+                                 "in-process call")
+    same["stabilise"] = CLI_T
+    res["equal_to_in_process_frames"] = same
+    emit(res)
+    return res
+
+
 PATHS = ("gray", "yuv", "yuv16", "satd", "dct", "fps", "pel4", "exact",
-         "fields")
+         "fields", "depan")
 
 
 def main():
@@ -3942,6 +4398,28 @@ def main():
         emit({"phase": "fields_main_path", "skipped": "the package driven "
               "(--package-root) has no interlaced input"})
 
+    # ---- Depan, stabilisation and the command line at full width --------
+    seed = int(arg_value("--seed") or 0)
+    if not wants("depan"):
+        pass
+    elif has_depan():
+        t_phase = [time.perf_counter()]
+        stab = run_stabilise_path(dev, seed)
+        t_phase.append(time.perf_counter())
+        depan_path = run_depan_analyse_path(dev, seed)
+        t_phase.append(time.perf_counter())
+        if not paths_only:
+            run_cli_path(dev, seed)
+            t_phase.append(time.perf_counter())
+        emit({"phase": "depan_seconds", "seconds": dict(zip(
+            ("stabilise_main_path", "depan_analyse_path", "cli_main_path"),
+            (b - a for a, b in zip(t_phase, t_phase[1:]))))})
+    elif not paths_only:
+        raise AssertionError("the package has no Depan quartet")
+    else:
+        emit({"phase": "stabilise_main_path", "skipped": "the package "
+              "driven (--package-root) has no Depan quartet"})
+
     if paths_only:
         emit({"phase": "done", "paths_only": True,
               "seconds": time.perf_counter() - t_start})
@@ -3960,7 +4438,10 @@ def main():
                "exact_main_path": exact["exact_main_path"]["launches"],
                "exact_main_path16": exact["exact_main_path16"]["launches"],
                "exact_recalc_path": exact["exact_recalc_path"]["launches"],
-               "fields_main_path": fields["launches"]}
+               "fields_main_path": fields["launches"],
+               "stabilise_main_path":
+                   stab["methods"]["0"]["repo_kernel_launches"],
+               "depan_analyse_path": depan_path["launches"]}
 
     def entry(name, source, replaces, case, path="yuv_main_path"):
         return dict(name=name, route="cuda", source=source,

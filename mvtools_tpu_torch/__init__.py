@@ -33,11 +33,18 @@ flowfps.flowfps_frame, flowinter.flowinter, flow.flow (fetch and shift),
 flowblur.flowblur, blockfps.blockfps_frame, compensate.compensate,
 scdetect.scdetect and mask.mask, over finest.finest, flowutils and
 ops/{resize,maskfun}.py.  The consumers' per-pixel gathers are plain torch
-ops; their block fetches go through the fetch kernels.  Not ported: the
-exact engine with dct 1-10; Super's sharp 0/1, rfilter 0/1/3/4 and pelclip;
-at 9 to 16 bits Recalculate and dct 1-10; Depan and stabilisation; the MV
-blob codec, pipelines, io and the mesh.  Each raises NotImplementedError or
-is absent.
+ops; their block fetches go through the fetch kernels.  The Depan quartet
+(depan_analyse, depan_estimate, depan_compensate, depan_stabilise, over
+ops/warp.py) and models.stabilize.stabilize_clip: the transform algebra on
+the host in numpy float32, the warps, the FFT correlation and the
+least-squares fit in plain torch on the device.  The host side: the MV blob
+codec (core/codec.py, the JAX codec's bytes), y4m I/O (io/, a ctypes
+binding to native/y4m.cc built at first use), pipelines.DegrainPipeline,
+and the command line, `python -m mvtools_tpu_torch.cli`, with the 18
+pipelines of tools/mvtools_run.py.  Not ported: the exact engine with dct
+1-10; Super's sharp 0/1, rfilter 0/1/3/4 and pelclip; at 9 to 16 bits
+Recalculate and dct 1-10; utils/profiling.py and the mesh.  Each raises
+NotImplementedError or is absent.
 
 Precision: the pipeline is integer (pixels uint8 or uint16, block math
 int32, costs
@@ -56,7 +63,7 @@ from .core.types import (  # noqa: F401
     SearchType,
 )
 from .core.config import SuperConfig, AnalyseConfig  # noqa: F401
-from .super import Super, build_super  # noqa: F401
+from .super import Super, SuperClip, build_super  # noqa: F401
 from .analyse import analyse, analyse_batch  # noqa: F401
 from .recalculate import RecalculateConfig, recalculate  # noqa: F401
 from .flowfps import FlowFPSConfig, flowfps_frame  # noqa: F401
@@ -68,6 +75,16 @@ from .compensate import CompensateConfig  # noqa: F401
 from .scdetect import SCDetectionConfig  # noqa: F401
 from .mask import MaskConfig  # noqa: F401
 from .models.frc import flowfps_clip  # noqa: F401
+from .depan import (  # noqa: F401
+    DepanAnalyseConfig,
+    DepanCompensateConfig,
+    DepanEstimateConfig,
+    DepanStabiliseConfig,
+    depan_analyse,
+    depan_compensate,
+    depan_estimate,
+    depan_stabilise,
+)
 
 __all__ = [
     "AnalysisMeta", "MVField", "MVPlaneField", "SearchType", "SuperConfig",
@@ -75,7 +92,9 @@ __all__ = [
     "RecalculateConfig", "recalculate", "FlowFPSConfig", "flowfps_frame",
     "flowfps_clip", "FlowInterConfig", "FlowConfig", "FlowBlurConfig",
     "BlockFPSConfig", "blockfps_frame", "CompensateConfig",
-    "SCDetectionConfig", "MaskConfig",
+    "SCDetectionConfig", "MaskConfig", "SuperClip", "DepanAnalyseConfig",
+    "DepanCompensateConfig", "DepanEstimateConfig", "DepanStabiliseConfig",
+    "depan_analyse", "depan_compensate", "depan_estimate", "depan_stabilise",
 ]
 
 __version__ = "0.1.0"

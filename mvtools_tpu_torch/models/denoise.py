@@ -137,11 +137,22 @@ def degrain_n_frame(cur_planes, prev_list, next_list, sspec: SuperSpec,
     engine, one call for both on the exact engine (_analyse_both; a job
     comes out as if searched alone)."""
     _check_ported(aspec_b, sspec, engine)
-    radius = len(prev_list)
     frames = [list(cur_planes)] + [list(p) for p in next_list] \
         + [list(p) for p in prev_list]
     sups = build_super([torch.stack([f[p] for f in frames])
                         for p in range(len(cur_planes))], sspec)
+    return degrain_n_supers(cur_planes, sups, len(prev_list), aspec_b,
+                            aspec_f, dcfg, engine, valid_b, valid_f,
+                            field_shift_b, field_shift_f)
+
+
+def degrain_n_supers(cur_planes, sups, radius: int, aspec_b: AnalyseSpec,
+                     aspec_f: AnalyseSpec, dcfg: DegrainConfig,
+                     engine: str = "lockstep", valid_b=None, valid_f=None,
+                     field_shift_b=None, field_shift_f=None):
+    """degrain_n_frame given the supers already built: `sups` a batch of
+    1 + 2*radius frames, frame n first, then n+1 .. n+radius, then n-1 ..
+    n-radius."""
     dev = cur_planes[0].device
     cur = torch.zeros(radius, dtype=torch.long, device=dev)
     nxt = torch.arange(1, radius + 1, device=dev)
@@ -252,7 +263,8 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
                  acfg: AnalyseConfig = AnalyseConfig(),
                  dcfg: DegrainConfig = DegrainConfig(), radius: int = 1,
                  engine: str = "exact", mesh=None, spatial=None,
-                 info: Optional[dict] = None) -> List[torch.Tensor]:
+                 info: Optional[dict] = None,
+                 clamp_edges: bool = False) -> List[torch.Tensor]:
     """Denoise a whole clip with temporal radius N.
 
     clip_planes: [T, H, W] per color plane ([Y] or [Y, U, V]), uint8, or
@@ -264,7 +276,9 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
     with frame t +- k), and on the exact engine both directions' pairs one
     analyse_exact_jobs call; degrain runs batched over the frames with its
     references in Backward1, Forward1, Backward2, ... order.  Frames near
-    the clip edges mark the missing neighbours invalid instead of wrapping.
+    the clip edges mark the missing neighbours invalid instead of wrapping;
+    with clamp_edges a missing neighbour is the edge frame at full weight,
+    as DegrainPipeline.run_clip has it.
 
     engine: "exact" (the default, as in the JAX package: every pair its
     own sequential block scan, bit for bit the reference's) or "lockstep".
@@ -329,7 +343,8 @@ def degrain_clip(clip_planes: Sequence[torch.Tensor], fmt: VideoFormat,
         sups_r += [sups.take(nxt[sl]), sups.take(prv[sl])]
         mvs += [delta(mvs_b, k), delta(mvs_f, k)]
         valid += [next_ok[:, k], prev_ok[:, k]]
-    out = degrain(clip_planes, sups_r, mvs, aspec_b.meta, dcfg, valid=valid)
+    out = degrain(clip_planes, sups_r, mvs, aspec_b.meta, dcfg,
+                  valid=None if clamp_edges else valid)
     t3 = mark()
     if info is not None:
         info["fields_b"], info["fields_f"] = mvs_b, mvs_f

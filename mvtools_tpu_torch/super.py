@@ -68,6 +68,11 @@ class Super:
                 f"planes={self.num_planes})")
 
 
+# A clip of super frames: the same object with a leading frame axis on every
+# plane tensor.
+SuperClip = Super
+
+
 def _plane_geometries(spec: SuperSpec, plane: int) -> List[geometry.LevelGeometry]:
     geos = geometry.level_geometries(
         spec.width, spec.height, spec.hpad, spec.vpad, spec.pel,

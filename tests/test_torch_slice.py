@@ -105,7 +105,11 @@ def test_port_imports_without_jax_installed():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['triton'] = None; "
             "import mvtools_tpu_torch, mvtools_tpu_torch.convert, "
-            "mvtools_tpu_torch.models.denoise, mvtools_tpu_torch.ops.sadmap; "
+            "mvtools_tpu_torch.models.denoise, mvtools_tpu_torch.ops.sadmap, "
+            "mvtools_tpu_torch.depan, mvtools_tpu_torch.ops.warp, "
+            "mvtools_tpu_torch.models.stabilize, "
+            "mvtools_tpu_torch.core.codec, mvtools_tpu_torch.io, "
+            "mvtools_tpu_torch.pipelines, mvtools_tpu_torch.cli; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m, v in sys.modules.items() if v is not None)")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
